@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's LOCAL alignment path once on one CUDA card.
+"""Drive the PyTorch port's alignment paths once on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout.  Phases, one line each:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA;
-2. build    nvcc builds every kernel of the path from csrc/;
+2. build    nvcc builds every kernel from csrc/, one nvcc per source,
+            all started together;
 3. parity   each kernel against its plain PyTorch version on the card,
-            integer-equal: B=4096+37 at 152x152 (ACGT only, has_n True
-            and False) and B=1000 in the 216x328 bucket with Ns;
+            integer-equal: B=4096+37 at 152x152 (ACGT only; LOCAL with
+            has_n True and False) and B=1000 in the 216x328 bucket with
+            Ns: local_sw SCORE/END/TB, global_sw SCORE/TB, semiglobal_sw
+            END for all 16 HEAD x TAIL and TB for NONE/NONE,
+            TARGET/TARGET, QUERY/QUERY and BOTH/BOTH, and the LOCAL,
+            GLOBAL and SEMI_GLOBAL walks;
 4. slice    20,000 GASAL2-shaped pairs (150 bp reads cut from 200-300 bp
             targets, ~2% substitutions, ~0.5% 1-3 bp indels, a few Ns)
-            through AlignEngine(device="cuda") with traceback, with ends
-            only and score-only, with every kernel's launch count read
-            around that run; checked against the CPU engine on 2,048
-            pairs and the pure-Python gold on 64;
+            through AlignEngine(device="cuda"), every kernel's launch
+            count set to 0 just before and read just after each path:
+            LOCAL with traceback, ends only and score-only; then GLOBAL
+            and SEMI_GLOBAL glocal (head=tail=TARGET), each with and
+            without traceback.  Checked against the CPU engine (every
+            field, CIGAR bytes included) and the pure-Python golds, plus
+            one GLOBAL run with models/assembly.py's scoring;
 5. timings  each kernel and its plain version on the card at bench.py's
             shape (B=65,536, 152x152), and the engine's pairs/s.
 
@@ -36,6 +44,8 @@ import torch
 
 BENCH_B, BENCH_L = 65536, 152
 PAIRS = 20000  # GASAL2's test program aligns 20,000 reads
+CPU_CHECK = 1024  # pairs of each traceback run held to the CPU engine
+GOLD_CHECK = 64   # pairs held to the pure-Python gold
 
 
 def log(phase: str, msg: str):
@@ -64,8 +74,9 @@ def max_abs_err(got, want) -> int:
 
 
 def random_codes(rng, B, Lq, Lt, n_rate, related=True):
-    """[B, L] uint8 4-bit codes; half the pairs related (~8% mismatch),
-    random lengths padded with N4, in-sequence Ns at n_rate."""
+    """(q, t, qlen, tlen): [B, L] uint8 4-bit codes, half the pairs
+    related (~8% mismatch), random lengths padded with N4, in-sequence Ns
+    at n_rate, and the lengths as int32 [B]."""
     acgt = np.array([1, 3, 7, 4], np.uint8)
     q = acgt[rng.integers(0, 4, (B, Lq))]
     t = acgt[rng.integers(0, 4, (B, Lt))]
@@ -81,7 +92,7 @@ def random_codes(rng, B, Lq, Lt, n_rate, related=True):
     tl = rng.integers(Lt // 2, Lt + 1, B)
     q[np.arange(Lq)[None, :] >= ql[:, None]] = 14
     t[np.arange(Lt)[None, :] >= tl[:, None]] = 14
-    return q, t
+    return q, t, ql.astype(np.int32), tl.astype(np.int32)
 
 
 def gasal_pairs(rng, n):
@@ -116,6 +127,40 @@ def gasal_pairs(rng, n):
     return qs, ts
 
 
+def zero_counts(*counts):
+    for c in counts:
+        for k in c:
+            c[k] = 0
+
+
+def assert_jobs_equal(got, want, what: str):
+    """Every AlignmentJob field, CIGAR bytes included."""
+    for k, (a, b) in enumerate(zip(got, want)):
+        for f in ("score", "query_end", "target_end", "query_start",
+                  "target_start", "score_second", "query_end_second",
+                  "target_end_second"):
+            if getattr(a, f) != getattr(b, f):
+                raise AssertionError(f"{what}, pair {k}: {f} differs from "
+                                     f"the CPU engine ({a} vs {b})")
+        if (a.cigar is None) != (b.cigar is None) or (
+                a.cigar is not None and not np.array_equal(a.cigar, b.cigar)):
+            raise AssertionError(f"{what}, pair {k}: CIGAR differs from "
+                                 f"the CPU engine")
+
+
+def cigar_spans(cigar: str) -> tuple[int, int]:
+    """(query bases, target bases) a CIGAR string covers."""
+    n = {"M": 0, "X": 0, "D": 0, "I": 0}
+    num = 0
+    for ch in cigar:
+        if ch.isdigit():
+            num = num * 10 + int(ch)
+        else:
+            n[ch] += num
+            num = 0
+    return n["M"] + n["X"] + n["I"], n["M"] + n["X"] + n["D"]
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of fn() over reps launches, after one warm-up."""
     fn()
@@ -139,10 +184,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from genomics_tpu_torch import AlignEngine, AlignmentParams, _build
+    from genomics_tpu_torch import AlgoType, AlignEngine, AlignmentParams, _build
     from genomics_tpu_torch.core import golds
+    from genomics_tpu_torch.core.scoring import SemiGlobalSkip
     from genomics_tpu_torch.ops import cuda_align, tb_walk
-    from genomics_tpu_torch.ops.scan_align import local_align_batch
+    from genomics_tpu_torch.ops.scan_align import (
+        global_align_batch,
+        local_align_batch,
+        semiglobal_align_batch,
+    )
+    from genomics_tpu_torch.runtime.dispatch import walk_start
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
@@ -150,87 +201,130 @@ def main() -> int:
     log("1 device", f"{smi} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | cards visible {torch.cuda.device_count()}")
     P = AlignmentParams()
+    PG = AlignmentParams(algo=AlgoType.GLOBAL)
+    PS = AlignmentParams(algo=AlgoType.SEMI_GLOBAL)
+    SKIPS = [SemiGlobalSkip.NONE, SemiGlobalSkip.QUERY,
+             SemiGlobalSkip.TARGET, SemiGlobalSkip.BOTH]
+    GLOCAL = SemiGlobalSkip.TARGET   # head = tail = TARGET: read in target
 
     # -- 2. build ---------------------------------------------------------
     for lib in _build.BUILD_DIR.glob("lib*.so"):
         lib.unlink()                    # build from this checkout's sources
     t0 = time.time()
+    _build.build_all()
     for name in _build.KERNELS:
         _build.library(name)
     build_s = time.time() - t0
-    regs = []
-    for name in _build.KERNELS:
-        for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                regs.append(f"{name}: {line.strip()}")
     log("2 build", f"{len(_build.KERNELS)} kernels built in {build_s:.1f} s "
-        f"(nvcc {' '.join(_build.NVCC_FLAGS[:2])})")
-    for line in regs:
-        log("2 build", line)
+        f"(nvcc {' '.join(_build.NVCC_FLAGS[:2])}, one process per source)")
+    for name in _build.KERNELS:
+        lines = (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
+        regs = sorted({int(ln.split("Used ")[1].split()[0])
+                       for ln in lines if "Used " in ln})
+        spilled = sum("spill" in ln and "0 bytes spill stores, 0 bytes spill "
+                      "loads" not in ln for ln in lines)
+        log("2 build", f"{name}: {sum('Compiling entry' in ln for ln in lines)}"
+            f" entry points, {regs[0]}-{regs[-1]} registers, {spilled} "
+            f"with spills")
 
     # -- 3. each kernel against its plain version, on the card ------------
-    err = {"local_sw.score": 0, "local_sw.end": 0, "local_sw.tb": 0,
-           "tb_walk": 0}
+    err = {k: 0 for k in ("local_sw.score", "local_sw.end", "local_sw.tb",
+                          "tb_walk", "global_sw.score", "global_sw.tb",
+                          "semiglobal_sw.end", "semiglobal_sw.tb",
+                          "tb_walk.global", "tb_walk.semiglobal")}
     rng = np.random.default_rng(args.seed)
     cases = [("B=4133 152x152 ACGT", 4096 + 37, 152, 152, 0.0),
              ("B=1000 216x328 with Ns", 1000, 216, 328, 0.01)]
     for label, B, Lq, Lt, n_rate in cases:
-        qn, tn = random_codes(rng, B, Lq, Lt, n_rate)
+        qn, tn, qln, tln = random_codes(rng, B, Lq, Lt, n_rate)
         q, t = torch.from_numpy(qn).to(dev), torch.from_numpy(tn).to(dev)
+        ql, tl = torch.from_numpy(qln).to(dev), torch.from_numpy(tln).to(dev)
+        e = {}
+        # LOCAL
         plain_tb = local_align_batch(q, t, P, with_tb=True)
         got_end = cuda_align.local_align(q, t, P)
         got_tb = cuda_align.local_align(q, t, P, with_tb=True)
-        e_end = max_abs_err(got_end[:3], plain_tb[:3])
-        e_tb = max_abs_err(got_tb, plain_tb)
-        e_score = max_abs_err(
+        e["local_sw.end"] = max_abs_err(got_end[:3], plain_tb[:3])
+        e["local_sw.tb"] = max_abs_err(got_tb, plain_tb)
+        e["local_sw.score"] = max_abs_err(
             [cuda_align.local_align_scores(q, t, P, has_n=True)],
             [plain_tb.score])
         if n_rate == 0.0:   # only padding Ns: the has_n=False contract holds
-            e_score = max(e_score, max_abs_err(
+            e["local_sw.score"] = max(e["local_sw.score"], max_abs_err(
                 [cuda_align.local_align_scores(q, t, P, has_n=False),
                  cuda_align.local_align_scores_tm(
                      q.T.contiguous(), t.T.contiguous(), P, has_n=False)],
                 [plain_tb.score] * 2))
         walk_args = (got_tb.tb, got_tb.score, got_tb.query_end,
                      got_tb.target_end, P)
-        e_walk = max_abs_err(tb_walk.tb_walk(*walk_args),
-                             tb_walk.tb_walk_plain(*walk_args))
+        e["tb_walk"] = max_abs_err(tb_walk.tb_walk(*walk_args),
+                                   tb_walk.tb_walk_plain(*walk_args))
+        # GLOBAL
+        plain_g = global_align_batch(q, t, ql, tl, PG, with_tb=True)
+        got_g = cuda_align.global_align(q, t, ql, tl, PG, with_tb=True)
+        e["global_sw.tb"] = max_abs_err(got_g, plain_g)
+        e["global_sw.score"] = max_abs_err(
+            cuda_align.global_align(q, t, ql, tl, PG)[:3], plain_g[:3])
+        walk_args = (got_g.tb, got_g.score, ql, tl, PG, "global")
+        e["tb_walk.global"] = max_abs_err(tb_walk.tb_walk(*walk_args),
+                                          tb_walk.tb_walk_plain(*walk_args))
+        # SEMI_GLOBAL: ends for all 16 skips, traceback for head == tail
+        e["semiglobal_sw.end"] = e["semiglobal_sw.tb"] = 0
+        e["tb_walk.semiglobal"] = 0
+        for head in SKIPS:
+            for tail in SKIPS:
+                kw = dict(head=head, tail=tail)
+                e["semiglobal_sw.end"] = max(e["semiglobal_sw.end"], max_abs_err(
+                    cuda_align.semiglobal_align(q, t, ql, tl, PS, **kw),
+                    semiglobal_align_batch(q, t, ql, tl, PS, **kw)[:3]))
+            got_s = cuda_align.semiglobal_align(q, t, ql, tl, PS, head=head,
+                                                tail=head, with_tb=True)
+            e["semiglobal_sw.tb"] = max(e["semiglobal_sw.tb"], max_abs_err(
+                got_s, semiglobal_align_batch(q, t, ql, tl, PS, head=head,
+                                              tail=head, with_tb=True)))
+            i0, j0 = walk_start(AlgoType.SEMI_GLOBAL, head, got_s, ql, tl)
+            walk_args = (got_s.tb, got_s.score, j0, i0, PS, "semiglobal")
+            e["tb_walk.semiglobal"] = max(e["tb_walk.semiglobal"], max_abs_err(
+                tb_walk.tb_walk(*walk_args), tb_walk.tb_walk_plain(*walk_args)))
         torch.cuda.synchronize()
-        for k, v in zip(err, (e_score, e_end, e_tb, e_walk)):
+        for k, v in e.items():
             err[k] = max(err[k], v)
-        log("3 parity", f"{label}: max |kernel - plain| score {e_score} "
-            f"end {e_end} tb {e_tb} walk {e_walk}")
+        log("3 parity", f"{label}: max |kernel - plain| " + " ".join(
+            f"{k} {v}" for k, v in e.items()))
     if any(err.values()):
         raise AssertionError(f"kernels disagree with their plain versions: {err}")
 
     # -- 4. the slice through AlignEngine ---------------------------------
     qs, ts = gasal_pairs(rng, PAIRS)
-    log("4 slice", f"{len(qs)} pairs, reads {min(map(len, qs))}-"
+    n = len(qs)
+    log("4 slice", f"{n} pairs, reads {min(map(len, qs))}-"
         f"{max(map(len, qs))} bp, targets {min(map(len, ts))}-"
         f"{max(map(len, ts))} bp, seed {args.seed}")
-    for counts in (cuda_align.LAUNCHES, tb_walk.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
-    t0 = time.time()
-    jobs_tb = AlignEngine(P, with_tb=True, device=dev).align(qs, ts)
-    engine_tb_s = time.time() - t0
-    t0 = time.time()
-    jobs_end = AlignEngine(P, device=dev).align(qs, ts)
-    engine_end_s = time.time() - t0
-    t0 = time.time()
-    jobs_so = AlignEngine(P, score_only=True, device=dev).align(qs, ts)
-    engine_so_s = time.time() - t0
-    launches = {"local_sw.score": cuda_align.LAUNCHES["score"],
-                "local_sw.end": cuda_align.LAUNCHES["end"],
-                "local_sw.tb": cuda_align.LAUNCHES["tb"],
-                "tb_walk": tb_walk.LAUNCHES["tb_walk"]}
-    log("4 slice", f"launches in the engine runs: {launches}")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    counts = (cuda_align.LAUNCHES, tb_walk.LAUNCHES)
+    secs = {}
 
-    n = len(qs)
-    if len(jobs_tb) != n or len(jobs_end) != n or len(jobs_so) != n:
-        raise AssertionError("engine returned the wrong number of jobs")
+    def timed(key, eng):
+        t0 = time.time()
+        jobs = eng.align(qs, ts)
+        secs[key] = time.time() - t0
+        if len(jobs) != n:
+            raise AssertionError(f"{key}: the engine returned {len(jobs)} "
+                                 f"jobs for {n} pairs")
+        return jobs
+
+    # 4a. LOCAL
+    zero_counts(*counts)
+    jobs_tb = timed("local tb", AlignEngine(P, with_tb=True, device=dev))
+    jobs_end = timed("local ends", AlignEngine(P, device=dev))
+    jobs_so = timed("local score-only",
+                    AlignEngine(P, score_only=True, device=dev))
+    launches = {k: cuda_align.LAUNCHES[k] for k in
+                ("local_sw.score", "local_sw.end", "local_sw.tb")}
+    launches["tb_walk"] = tb_walk.LAUNCHES["tb_walk"]
+    log("4 slice", f"LOCAL launches: {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the LOCAL path never launched: "
+                             f"{launches}")
     for k in range(n):
         a, b, c = jobs_tb[k], jobs_end[k], jobs_so[k]
         if (a.score, a.query_end, a.target_end) != (
@@ -244,66 +338,166 @@ def main() -> int:
     if np.mean(scores >= 100) < 0.9:
         raise AssertionError(f"reads cut from their targets scored low: "
                              f"median {np.median(scores)}")
-    sub = range(2048)
-    cpu_jobs = AlignEngine(P, with_tb=True, device="cpu").align(
-        [qs[k] for k in sub], [ts[k] for k in sub])
-    for k, want in zip(sub, cpu_jobs):
-        got = jobs_tb[k]
-        for f in ("score", "query_end", "target_end", "query_start",
-                  "target_start", "score_second", "query_end_second",
-                  "target_end_second"):
-            if getattr(got, f) != getattr(want, f):
-                raise AssertionError(f"pair {k}: {f} differs from the CPU "
-                                     f"engine ({got} vs {want})")
-        if not np.array_equal(got.cigar, want.cigar):
-            raise AssertionError(f"pair {k}: CIGAR differs from the CPU engine")
-    gold_idx = np.random.default_rng(args.seed + 1).choice(n, 64, replace=False)
+    sub = range(2 * CPU_CHECK)
+    assert_jobs_equal(jobs_tb, AlignEngine(P, with_tb=True).align(
+        [qs[k] for k in sub], [ts[k] for k in sub]), "LOCAL")
+    gold_idx = np.random.default_rng(args.seed + 1).choice(n, GOLD_CHECK,
+                                                           replace=False)
     for k in gold_idx:
         g = golds.local_align(qs[k], ts[k], P)
         got = jobs_tb[k]
         if (got.score, got.query_end, got.target_end) != (
                 g["score"], g["query_end"], g["target_end"]):
             raise AssertionError(f"pair {k}: gold {g} vs engine {got}")
-    log("4 slice", f"engine == CPU engine on {len(cpu_jobs)} pairs (every "
-        f"field, CIGAR bytes included); == gold on {len(gold_idx)} pairs; "
+    log("4 slice", f"LOCAL == CPU engine on {2 * CPU_CHECK} pairs (every "
+        f"field, CIGAR bytes included); == gold on {GOLD_CHECK} pairs; "
         f"median score {np.median(scores)}; e.g. "
         f"{jobs_tb[0].cigar_string} score {jobs_tb[0].score}")
 
+    # 4b. GLOBAL and SEMI_GLOBAL glocal
+    zero_counts(*counts)
+    g_tb = timed("global tb", AlignEngine(PG, with_tb=True, device=dev))
+    g_sc = timed("global score", AlignEngine(PG, device=dev))
+    s_tb = timed("semiglobal tb", AlignEngine(
+        PS, with_tb=True, head=GLOCAL, tail=GLOCAL, device=dev))
+    s_end = timed("semiglobal ends", AlignEngine(
+        PS, head=GLOCAL, tail=GLOCAL, device=dev))
+    new_names = ("global_sw.score", "global_sw.tb", "semiglobal_sw.end",
+                 "semiglobal_sw.tb")
+    for k in new_names:
+        launches[k] = cuda_align.LAUNCHES[k]
+    for k in ("tb_walk.global", "tb_walk.semiglobal"):
+        launches[k] = tb_walk.LAUNCHES[k]
+    log("4 slice", "GLOBAL / SEMI_GLOBAL launches: " + str(
+        {k: launches[k] for k in new_names + ("tb_walk.global",
+                                              "tb_walk.semiglobal")}))
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the GLOBAL / SEMI_GLOBAL path "
+                             f"never launched: {launches}")
+    for k in range(n):
+        a, b, c, d = g_tb[k], g_sc[k], s_tb[k], s_end[k]
+        if (a.score, a.query_end, a.target_end) != (
+                b.score, b.query_end, b.target_end) or (
+                c.score, c.query_end, c.target_end) != (
+                d.score, d.query_end, d.target_end):
+            raise AssertionError(f"pair {k}: traceback and ends-only runs "
+                                 f"disagree")
+        ql, tl = len(qs[k]), len(ts[k])
+        # the GLOBAL walk starts one cell past the end (a reference quirk)
+        if cigar_spans(a.cigar_string) != (ql + 1, tl + 1) or (
+                a.query_end, a.target_end) != (ql - 1, tl - 1):
+            raise AssertionError(f"pair {k}: GLOBAL result {a} does not "
+                                 f"span {ql} x {tl}")
+        if cigar_spans(c.cigar_string) != (
+                ql, c.target_end - c.target_start + 1) or c.query_start:
+            raise AssertionError(f"pair {k}: glocal result {c} does not "
+                                 f"cover the read")
+    s_scores = np.array([j.score for j in s_tb])
+    if np.mean(s_scores >= 100) < 0.9:
+        raise AssertionError(f"reads cut from their targets scored low in "
+                             f"glocal: median {np.median(s_scores)}")
+    sub = range(CPU_CHECK)
+    sq, st = [qs[k] for k in sub], [ts[k] for k in sub]
+    assert_jobs_equal(g_tb, AlignEngine(PG, with_tb=True).align(sq, st),
+                      "GLOBAL")
+    assert_jobs_equal(s_tb, AlignEngine(PS, with_tb=True, head=GLOCAL,
+                                        tail=GLOCAL).align(sq, st),
+                      "SEMI_GLOBAL")
+    for k in gold_idx:
+        g = golds.global_align(qs[k], ts[k], PG)
+        h = golds.semiglobal_align(qs[k], ts[k], PS, head=GLOCAL, tail=GLOCAL)
+        for want, got in ((g, g_tb[k]), (h, s_tb[k])):
+            if (got.score, got.query_end, got.target_end) != (
+                    want["score"], want["query_end"], want["target_end"]):
+                raise AssertionError(f"pair {k}: gold {want} vs engine {got}")
+    # models/assembly.py's GLOBAL scoring (haplotype vs reference window)
+    PA = AlignmentParams(algo=AlgoType.GLOBAL, match=2, mismatch=4,
+                         gap_open=6, gap_extend=1)
+    a_tb = AlignEngine(PA, with_tb=True, device=dev).align(qs[:4096],
+                                                           ts[:4096])
+    assert_jobs_equal(a_tb, AlignEngine(PA, with_tb=True).align(
+        qs[:256], ts[:256]), "GLOBAL with the assembly scoring")
+    for k in gold_idx[:16]:
+        if k < 4096 and a_tb[k].score != golds.global_align(
+                qs[k], ts[k], PA)["score"]:
+            raise AssertionError(f"pair {k}: assembly-scoring GLOBAL "
+                                 f"differs from the gold")
+    log("4 slice", f"GLOBAL and SEMI_GLOBAL == CPU engine on {CPU_CHECK} "
+        f"pairs each (every field, CIGAR bytes included); == gold on "
+        f"{GOLD_CHECK} pairs; assembly scoring == CPU engine on 256; median "
+        f"score GLOBAL {np.median([j.score for j in g_tb])}, glocal "
+        f"{np.median(s_scores)}; e.g. glocal {s_tb[0].cigar_string} at "
+        f"target {s_tb[0].target_start}-{s_tb[0].target_end}")
+
     # -- 5. timings at bench.py's shape -----------------------------------
-    qn, tn = random_codes(rng, BENCH_B, BENCH_L, BENCH_L, 0.0)
+    qn, tn, qln, tln = random_codes(rng, BENCH_B, BENCH_L, BENCH_L, 0.0)
     q, t = torch.from_numpy(qn).to(dev), torch.from_numpy(tn).to(dev)
+    ql, tl = torch.from_numpy(qln).to(dev), torch.from_numpy(tln).to(dev)
     Q, T = q.T.contiguous(), t.T.contiguous()
     cells = BENCH_B * BENCH_L * BENCH_L
+    # the fullest tracking combination, benchmarks/run_all.py's
+    sg = dict(head=SemiGlobalSkip.NONE, tail=SemiGlobalSkip.BOTH)
     tb_res = cuda_align.local_align(q, t, P, with_tb=True)
-    walk_args = (tb_res.tb, tb_res.score, tb_res.query_end,
-                 tb_res.target_end, P)
+    g_res = cuda_align.global_align(q, t, ql, tl, PG, with_tb=True)
+    s_res = cuda_align.semiglobal_align(q, t, ql, tl, PS, with_tb=True, **sg)
+    si0, sj0 = walk_start(AlgoType.SEMI_GLOBAL, sg["tail"], s_res, ql, tl)
+    walks = {
+        "tb_walk": (tb_res.tb, tb_res.score, tb_res.query_end,
+                    tb_res.target_end, P),
+        "tb_walk.global": (g_res.tb, g_res.score, ql, tl, PG, "global"),
+        "tb_walk.semiglobal": (s_res.tb, s_res.score, sj0, si0, PS,
+                               "semiglobal"),
+    }
     ms = {
         "local_sw.score": cuda_ms(
             lambda: cuda_align.local_align_scores_tm(Q, T, P, has_n=False), 20),
         "local_sw.end": cuda_ms(lambda: cuda_align.local_align(q, t, P), 10),
         "local_sw.tb": cuda_ms(
             lambda: cuda_align.local_align(q, t, P, with_tb=True), 5),
-        "tb_walk": cuda_ms(lambda: tb_walk.tb_walk(*walk_args), 10),
+        "global_sw.score": cuda_ms(
+            lambda: cuda_align.global_align(q, t, ql, tl, PG), 10),
+        "global_sw.tb": cuda_ms(
+            lambda: cuda_align.global_align(q, t, ql, tl, PG, with_tb=True), 5),
+        "semiglobal_sw.end": cuda_ms(
+            lambda: cuda_align.semiglobal_align(q, t, ql, tl, PS, **sg), 10),
+        "semiglobal_sw.tb": cuda_ms(
+            lambda: cuda_align.semiglobal_align(q, t, ql, tl, PS,
+                                                with_tb=True, **sg), 5),
     }
+    for k, a in walks.items():
+        ms[k] = cuda_ms(lambda a=a: tb_walk.tb_walk(*a), 10)
     plain_ms = {
         "local_sw.score": cuda_ms(lambda: local_align_batch(Q.T, T.T, P), 2),
         "local_sw.end": cuda_ms(lambda: local_align_batch(q, t, P), 2),
         "local_sw.tb": cuda_ms(
             lambda: local_align_batch(q, t, P, with_tb=True), 1),
-        "tb_walk": cuda_ms(lambda: tb_walk.tb_walk_plain(*walk_args), 1),
+        "global_sw.score": cuda_ms(
+            lambda: global_align_batch(q, t, ql, tl, PG), 2),
+        "global_sw.tb": cuda_ms(
+            lambda: global_align_batch(q, t, ql, tl, PG, with_tb=True), 1),
+        "semiglobal_sw.end": cuda_ms(
+            lambda: semiglobal_align_batch(q, t, ql, tl, PS, **sg), 2),
+        "semiglobal_sw.tb": cuda_ms(
+            lambda: semiglobal_align_batch(q, t, ql, tl, PS, with_tb=True,
+                                           **sg), 1),
     }
-    err["tb_walk"] = max(err["tb_walk"], max_abs_err(
-        tb_walk.tb_walk(*walk_args), tb_walk.tb_walk_plain(*walk_args)))
-    walk_steps = int((tb_walk.tb_walk(*walk_args)[0] != 255).sum())
+    steps = {}
+    for k, a in walks.items():
+        plain_ms[k] = cuda_ms(lambda a=a: tb_walk.tb_walk_plain(*a), 1)
+        got = tb_walk.tb_walk(*a)
+        err[k] = max(err[k], max_abs_err(got, tb_walk.tb_walk_plain(*a)))
+        steps[k] = int((got[0] != 255).sum())
+    if any(err.values()):
+        raise AssertionError(f"kernels disagree with their plain versions "
+                             f"at the timing shape: {err}")
     for k in ms:
-        rate = (f"{cells / ms[k] / 1e6:.2f} GCUPS" if k != "tb_walk" else
-                f"{walk_steps / ms[k] / 1e6:.3f} G steps/s")
+        rate = (f"{steps[k] / ms[k] / 1e6:.3f} G steps/s" if k in steps
+                else f"{cells / ms[k] / 1e6:.2f} GCUPS")
         log("5 timings", f"{k}: kernel {ms[k]:.4f} ms ({rate}), plain "
             f"{plain_ms[k]:.2f} ms, B={BENCH_B} {BENCH_L}x{BENCH_L}, on {smi}")
-    log("5 timings", f"engine, {n} pairs with traceback: {engine_tb_s:.3f} s "
-        f"({n / engine_tb_s:.0f} pairs/s); ends only {engine_end_s:.3f} s "
-        f"({n / engine_end_s:.0f} pairs/s); score-only {engine_so_s:.3f} s "
-        f"({n / engine_so_s:.0f} pairs/s), host clock, on {smi}")
+    log("5 timings", "engine, " + "; ".join(
+        f"{k} {v:.3f} s ({n / v:.0f} pairs/s)" for k, v in secs.items())
+        + f", {n} pairs, host clock, on {smi}")
 
     src = "genomics_tpu_torch/csrc/"
     rows = [
@@ -314,6 +508,16 @@ def main() -> int:
         ("local_sw.tb", "local_sw.cu",
          "genomics_tpu/ops/pallas_align.py:717"),
         ("tb_walk", "tb_walk.cu", "genomics_tpu/ops/tb_walk.py:29"),
+        ("global_sw.score", "global_sw.cu",
+         "genomics_tpu/ops/pallas_gs.py:65"),
+        ("global_sw.tb", "global_sw.cu",
+         "genomics_tpu/ops/pallas_align.py:1201"),
+        ("semiglobal_sw.end", "semiglobal_sw.cu",
+         "genomics_tpu/ops/pallas_gs.py:181"),
+        ("semiglobal_sw.tb", "semiglobal_sw.cu",
+         "genomics_tpu/ops/pallas_align.py:1325"),
+        ("tb_walk.global", "tb_walk.cu", "genomics_tpu/ops/tb_walk.py:29"),
+        ("tb_walk.semiglobal", "tb_walk.cu", "native/cigar.cpp:32"),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + f,

@@ -1,19 +1,25 @@
-"""CPU gold for the LOCAL path — a pure-Python emulation of the GASAL2
-kernel, copied from `genomics_tpu/core/golds.py`.
+"""CPU golds for the LOCAL, GLOBAL and SEMI_GLOBAL paths — pure-Python
+emulations of the GASAL2 kernels and of its traceback decoder, copied
+from `genomics_tpu/core/golds.py`.
 
-It is independent of every torch and CUDA code path of this package, so
-it is the oracle that `chip_smoke.py` spot-checks the card against on a
-machine without JAX.  Reference: CDP/GASAL2/src/kernels/
-local_kernel_template.h (CORE_LOCAL_COMPUTE :19-30, kernel :72-519).
+They are independent of every torch and CUDA code path of this package,
+so they are the oracles that `chip_smoke.py` spot-checks the card
+against on a machine without JAX.  References (CDP/GASAL2/src/kernels/):
+- local_align:      local_kernel_template.h (CORE_LOCAL_COMPUTE :19-30,
+                    kernel :72-519)
+- global_align:     global.h:31-303
+- semiglobal_align: semiglobal_kernel_template.h:40-230 (forward pass)
+- decode_tb:        get_tb.h:5-149
 """
 from __future__ import annotations
 
 import numpy as np
 
 from genomics_tpu_torch.core.encoding import N4, encode4
-from genomics_tpu_torch.core.scoring import AlignmentParams
+from genomics_tpu_torch.core.scoring import AlignmentParams, SemiGlobalSkip
 
 CIGAR_OPS = "MXDI"
+MINUS_INF = -32768  # SHRT_MIN, gasal_kernels.h MINUS_INF
 
 
 def _as_codes(seq) -> np.ndarray:
@@ -41,6 +47,14 @@ def _sub_score_local(rbase: int, gbase: int, p: AlignmentParams) -> int:
     score = p.match if rbase == gbase else -p.mismatch
     if rbase == N4 or gbase == N4:
         score = -p.n_penalty if p.n_penalty is not None else 0
+    return score
+
+
+def _sub_score_global(rbase: int, gbase: int, p: AlignmentParams) -> int:
+    """DEV_GET_SUB_SCORE_GLOBAL: N handling only exists with N_PENALTY."""
+    score = p.match if rbase == gbase else -p.mismatch
+    if p.n_penalty is not None and (rbase == N4 or gbase == N4):
+        score = -p.n_penalty
     return score
 
 
@@ -109,6 +123,283 @@ def local_align(query, target, params: AlignmentParams, with_tb: bool = False):
     if with_tb:
         out["tb_dirs"] = dirs
     return out
+
+
+def global_align(query, target, params: AlignmentParams, with_tb: bool = False):
+    """gasal_global_kernel emulation (global.h:31-303).
+
+    Boundary: first row/column -(gapo + gape*k), f initialized to
+    MINUS_INF per strip, the `u`/`r` counters running across strips.
+    Score read from the column ridx == read_len at row ref_len-1."""
+    q = pad8(query)
+    t = pad8(target)
+    read_len = len(_as_codes(query))
+    ref_len = len(_as_codes(target))
+    tr = len(t) // 8
+    goe, ge = params.gap_oe, params.gap_extend
+    gapo = params.gap_open
+
+    Lq = len(q)
+    gH = np.zeros(Lq, dtype=np.int64)
+    gE = np.zeros(Lq, dtype=np.int64)
+    gH[0] = 0
+    gE[0] = MINUS_INF
+    for i in range(1, Lq):
+        gH[i] = -(gapo + ge * i)
+        gE[i] = MINUS_INF
+    h = [0] * 9
+    p = [0] * 9
+    f = [0] * 9
+    max_h = [0] * 9
+    u = 1  # h[u++] = 0 consumed index 0
+    r = 1
+    dirs = np.zeros((len(t), len(q)), dtype=np.uint8) if with_tb else None
+
+    for i in range(tr):
+        for m in range(1, 9):
+            h[m] = -(gapo + ge * u)
+            f[m] = MINUS_INF
+            p[m] = 0 if r == 1 else -(gapo + ge * (r - 1))
+            u += 1
+            r += 1
+        gidx = i << 3
+        for ridx in range(Lq):
+            rbase = int(q[ridx])
+            h[0] = int(gH[ridx])
+            e = int(gE[ridx])
+            for m in range(1, 9):
+                gbase = int(t[gidx + m - 1])
+                sub = _sub_score_global(rbase, gbase, params)
+                tmp = p[m] + sub
+                hm = max(tmp, f[m], e)
+                if with_tb:
+                    m_or_x = 0 if tmp >= p[m] else 1
+                    if hm == tmp:
+                        d = m_or_x
+                    elif hm == f[m]:
+                        d = 3
+                    else:
+                        d = 2
+                    f_ext = 0 if (tmp - goe) > (f[m] - ge) else 1
+                    e_ext = 0 if (tmp - goe) > (e - ge) else 1
+                    dirs[gidx + m - 1, ridx] = d | (e_ext << 2) | (f_ext << 3)
+                h[m] = hm
+                f[m] = max(tmp - goe, f[m] - ge)
+                e = max(tmp - goe, e - ge)
+                p[m] = h[m - 1]
+            gH[ridx] = h[8]
+            gE[ridx] = e
+            if ridx + 1 == read_len:
+                for m in range(1, 9):
+                    max_h[m] = h[m]
+    score = max_h[8 - ((tr << 3) - ref_len)]
+    out = {
+        "score": score,
+        "query_end": read_len - 1,
+        "target_end": ref_len - 1,
+    }
+    if with_tb:
+        out["tb_dirs"] = dirs
+    return out
+
+
+def semiglobal_align(
+    query,
+    target,
+    params: AlignmentParams,
+    head: SemiGlobalSkip = SemiGlobalSkip.NONE,
+    tail: SemiGlobalSkip = SemiGlobalSkip.NONE,
+    with_start: bool = False,
+):
+    """gasal_semi_global_kernel emulation, forward pass
+    (semiglobal_kernel_template.h:40-230).
+
+    HEAD skip picks free-vs-penalized row/col boundaries; TAIL skip picks
+    where the max is scanned (bottom row for TARGET, last column for
+    QUERY — with the rightmost-column fixup at :205-210).  Uses the
+    optimized core (:17-28): standard h-based Gotoh updates carried via
+    prev_hm_diff.  Substitution uses the LOCAL macro (N scores 0)."""
+    if with_start:
+        raise NotImplementedError(
+            "the semiglobal start pass is not ported yet (ROADMAP B9)")
+    q = pad8(query)
+    t = pad8(target)
+    read_len = len(_as_codes(query))
+    ref_len = len(_as_codes(target))
+    tr = len(t) // 8
+    goe, ge = params.gap_oe, params.gap_extend
+    gapo = params.gap_open
+    head_q = head in (SemiGlobalSkip.QUERY, SemiGlobalSkip.BOTH)
+    head_t = head in (SemiGlobalSkip.TARGET, SemiGlobalSkip.BOTH)
+    tail_q = tail in (SemiGlobalSkip.QUERY, SemiGlobalSkip.BOTH)
+    tail_t = tail in (SemiGlobalSkip.TARGET, SemiGlobalSkip.BOTH)
+
+    Lq = len(q)
+    maxHH = MINUS_INF
+    maxXY_x = ref_len   # NOTE: reference swaps x/y inits (template :63-64)
+    maxXY_y = read_len
+
+    if head_q:
+        gH = np.zeros(Lq, dtype=np.int64)
+        gE = np.zeros(Lq, dtype=np.int64)
+    else:
+        gH = np.array([0] + [-(gapo + ge * i) for i in range(1, Lq)], dtype=np.int64)
+        gE = np.full(Lq, MINUS_INF, dtype=np.int64)
+
+    h = [0] * 9
+    f = [0] * 9
+    p = [0] * 9
+    u = 1
+    r = 1
+
+    for i in range(tr):
+        gidx = i << 3
+        if head_t:
+            for m in range(9):
+                h[m] = 0
+                f[m] = MINUS_INF
+                p[m] = 0
+        else:
+            for m in range(1, 9):
+                h[m] = -(gapo + ge * (u - 1))
+                f[m] = MINUS_INF
+                p[m] = 0 if r == 1 else -(gapo + ge * (r - 1))
+                u += 1
+                r += 1
+        for ridx in range(Lq):
+            rbase = int(q[ridx])
+            h[0] = int(gH[ridx])
+            e = int(gE[ridx])
+            prev_hm_diff = h[0] - goe
+            for m in range(1, 9):
+                gbase = int(t[gidx + m - 1])
+                sub = _sub_score_local(rbase, gbase, params)
+                curr_hm_diff = h[m] - goe
+                f[m] = max(curr_hm_diff, f[m] - ge)
+                curr_hm_diff = p[m] + sub
+                curr_hm_diff = max(curr_hm_diff, f[m])
+                e = max(prev_hm_diff, e - ge)
+                curr_hm_diff = max(curr_hm_diff, e)
+                h[m] = curr_hm_diff
+                p[m] = prev_hm_diff + goe
+                prev_hm_diff = curr_hm_diff - goe
+            gH[ridx] = h[8]
+            gE[ridx] = e
+            if tail_t and ridx + 1 == read_len:
+                for m in range(1, 9):
+                    if h[m] > maxHH and (gidx + m - 1) < ref_len:
+                        maxXY_y = gidx + m - 1
+                        maxHH = h[m]
+
+    if tail_q:
+        for m in range(Lq):
+            score_tmp = int(gH[m])
+            if score_tmp > maxHH and m < read_len:
+                maxXY_x = m
+                maxHH = score_tmp
+        if maxXY_x != ref_len:
+            maxXY_y = read_len
+
+    return {"score": maxHH, "query_end": maxXY_x, "target_end": maxXY_y}
+
+
+def decode_tb(
+    dirs: np.ndarray,
+    qlen: int,
+    tlen: int,
+    algo: str,
+    params: AlignmentParams,
+    score: int = 0,
+    query_end: int = 0,
+    target_end: int = 0,
+    head_q: bool = False,
+    head_t: bool = False,
+):
+    """gasal_get_tb emulation (get_tb.h:5-149).
+
+    dirs: [t_pad8, q_pad8] uint8 nibble matrix (bit3=f_ext, bit2=e_ext,
+    bits1:0=dir code).  Returns a dict with the byte-CIGAR (walk order),
+    query_start, target_start and n_ops.  ``algo`` is "local", "global"
+    or "semiglobal".
+
+    LOCAL stops when the rebuilt score reaches ``score``.  GLOBAL walks
+    from one cell past the end, (tlen, qlen) — a reference quirk — and
+    pads leading D / I runs.  SEMIGLOBAL (the JAX package's extension:
+    GASAL2 writes the matrices but never decodes them) walks from the
+    caller-resolved end cell (query_end, target_end) like GLOBAL and pads
+    only a dimension whose HEAD is not skipped (head_t / head_q); its
+    starts are the first consumed positions (i+1 / j+1).  GLOBAL starts
+    are the final (j, i) after the pads, as in the JAX gold; the native
+    decoder (native/cigar.cpp), which the engines use, reports 0."""
+    goe, ge = params.gap_oe, params.gap_extend
+    if algo == "local":
+        i, j = target_end, query_end
+        total_score = score
+        curr_score = 0
+    elif algo == "semiglobal":
+        i, j = target_end, query_end
+    else:
+        i, j = tlen, qlen
+    tpad, qpad = dirs.shape
+    cigar = []
+    prev_op = 0
+    count = 0
+    op_select = 3
+    op_shift = 0
+    while i >= 0 and j >= 0:
+        cell_op = int(dirs[i, j]) if i < tpad and j < qpad else 0
+        op = (cell_op >> op_shift) & op_select
+        op_to_fill = op if (op == 0 or op_select == 3) else op_shift
+        new_select = 3 if (op == 0 or (op == 1 and op_select == 3)) else 1
+        if op == 0 or (op == 1 and op_select == 3):
+            op_shift = 0
+        elif op in (2, 3) and op_select == 3:
+            op_shift = op
+        op_select = new_select
+
+        if count < 63 and op_to_fill == prev_op:
+            count += 1
+        else:
+            if count > 0:
+                cigar.append(prev_op | (count << 2))
+            count = 1
+        if algo == "local":
+            if op_to_fill in (2, 3) and prev_op != op_to_fill:
+                curr_score -= goe
+            elif op_to_fill in (2, 3):
+                curr_score -= ge
+            elif op_to_fill == 1:
+                curr_score -= params.mismatch
+            else:
+                curr_score += params.match
+            if curr_score == total_score:
+                prev_op = op_to_fill
+                break
+        prev_op = op_to_fill
+        if op_to_fill in (0, 1, 2):
+            i -= 1
+        if op_to_fill in (0, 1, 3):
+            j -= 1
+
+    cigar.append(prev_op | (count << 2))
+    if algo == "global" or (algo == "semiglobal" and not head_t):
+        while i >= 0:
+            cigar.append(2 | (min(i + 1, 63) << 2))
+            i -= 63
+    if algo == "global" or (algo == "semiglobal" and not head_q):
+        while j >= 0:
+            cigar.append(3 | (min(j + 1, 63) << 2))
+            j -= 63
+    if algo == "semiglobal":
+        qstart, tstart = max(j + 1, 0), max(i + 1, 0)
+    else:
+        qstart, tstart = j, i
+    return {
+        "cigar": np.array(cigar, dtype=np.uint8),
+        "query_start": qstart,
+        "target_start": tstart,
+        "n_ops": len(cigar),
+    }
 
 
 def cigar_to_string(cigar_bytes: np.ndarray) -> str:

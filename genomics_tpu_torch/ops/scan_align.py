@@ -1,17 +1,23 @@
-"""Plain PyTorch local alignment: the reference the CUDA kernel is held to.
+"""Plain PyTorch DP engines: the references the CUDA kernels are held to.
 
-A port of `genomics_tpu/ops/scan_align.py:43-181`.  The GASAL2 local
-recurrence (local_kernel_template.h:72-519) is swept one target row at a
-time and vectorised over the batch and the query axis: the H/E column
-state is a dense [B, Lq] carry, and the horizontal gap chain is a
-max-plus prefix scan (`torch.cummax`), exact for the tmp-based gap opens
-of the local core.
+A port of `genomics_tpu/ops/scan_align.py:43-372` (LOCAL, GLOBAL,
+SEMI_GLOBAL).  Each GASAL2 recurrence is swept one target row at a time
+and vectorised over the batch and the query axis: the H/E column state
+is a dense [B, Lq] carry, and the horizontal gap chain is a max-plus
+prefix scan (`torch.cummax`).  The scan is exact for the tmp-based gap
+opens of the local and global cores, and for the h-based opens of the
+semiglobal core because h = max(tmp, f, e) lets f's h-term split into
+tmp and e terms (gap_oe >= gap_extend).
 
-End positions follow GASAL2's strip visit order (strips of 8 target
-rows, query-major inside a strip, strict '<' updates): among the cells
-with the best score the one with the smallest key
+LOCAL end positions follow GASAL2's strip visit order (strips of 8
+target rows, query-major inside a strip, strict '<' updates): among the
+cells with the best score the one with the smallest key
 ((i >> 3) * Lq + j) * 8 + (i & 7) wins.  Pad cells (code N4) score 0 and
 can only tie, and their keys are larger, so no length mask is needed.
+GLOBAL and SEMI_GLOBAL read their lengths instead.
+
+Traceback nibbles (dir | e_ext << 2 | f_ext << 3) come packed into the
+kernels' sqb layout [Lt/8, Lq, B], 8 target rows per int32.
 
 Runs on whatever device its tensors are on; `ops.cuda_align` calls it
 for CPU tensors and `chip_smoke.py` times it on the card.
@@ -23,7 +29,7 @@ from typing import NamedTuple
 import torch
 
 from genomics_tpu_torch.core.encoding import N4
-from genomics_tpu_torch.core.scoring import AlignmentParams
+from genomics_tpu_torch.core.scoring import AlignmentParams, SemiGlobalSkip
 
 MINUS_INF = -32768
 NEG_BIG = -(1 << 28)  # safe -inf for scans (no underflow)
@@ -53,6 +59,48 @@ def _fscan(g: torch.Tensor, seed: torch.Tensor, ge: int) -> torch.Tensor:
     return torch.maximum(seed[:, None], shifted) - j * ge
 
 
+def _sub_scores(qi, q_is_n, tbase, params: AlignmentParams,
+                global_macro: bool) -> torch.Tensor:
+    """[B, Lq] substitution scores of one target base [B, 1] against
+    every query column (DEV_GET_SUB_SCORE_LOCAL / _GLOBAL,
+    gasal_kernels.h:39-57): the local macro scores N as 0, the global
+    macro as an ordinary base; n_penalty overrides both."""
+    sub = (qi == tbase).to(torch.int32) * (params.match + params.mismatch) \
+        - params.mismatch
+    if params.n_penalty is not None:
+        return sub.masked_fill(q_is_n | (tbase == N4), -params.n_penalty)
+    if global_macro:
+        return sub
+    return sub.masked_fill(q_is_n | (tbase == N4), 0)
+
+
+def _tb_nibble(sub, tmp, h, f_used, e_used, goe: int, ge: int):
+    """4-bit traceback code per cell (CORE_*_COMPUTE_TB semantics)."""
+    d = torch.where(h == tmp, (sub < 0).to(torch.int32),
+                    2 + (h == f_used).to(torch.int32))
+    f_ext = (tmp - goe <= f_used - ge).to(torch.int32)
+    e_ext = (tmp - goe <= e_used - ge).to(torch.int32)
+    return d | (e_ext << 2) | (f_ext << 3)
+
+
+def _pack_row(tb, word, nib, i: int):
+    """Add row i's nibbles [B, Lq] to the strip's word; store the word
+    into tb [Lt//8, Lq, B] once the strip's 8 rows are in."""
+    word = nib if i % 8 == 0 else word | (nib << (4 * (i % 8)))
+    if i % 8 == 7:
+        tb[i >> 3] = word.T
+    return word
+
+
+def _check_batch(q, t, with_tb):
+    if q.dim() != 2 or t.dim() != 2 or q.shape[0] != t.shape[0]:
+        raise ValueError(f"need q [B, Lq] and t [B, Lt]; got {tuple(q.shape)}"
+                         f" and {tuple(t.shape)}")
+    if with_tb and t.shape[1] % 8:
+        raise ValueError(f"traceback packs 8 target rows per word; "
+                         f"Lt={t.shape[1]}")
+
+
 def local_align_batch(
     q: torch.Tensor,   # [B, Lq] uint8 codes, N4-padded
     t: torch.Tensor,   # [B, Lt] uint8 codes, N4-padded
@@ -64,17 +112,12 @@ def local_align_batch(
 
     E(0, j) = 0 and f(i, -1) = 0 (the gE/f strip inits), floor at 0,
     tmp-based gap opens."""
-    if q.dim() != 2 or t.dim() != 2 or q.shape[0] != t.shape[0]:
-        raise ValueError(f"need q [B, Lq] and t [B, Lt]; got {tuple(q.shape)}"
-                         f" and {tuple(t.shape)}")
+    _check_batch(q, t, with_tb)
     B, Lq = q.shape
     Lt = t.shape[1]
-    if with_tb and Lt % 8:
-        raise ValueError(f"traceback packs 8 target rows per word; Lt={Lt}")
     dev = q.device
     i32 = torch.int32
     goe, ge = params.gap_oe, params.gap_extend
-    n_score = -params.n_penalty if params.n_penalty is not None else 0
     qi = q.to(i32)
     ti = t.to(i32)
     q_is_n = qi == N4
@@ -90,10 +133,7 @@ def local_align_batch(
           if with_tb else None)
     word = None
     for i in range(Lt):
-        tbase = ti[:, i:i + 1]
-        sub = (qi == tbase).to(i32) * (params.match + params.mismatch) \
-            - params.mismatch
-        sub = sub.masked_fill(q_is_n | (tbase == N4), n_score)
+        sub = _sub_scores(qi, q_is_n, ti[:, i:i + 1], params, False)
         tmp = torch.cat([zcol, H[:, :-1]], dim=1) + sub
         tmpg = tmp - goe
         f_used = _fscan(tmpg, seed0, ge)
@@ -106,14 +146,8 @@ def local_align_batch(
         best = torch.where(take, rh, best)
         bkey = torch.where(take, rkey, bkey)
         if with_tb:
-            d = torch.where(h == tmp, (sub < 0).to(i32),
-                            2 + (h == f_used).to(i32))
-            f_ext = (tmpg <= f_used - ge).to(i32)
-            e_ext = (tmpg <= E - ge).to(i32)
-            nib = d | (e_ext << 2) | (f_ext << 3)
-            word = nib if i % 8 == 0 else word | (nib << (4 * (i % 8)))
-            if i % 8 == 7:
-                tb[i >> 3] = word.T
+            word = _pack_row(tb, word,
+                             _tb_nibble(sub, tmp, h, f_used, E, goe, ge), i)
         E = torch.maximum(tmpg, E - ge)
         H = h
     # decode key → (i, j): key = ((i>>3)*Lq + j)*8 + (i&7)
@@ -122,3 +156,161 @@ def local_align_batch(
     qend = torch.where(zero, 0, cell % Lq)
     tend = torch.where(zero, 0, (cell // Lq) * 8 + (bkey & 7))
     return AlignResult(best, qend, tend, tb)
+
+
+def global_align_batch(
+    q: torch.Tensor,      # [B, Lq] uint8 codes, N4-padded
+    t: torch.Tensor,      # [B, Lt] uint8 codes, N4-padded
+    qlen: torch.Tensor,   # [B] int32 true lengths, 1..Lq
+    tlen: torch.Tensor,   # [B] int32, 1..Lt
+    params: AlignmentParams,
+    with_tb: bool = False,
+) -> AlignResult:
+    """Batched GASAL2 global alignment (global.h:31-303).
+
+    Boundaries, reference quirks included:
+      H(-1, j) = 0 if j == 0 else -(gapo + ge*j)      (global[] init)
+      H(i, -1) = -(gapo + ge*(i+1))                   (u counter)
+      diag(i, 0) = 0 if i == 0 else -(gapo + ge*i)    (p[] init, r counter)
+      E(0, j) = MINUS_INF; f(i, -1) = MINUS_INF at every strip
+    Score = H(tlen-1, qlen-1); the ends are (qlen-1, tlen-1)."""
+    _check_batch(q, t, with_tb)
+    B, Lq = q.shape
+    Lt = t.shape[1]
+    dev = q.device
+    i32 = torch.int32
+    goe, ge, gapo = params.gap_oe, params.gap_extend, params.gap_open
+    qi = q.to(i32)
+    ti = t.to(i32)
+    q_is_n = qi == N4
+    qlen = qlen.to(device=dev, dtype=i32)
+    tlen = tlen.to(device=dev, dtype=i32)
+    jidx = torch.arange(Lq, dtype=i32, device=dev)
+    last_j = (qlen - 1).long()[:, None]
+    seed_inf = torch.full((B,), MINUS_INF, dtype=i32, device=dev)
+
+    H = torch.where(jidx == 0, 0, -(gapo + ge * jidx)).expand(B, Lq)
+    E = torch.full((B, Lq), MINUS_INF, dtype=i32, device=dev)
+    score = torch.zeros(B, dtype=i32, device=dev)
+    tb = (torch.empty((Lt // 8, Lq, B), dtype=i32, device=dev)
+          if with_tb else None)
+    word = None
+    for i in range(Lt):
+        sub = _sub_scores(qi, q_is_n, ti[:, i:i + 1], params, True)
+        diag0 = torch.full((B, 1), 0 if i == 0 else -(gapo + ge * i),
+                           dtype=i32, device=dev)
+        tmp = torch.cat([diag0, H[:, :-1]], dim=1) + sub
+        tmpg = tmp - goe
+        f_used = _fscan(tmpg, seed_inf, ge)
+        h = torch.maximum(torch.maximum(tmp, f_used), E)
+        score = torch.where(tlen == i + 1, h.gather(1, last_j)[:, 0], score)
+        if with_tb:
+            word = _pack_row(tb, word,
+                             _tb_nibble(sub, tmp, h, f_used, E, goe, ge), i)
+        E = torch.maximum(tmpg, E - ge)
+        H = h
+    return AlignResult(score, qlen - 1, tlen - 1, tb)
+
+
+def semiglobal_align_batch(
+    q: torch.Tensor,      # [B, Lq] uint8 codes, N4-padded
+    t: torch.Tensor,      # [B, Lt] uint8 codes, N4-padded, Lt % 8 == 0
+    qlen: torch.Tensor,   # [B] int32 true lengths, 1..Lq
+    tlen: torch.Tensor,   # [B] int32, 1..Lt
+    params: AlignmentParams,
+    head: SemiGlobalSkip = SemiGlobalSkip.NONE,
+    tail: SemiGlobalSkip = SemiGlobalSkip.NONE,
+    with_tb: bool = False,
+) -> AlignResult:
+    """Batched GASAL2 semiglobal (semiglobal_kernel_template.h:40-230),
+    forward pass.
+
+    The optimized core: e opens from the h above, f from the h to the
+    left (scanned as f(i,j) = max(max(tmp, e)(i,j-1) - goe,
+    f(i,j-1) - ge)).  HEAD picks the boundary inits; TAIL picks where
+    the max is scanned, with the reference's quirks kept:
+      - the end inits are swapped: qend = tlen, tend = qlen (:63-64);
+      - TAIL_T: column qlen-1, rows < tlen, first max in row order;
+      - TAIL_Q: the pair's padded bottom row ceil(tlen/8)*8 - 1,
+        columns < qlen, leftmost value beating the running score, then
+        tend = qlen wherever qend != tlen (:205-210).
+    Without a TAIL the score stays MINUS_INF."""
+    _check_batch(q, t, False)
+    B, Lq = q.shape
+    Lt = t.shape[1]
+    if Lt % 8:
+        raise ValueError(f"the padded bottom row needs Lt % 8 == 0; Lt={Lt}")
+    dev = q.device
+    i32 = torch.int32
+    goe, ge, gapo = params.gap_oe, params.gap_extend, params.gap_open
+    head_q = bool(head & SemiGlobalSkip.QUERY)
+    head_t = bool(head & SemiGlobalSkip.TARGET)
+    tail_q = bool(tail & SemiGlobalSkip.QUERY)
+    tail_t = bool(tail & SemiGlobalSkip.TARGET)
+    qi = q.to(i32)
+    ti = t.to(i32)
+    q_is_n = qi == N4
+    qlen = qlen.to(device=dev, dtype=i32)
+    tlen = tlen.to(device=dev, dtype=i32)
+    jidx = torch.arange(Lq, dtype=i32, device=dev)
+    last_j = (qlen - 1).long()[:, None]
+    t_last8 = (tlen + 7) // 8 * 8 - 1
+
+    if head_q:
+        H = torch.zeros((B, Lq), dtype=i32, device=dev)
+        E = torch.zeros((B, Lq), dtype=i32, device=dev)
+    else:
+        H = torch.where(jidx == 0, 0, -(gapo + ge * jidx)).expand(B, Lq)
+        E = torch.full((B, Lq), MINUS_INF, dtype=i32, device=dev)
+    bT_score = torch.full((B,), MINUS_INF, dtype=i32, device=dev)
+    bT_pos = tlen.clone()
+    Hsnap = torch.zeros((B, Lq), dtype=i32, device=dev)
+    tb = (torch.empty((Lt // 8, Lq, B), dtype=i32, device=dev)
+          if with_tb else None)
+    word = None
+    for i in range(Lt):
+        sub = _sub_scores(qi, q_is_n, ti[:, i:i + 1], params, False)
+        if head_t:
+            diag0 = left0 = 0             # h[m] = p[m] = 0 at every strip
+        else:
+            # the u/r counters: H(i, -1) = -(gapo + ge*i) and
+            # diag(i, 0) = 0 for i == 0, else -(gapo + ge*i)
+            left0 = -(gapo + ge * i)
+            diag0 = 0 if i == 0 else left0
+        tmp = torch.cat([torch.full((B, 1), diag0, dtype=i32, device=dev),
+                         H[:, :-1]], dim=1) + sub
+        E_used = torch.maximum(H - goe, E - ge)
+        fseed = torch.full((B,), max(left0 - goe, MINUS_INF - ge),
+                           dtype=i32, device=dev)
+        f_used = _fscan(torch.maximum(tmp, E_used) - goe, fseed, ge)
+        h = torch.maximum(torch.maximum(tmp, f_used), E_used)
+        if tail_t:
+            lastq = h.gather(1, last_j)[:, 0]
+            upd = (i < tlen) & (lastq > bT_score)
+            bT_score = torch.where(upd, lastq, bT_score)
+            bT_pos = torch.where(upd, i, bT_pos)
+        if tail_q:
+            Hsnap = torch.where((t_last8 == i)[:, None], h, Hsnap)
+        if with_tb:
+            word = _pack_row(
+                tb, word, _tb_nibble(sub, tmp, h, f_used, E_used, goe, ge), i)
+        E = E_used
+        H = h
+
+    score = torch.full((B,), MINUS_INF, dtype=i32, device=dev)
+    qend = tlen.clone()                   # maxXY_x <- ref_len
+    tend = qlen.clone()                   # maxXY_y <- read_len
+    if tail_t:
+        score = bT_score
+        tend = torch.where(bT_score > MINUS_INF, bT_pos, tend)
+    if tail_q:
+        cand = torch.where(jidx < qlen[:, None], Hsnap, NEG_BIG)
+        cand = torch.where(cand > score[:, None], cand, NEG_BIG)
+        new_score = cand.amax(dim=1)
+        better = new_score > NEG_BIG
+        # leftmost column holding the row max among the cells > score
+        m_best = torch.where(cand == new_score[:, None], jidx, Lq).amin(dim=1)
+        qend = torch.where(better, m_best, qend)
+        score = torch.where(better, new_score, score)
+        tend = torch.where(qend != tlen, qlen, tend)
+    return AlignResult(score, qend, tend, tb)

@@ -1,7 +1,7 @@
-"""Bucketed batched dispatch of the LOCAL alignment path.
+"""Bucketed batched dispatch of the LOCAL, GLOBAL and SEMI_GLOBAL paths.
 
-The counterpart of `genomics_tpu/runtime/dispatch.py` for LOCAL
-alignment.  `AlignEngine`:
+The counterpart of `genomics_tpu/runtime/dispatch.py` for those three
+algorithms.  `AlignEngine`:
 
 1. buckets jobs by padded (query_len, target_len), padding with N4
    (`default_buckets`/`_bucket_of` are the JAX engine's, so both engines
@@ -11,12 +11,17 @@ alignment.  `AlignEngine`:
    MAX_TB_BYTES; results do not depend on the chunking);
 3. with traceback, walks the nibble cube on the device too
    (`ops.tb_walk`), so only the O(Lq+Lt) op stream per pair comes back;
-4. run-length encodes the op streams to byte-CIGARs on the host.
+   for SEMI_GLOBAL the walk's start cell is first resolved from the
+   kernel's ends on the device;
+4. run-length encodes the op streams to byte-CIGARs on the host, with
+   GLOBAL's and SEMI_GLOBAL's leading D/I pads.
 
 Results come back in submission order, every `AlignmentJob` field as the
-JAX engine gives it.  The JAX engine's 128-multiple batch floor and its
-2048/1024 chunks exist for the TPU's vector layout and are not carried
-over.
+JAX engine gives it.  The JAX engine decodes GLOBAL and SEMI_GLOBAL
+tracebacks on the host (native/cigar.cpp); here the walk runs on the
+device and the host encodes, the split LOCAL already has.  The JAX
+engine's 128-multiple batch floor and its 2048/1024 chunks exist for the
+TPU's vector layout and are not carried over.
 """
 from __future__ import annotations
 
@@ -28,19 +33,25 @@ import torch
 
 from genomics_tpu_torch.core import golds
 from genomics_tpu_torch.core.encoding import N4, encode4
-from genomics_tpu_torch.core.scoring import AlgoType, AlignmentParams
+from genomics_tpu_torch.core.scoring import (
+    AlgoType,
+    AlignmentParams,
+    SemiGlobalSkip,
+)
 from genomics_tpu_torch.ops import cuda_align, tb_walk
 
 MAX_PAIRS_PER_LAUNCH = 65536
 MAX_TB_BYTES = 1 << 32  # bound on one launch's traceback cube
 
-# what each unported feature waits for (ROADMAP queue items)
+# what each unported algorithm waits for (ROADMAP queue items)
 _NOT_PORTED = {
-    AlgoType.GLOBAL: "A6/B7",
-    AlgoType.SEMI_GLOBAL: "A6/B8",
     AlgoType.KSW: "A7/B11",
     AlgoType.BANDED: "A7/B12",
 }
+# compute_start without traceback: the reverse start passes
+_START_PASS = {AlgoType.LOCAL: "A6/B6", AlgoType.SEMI_GLOBAL: "A6/B9"}
+_WALK = {AlgoType.LOCAL: "local", AlgoType.GLOBAL: "global",
+         AlgoType.SEMI_GLOBAL: "semiglobal"}
 
 
 def _round_up(x, m):
@@ -101,31 +112,64 @@ def _codes(s) -> np.ndarray:
     return np.asarray(s, np.uint8)
 
 
+def walk_start(algo: AlgoType, tail: SemiGlobalSkip, res, qlen, tlen):
+    """The traceback walk's start cell (i0, j0), [B] int32 tensors, from
+    a kernel's result `res` and the lengths.  LOCAL starts at its ends;
+    GLOBAL one cell past the end (get_tb.h, a reference quirk);
+    SEMI_GLOBAL resolves the kernel's quirky ends per the tail policy, as
+    the JAX engine does on the host (genomics_tpu/runtime/dispatch.py:
+    403-416), here with torch.where on the results' device."""
+    if algo == AlgoType.LOCAL:
+        return res.target_end, res.query_end
+    if algo == AlgoType.GLOBAL:
+        return tlen, qlen
+    j0, i0 = qlen - 1, tlen - 1
+    if tail & SemiGlobalSkip.TARGET:
+        i0 = res.target_end
+    if tail & SemiGlobalSkip.QUERY:
+        # the query-tail sweep won iff qend moved off its tlen init
+        qwin = res.query_end != tlen
+        j0 = torch.where(qwin, res.query_end, j0)
+        i0 = torch.where(qwin, tlen - 1, i0)
+    return i0, j0
+
+
 class AlignEngine:
-    """Batched LOCAL alignment on one device.
+    """Batched LOCAL, GLOBAL or SEMI_GLOBAL alignment on one device.
 
     >>> eng = AlignEngine(AlignmentParams(), with_tb=True, device="cuda")
     >>> results = eng.align(queries, targets)     # lists of str/bytes
+
+    As in the JAX engine, SEMI_GLOBAL reads its skips from `head` and
+    `tail` (not from params.head_skip / tail_skip), `score_only` applies
+    to LOCAL only, `second_best` to LOCAL only, and `compute_start` is
+    served by the traceback walk when there is one (GLOBAL ignores it).
     """
 
     def __init__(
         self,
         params: AlignmentParams,
         with_tb: bool = False,
+        head: SemiGlobalSkip = SemiGlobalSkip.NONE,
+        tail: SemiGlobalSkip = SemiGlobalSkip.NONE,
         score_only: bool = False,
         buckets: Sequence[int] | None = None,
         device: str | torch.device = "cpu",
     ):
-        if params.algo in _NOT_PORTED:
+        algo = params.algo
+        if algo in _NOT_PORTED:
             raise NotImplementedError(
-                f"{params.algo.name} alignment is not ported yet "
-                f"(ROADMAP {_NOT_PORTED[params.algo]})")
-        if params.second_best:
+                f"{algo.name} alignment is not ported yet "
+                f"(ROADMAP {_NOT_PORTED[algo]})")
+        self.with_tb = with_tb or params.with_traceback
+        if params.second_best and algo == AlgoType.LOCAL:
             raise NotImplementedError(
                 "second_best is not ported yet (ROADMAP A6/B5)")
-        if params.compute_start:
+        if params.compute_start and not self.with_tb and algo in _START_PASS:
             raise NotImplementedError(
-                "compute_start is not ported yet (ROADMAP A6/B6)")
+                f"compute_start without traceback is not ported yet "
+                f"(ROADMAP {_START_PASS[algo]}); with traceback the walk "
+                f"gives the starts")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -134,9 +178,10 @@ class AlignEngine:
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
         self.params = params
-        self.with_tb = with_tb or params.with_traceback
+        self.head = head
+        self.tail = tail
         # score-only runs the bench kernel: scores, and ends left at 0
-        self.score_only = score_only
+        self.score_only = score_only and algo == AlgoType.LOCAL
         self.buckets = list(buckets) if buckets else default_buckets()
 
     def _chunk_pairs(self, lq: int, lt: int) -> int:
@@ -145,20 +190,34 @@ class AlignEngine:
         per_pair = (lt // 8) * lq * 4
         return max(1, min(MAX_PAIRS_PER_LAUNCH, MAX_TB_BYTES // per_pair))
 
-    def _run_chunk(self, qb: np.ndarray, tb: np.ndarray, has_n: bool):
+    def _run_chunk(self, qb: np.ndarray, tb: np.ndarray, qlen: np.ndarray,
+                   tlen: np.ndarray, has_n: bool):
         """Launch one chunk; returns device tensors (score, qend, tend,
-        walk) with walk = (ops, qstart, tstart) or None."""
+        walk) with walk = (ops, final j, final i) or None."""
         p = self.params
         q = torch.from_numpy(qb).to(self.device)
         t = torch.from_numpy(tb).to(self.device)
         if self.score_only and not self.with_tb:
             score = cuda_align.local_align_scores(q, t, p, has_n=has_n)
             return score, None, None, None
-        res = cuda_align.local_align(q, t, p, with_tb=self.with_tb)
+        ql = tl = None
+        if p.algo != AlgoType.LOCAL:
+            ql = torch.from_numpy(qlen).to(self.device)
+            tl = torch.from_numpy(tlen).to(self.device)
+        if p.algo == AlgoType.LOCAL:
+            res = cuda_align.local_align(q, t, p, with_tb=self.with_tb)
+        elif p.algo == AlgoType.GLOBAL:
+            res = cuda_align.global_align(q, t, ql, tl, p,
+                                          with_tb=self.with_tb)
+        else:
+            res = cuda_align.semiglobal_align(
+                q, t, ql, tl, p, head=self.head, tail=self.tail,
+                with_tb=self.with_tb)
         walk = None
         if self.with_tb:
-            walk = tb_walk.tb_walk(res.tb, res.score, res.query_end,
-                                   res.target_end, p)
+            i0, j0 = walk_start(p.algo, self.tail, res, ql, tl)
+            walk = tb_walk.tb_walk(res.tb, res.score, j0, i0, p,
+                                   _WALK[p.algo])
         return res.score, res.query_end, res.target_end, walk
 
     def _dispatch(self, queries, targets):
@@ -182,12 +241,17 @@ class AlignEngine:
                 chunk = idxs[pos:pos + step]
                 qb = np.full((len(chunk), lq), N4, np.uint8)
                 tb = np.full((len(chunk), lt), N4, np.uint8)
+                qlen = np.empty(len(chunk), np.int32)
+                tlen = np.empty(len(chunk), np.int32)
                 has_n = False
                 for k, i in enumerate(chunk):
-                    qb[k, :len(enc_q[i])] = enc_q[i]
-                    tb[k, :len(enc_t[i])] = enc_t[i]
+                    qlen[k] = len(enc_q[i])
+                    tlen[k] = len(enc_t[i])
+                    qb[k, :qlen[k]] = enc_q[i]
+                    tb[k, :tlen[k]] = enc_t[i]
                     has_n = has_n or (N4 in enc_q[i]) or (N4 in enc_t[i])
-                pending.append((chunk, self._run_chunk(qb, tb, has_n)))
+                pending.append(
+                    (chunk, self._run_chunk(qb, tb, qlen, tlen, has_n)))
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -203,9 +267,11 @@ class AlignEngine:
             tend = None if tend is None else tend.cpu().numpy()
             cigars = None
             if walk is not None:
-                cigars, n_ops = tb_walk.rle_cigar(walk[0].cpu().numpy())
-                qstart = walk[1].cpu().numpy()
-                tstart = walk[2].cpu().numpy()
+                cigars, n_ops, qstart, tstart = tb_walk.cigars_from_walk(
+                    walk[0].cpu().numpy(), walk[1].cpu().numpy(),
+                    walk[2].cpu().numpy(), _WALK[self.params.algo],
+                    head_q=bool(self.head & SemiGlobalSkip.QUERY),
+                    head_t=bool(self.head & SemiGlobalSkip.TARGET))
             for k, i in enumerate(idxs):
                 job = AlignmentJob(score=int(score[k]))
                 if qend is not None:

@@ -9,18 +9,28 @@ machine without JAX:
 
 (the variable keeps tests/conftest.py from importing JAX).
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
 
-from genomics_tpu_torch import AlignEngine, AlignmentParams
+from genomics_tpu_torch import AlgoType, AlignEngine, AlignmentParams
+from genomics_tpu_torch.core.scoring import SemiGlobalSkip
 from genomics_tpu_torch.ops import cuda_align, tb_walk
-from genomics_tpu_torch.ops.scan_align import local_align_batch
+from genomics_tpu_torch.ops.scan_align import (
+    global_align_batch,
+    local_align_batch,
+    semiglobal_align_batch,
+)
 
 pytestmark = pytest.mark.cuda
 
 ACGT = np.array([1, 3, 7, 4], np.uint8)
 N4 = 14
+SKIPS = [SemiGlobalSkip.NONE, SemiGlobalSkip.QUERY, SemiGlobalSkip.TARGET,
+         SemiGlobalSkip.BOTH]
+TB_SKIPS = [(s, s) for s in SKIPS]
 
 
 @pytest.fixture
@@ -31,6 +41,8 @@ def cuda():
 
 
 def _batch(seed, B, Lq, Lt, n_rate):
+    """(q, t, qlen, tlen): half the pairs related, random lengths padded
+    with N4, in-sequence Ns at n_rate; pair 0 fills the bucket exactly."""
     rng = np.random.default_rng(seed)
     q = ACGT[rng.integers(0, 4, (B, Lq))]
     t = ACGT[rng.integers(0, 4, (B, Lt))]
@@ -41,10 +53,20 @@ def _batch(seed, B, Lq, Lt, n_rate):
     if n_rate:
         q[rng.random(q.shape) < n_rate] = N4
         t[rng.random(t.shape) < n_rate] = N4
+    ql = rng.integers(1, Lq + 1, B).astype(np.int32)
+    tl = rng.integers(1, Lt + 1, B).astype(np.int32)
+    ql[0], tl[0] = Lq, Lt
     for b in range(B):
-        q[b, rng.integers(1, Lq + 1):] = N4
-        t[b, rng.integers(1, Lt + 1):] = N4
-    return torch.from_numpy(q), torch.from_numpy(t)
+        q[b, ql[b]:] = N4
+        t[b, tl[b]:] = N4
+    return (torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(ql),
+            torch.from_numpy(tl))
+
+
+def _assert_equal(got, want):
+    for a, b in zip(got, want):
+        if b is not None:
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("with_tb", [False, True], ids=["end", "tb"])
@@ -52,22 +74,20 @@ def _batch(seed, B, Lq, Lt, n_rate):
     AlignmentParams(), AlignmentParams(n_penalty=2),
 ], ids=["defaults", "n_penalty"])
 def test_local_kernel_matches_plain(cuda, with_tb, params):
-    q, t = _batch(0, 1024 + 37, 40, 48, n_rate=0.03)
+    q, t, _, _ = _batch(0, 1024 + 37, 40, 48, n_rate=0.03)
     want = local_align_batch(q.to(cuda), t.to(cuda), params, with_tb=with_tb)
-    mode = "tb" if with_tb else "end"
-    before = cuda_align.LAUNCHES[mode]
+    key = "local_sw.tb" if with_tb else "local_sw.end"
+    before = cuda_align.LAUNCHES[key]
     got = cuda_align.local_align(q.to(cuda), t.to(cuda), params,
                                  with_tb=with_tb)
     torch.cuda.synchronize()
-    assert cuda_align.LAUNCHES[mode] == before + 1
-    for a, b in zip(got, want):
-        if b is not None:
-            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert cuda_align.LAUNCHES[key] == before + 1
+    _assert_equal(got, want)
 
 
 @pytest.mark.parametrize("has_n", [True, False], ids=["has_n", "no_n"])
 def test_score_kernel_matches_plain(cuda, has_n):
-    q, t = _batch(1, 2048 + 5, 152, 152, n_rate=0.02 if has_n else 0.0)
+    q, t, _, _ = _batch(1, 2048 + 5, 152, 152, n_rate=0.02 if has_n else 0.0)
     q, t = q.to(cuda), t.to(cuda)
     want = local_align_batch(q, t, AlignmentParams()).score
     got = cuda_align.local_align_scores(q, t, AlignmentParams(), has_n=has_n)
@@ -77,9 +97,50 @@ def test_score_kernel_matches_plain(cuda, has_n):
     torch.testing.assert_close(got_tm, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("with_tb", [False, True], ids=["score", "tb"])
+@pytest.mark.parametrize("params", [
+    AlignmentParams(algo=AlgoType.GLOBAL),
+    AlignmentParams(algo=AlgoType.GLOBAL, n_penalty=2, match=2),
+], ids=["defaults", "n_penalty"])
+def test_global_kernel_matches_plain(cuda, with_tb, params):
+    args = [x.to(cuda) for x in _batch(4, 1024 + 37, 40, 48, n_rate=0.03)]
+    want = global_align_batch(*args, params, with_tb=with_tb)
+    key = "global_sw.tb" if with_tb else "global_sw.score"
+    before = cuda_align.LAUNCHES[key]
+    got = cuda_align.global_align(*args, params, with_tb=with_tb)
+    torch.cuda.synchronize()
+    assert cuda_align.LAUNCHES[key] == before + 1
+    _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("head,tail", list(itertools.product(SKIPS, SKIPS)),
+                         ids=lambda s: s.name)
+def test_semiglobal_end_kernel_matches_plain(cuda, head, tail):
+    args = [x.to(cuda) for x in _batch(5, 1024 + 37, 40, 48, n_rate=0.03)]
+    p = AlignmentParams(algo=AlgoType.SEMI_GLOBAL)
+    want = semiglobal_align_batch(*args, p, head=head, tail=tail)
+    before = cuda_align.LAUNCHES["semiglobal_sw.end"]
+    got = cuda_align.semiglobal_align(*args, p, head=head, tail=tail)
+    torch.cuda.synchronize()
+    assert cuda_align.LAUNCHES["semiglobal_sw.end"] == before + 1
+    _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("head,tail", TB_SKIPS, ids=lambda s: s.name)
+def test_semiglobal_tb_kernel_matches_plain(cuda, head, tail):
+    args = [x.to(cuda) for x in _batch(6, 1000, 64, 96, n_rate=0.02)]
+    p = AlignmentParams(algo=AlgoType.SEMI_GLOBAL, n_penalty=1)
+    want = semiglobal_align_batch(*args, p, head=head, tail=tail,
+                                  with_tb=True)
+    got = cuda_align.semiglobal_align(*args, p, head=head, tail=tail,
+                                      with_tb=True)
+    torch.cuda.synchronize()
+    _assert_equal(got, want)
+
+
 def test_walk_kernel_matches_plain(cuda):
     p = AlignmentParams()
-    q, t = _batch(2, 1000, 64, 96, n_rate=0.02)
+    q, t, _, _ = _batch(2, 1000, 64, 96, n_rate=0.02)
     res = cuda_align.local_align(q.to(cuda), t.to(cuda), p, with_tb=True)
     want = tb_walk.tb_walk_plain(res.tb, res.score, res.query_end,
                                  res.target_end, p)
@@ -87,21 +148,50 @@ def test_walk_kernel_matches_plain(cuda):
     got = tb_walk.tb_walk(res.tb, res.score, res.query_end, res.target_end, p)
     torch.cuda.synchronize()
     assert tb_walk.LAUNCHES["tb_walk"] == before + 1
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    _assert_equal(got, want)
 
 
-def test_engine_on_the_card_matches_cpu(cuda):
+@pytest.mark.parametrize("algo", ["global", "semiglobal"])
+def test_global_walks_match_plain(cuda, algo):
+    """Walks from (tlen, qlen) — one cell past the end, the exact-fit pair
+    0 included — and, for the semiglobal mode, from the resolved ends."""
+    q, t, ql, tl = [x.to(cuda) for x in _batch(3, 1000, 64, 96, n_rate=0.02)]
+    if algo == "global":
+        p = AlignmentParams(algo=AlgoType.GLOBAL)
+        res = cuda_align.global_align(q, t, ql, tl, p, with_tb=True)
+        i0, j0 = tl, ql
+    else:
+        p = AlignmentParams(algo=AlgoType.SEMI_GLOBAL)
+        res = cuda_align.semiglobal_align(
+            q, t, ql, tl, p, head=SemiGlobalSkip.TARGET,
+            tail=SemiGlobalSkip.TARGET, with_tb=True)
+        i0, j0 = res.target_end, ql - 1
+    want = tb_walk.tb_walk_plain(res.tb, res.score, j0, i0, p, algo)
+    key = f"tb_walk.{algo}"
+    before = tb_walk.LAUNCHES[key]
+    got = tb_walk.tb_walk(res.tb, res.score, j0, i0, p, algo)
+    torch.cuda.synchronize()
+    assert tb_walk.LAUNCHES[key] == before + 1
+    _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("algo,head,tail", [
+    (AlgoType.LOCAL, SemiGlobalSkip.NONE, SemiGlobalSkip.NONE),
+    (AlgoType.GLOBAL, SemiGlobalSkip.NONE, SemiGlobalSkip.NONE),
+    (AlgoType.SEMI_GLOBAL, SemiGlobalSkip.TARGET, SemiGlobalSkip.TARGET),
+    (AlgoType.SEMI_GLOBAL, SemiGlobalSkip.BOTH, SemiGlobalSkip.QUERY),
+], ids=["local", "global", "semiglobal_glocal", "semiglobal_both_query"])
+def test_engine_on_the_card_matches_cpu(cuda, algo, head, tail):
     rng = np.random.default_rng(3)
     ts = ["".join(rng.choice(list("ACGT"), rng.integers(60, 200)))
           for _ in range(300)]
     qs = [s[10:10 + int(rng.integers(20, 50))] for s in ts]
     for with_tb, score_only in ((True, False), (False, False), (False, True)):
-        p = AlignmentParams()
-        got = AlignEngine(p, with_tb=with_tb, score_only=score_only,
-                          device=cuda).align(qs, ts)
-        want = AlignEngine(p, with_tb=with_tb, score_only=score_only,
-                           device="cpu").align(qs, ts)
+        p = AlignmentParams(algo=algo)
+        kw = dict(with_tb=with_tb, score_only=score_only, head=head,
+                  tail=tail)
+        got = AlignEngine(p, device=cuda, **kw).align(qs, ts)
+        want = AlignEngine(p, device="cpu", **kw).align(qs, ts)
         for a, b in zip(got, want):
             assert (a.score, a.query_end, a.target_end, a.query_start,
                     a.target_start, a.cigar_string) == (

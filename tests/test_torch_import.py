@@ -21,6 +21,7 @@ def test_imports_with_jax_blocked():
         "from genomics_tpu_torch.core import encoding, golds, scoring\n"
         "from genomics_tpu_torch.ops import cuda_align, scan_align, tb_walk\n"
         "from genomics_tpu_torch.runtime import dispatch\n"
+        "from genomics_tpu_torch.runtime.dispatch import walk_start\n"
         "assert 'genomics_tpu' not in sys.modules\n"
         "print(genomics_tpu_torch.AlignEngine.__name__)\n"
     )
@@ -64,3 +65,27 @@ def test_missing_nvcc_is_an_error(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
+
+
+def test_build_all_skips_fresh_kernels_and_cleans_up(monkeypatch, tmp_path):
+    """A library newer than its source is not rebuilt; a stale one needs
+    nvcc, and a failed start leaves no temporary file behind."""
+    from genomics_tpu_torch import _build
+
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    out.mkdir()
+    for name in ("a", "b"):
+        (csrc / f"{name}.cu").write_text("")
+    os.utime(csrc / "b.cu", (0, 0))
+    (out / "liba.so").write_text("")
+    (out / "libb.so").write_text("")
+    os.utime(out / "liba.so", (0, 0))       # a's source is newer
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", out)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    assert _build.build_all(("b",)) == [out / "libb.so"]
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all(("b", "a"))
+    assert sorted(p.name for p in out.iterdir()) == ["liba.so", "libb.so"]

@@ -1,8 +1,9 @@
 """The port's AlignEngine against genomics_tpu.runtime.AlignEngine on the
 CPU: every AlignmentJob field, CIGAR bytes included, over several
-buckets; plus the parameter and encoding carry-over and the engine's
-refusals."""
+buckets, for LOCAL, GLOBAL and SEMI_GLOBAL; plus the parameter and
+encoding carry-over and the engine's refusals."""
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -16,7 +17,7 @@ from genomics_tpu.runtime.dispatch import AlignEngine as JEngine
 from genomics_tpu_torch import AlignEngine, AlignmentParams, AlgoType
 from genomics_tpu_torch.core import encoding
 from genomics_tpu_torch.core.scoring import SemiGlobalSkip, params_from_jax
-from genomics_tpu_torch.ops import cuda_align
+from genomics_tpu_torch.ops import cuda_align, tb_walk
 from genomics_tpu_torch.runtime import dispatch
 
 FIELDS = [f.name for f in dataclasses.fields(dispatch.AlignmentJob)]
@@ -50,6 +51,20 @@ def _pairs(seed, n=200):
             read = list(rng.choice(list("ACGT"), len(read)))
         qs.append("".join(read))
         ts.append(tgt)
+    return qs, ts
+
+
+def _exact_fit_pairs(seed):
+    """Pairs that fill their bucket exactly (48 x 64 and 64 x 96 bp),
+    related and unrelated, one with Ns."""
+    rng = np.random.default_rng(seed)
+    qs, ts = [], []
+    for lq, lt in ((48, 64), (64, 96), (48, 64)):
+        tgt = "".join(rng.choice(list("ACGT"), lt))
+        qs.append(tgt[5:5 + lq])
+        ts.append(tgt)
+    qs.append("".join(rng.choice(list("ACGTN"), 64)))
+    ts.append("".join(rng.choice(list("ACGT"), 96)))
     return qs, ts
 
 
@@ -182,22 +197,118 @@ def test_cuda_engine_raises_without_a_card():
         AlignEngine(AlignmentParams(), device="cuda")
 
 
-@pytest.mark.parametrize("params,item", [
-    (AlignmentParams(algo=AlgoType.GLOBAL), "B7"),
-    (AlignmentParams(algo=AlgoType.SEMI_GLOBAL), "B8"),
-    (AlignmentParams(algo=AlgoType.KSW), "B11"),
-    (AlignmentParams(algo=AlgoType.BANDED), "B12"),
-    (AlignmentParams(second_best=True), "B5"),
-    (AlignmentParams(compute_start=True), "B6"),
-], ids=["global", "semiglobal", "ksw", "banded", "second_best", "start"])
-def test_unported_features_raise(params, item):
+@pytest.mark.parametrize("use_pallas", [True, False], ids=["pallas", "scan"])
+@pytest.mark.parametrize("with_tb", [False, True], ids=["ends", "traceback"])
+@pytest.mark.parametrize("jp", [
+    JParams(algo=JAlgo.GLOBAL),
+    JParams(algo=JAlgo.GLOBAL, n_penalty=2, match=2),
+], ids=["defaults", "n_penalty"])
+def test_global_engine_matches_jax_engine(jp, with_tb, use_pallas):
+    qs, ts = _pairs(7, n=80)
+    eq, et = _exact_fit_pairs(8)
+    qs, ts = qs + eq, ts + et
+    want = JEngine(jp, with_tb=with_tb, use_pallas=use_pallas).align(qs, ts)
+    got = AlignEngine(params_from_jax(jp), with_tb=with_tb).align(qs, ts)
+    _assert_jobs_equal(got, want)
+    if with_tb:
+        assert all(j.cigar_string for j in got)
+
+
+SKIPS = [JSkip.NONE, JSkip.QUERY, JSkip.TARGET, JSkip.BOTH]
+
+
+@pytest.mark.parametrize("head,tail", list(itertools.product(SKIPS, SKIPS)),
+                         ids=lambda s: s.name)
+def test_semiglobal_engine_ends_match_jax_engine(head, tail):
+    qs, ts = _pairs(9, n=80)
+    eq, et = _exact_fit_pairs(10)
+    qs, ts = qs + eq, ts + et
+    jp = JParams(algo=JAlgo.SEMI_GLOBAL, n_penalty=1 if head.value else None)
+    want = JEngine(jp, head=head, tail=tail, use_pallas=False).align(qs, ts)
+    got = AlignEngine(params_from_jax(jp), head=SemiGlobalSkip(head.value),
+                      tail=SemiGlobalSkip(tail.value)).align(qs, ts)
+    _assert_jobs_equal(got, want)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False], ids=["pallas", "scan"])
+@pytest.mark.parametrize("skip", SKIPS, ids=lambda s: s.name)
+def test_semiglobal_engine_traceback_matches_jax_engine(skip, use_pallas):
+    """HEAD == TAIL, the four combinations the JAX package's runtime test
+    decodes, with exact-fit pairs and Ns."""
+    qs, ts = _pairs(11, n=60)
+    eq, et = _exact_fit_pairs(12)
+    qs, ts = qs + eq, ts + et
+    jp = JParams(algo=JAlgo.SEMI_GLOBAL)
+    want = JEngine(jp, with_tb=True, head=skip, tail=skip,
+                   use_pallas=use_pallas).align(qs, ts)
+    got = AlignEngine(params_from_jax(jp), with_tb=True,
+                      head=SemiGlobalSkip(skip.value),
+                      tail=SemiGlobalSkip(skip.value)).align(qs, ts)
+    _assert_jobs_equal(got, want)
+
+
+def test_semiglobal_glocal_hand_case():
+    """tests/test_runtime.py's hand case: the read inside its target."""
+    eng = AlignEngine(AlignmentParams(algo=AlgoType.SEMI_GLOBAL),
+                      with_tb=True, head=SemiGlobalSkip.TARGET,
+                      tail=SemiGlobalSkip.TARGET)
+    res = eng.align(["ACGT"], ["TTACGTTT"])[0]
+    assert res.cigar_string == "4M"
+    assert res.query_start == 0 and res.target_start == 2
+    # the reference quirk: qend keeps its tlen init without a query tail
+    assert res.query_end == 8 and res.target_end == 5
+    # the skips come from head/tail, not from the params (as in the JAX
+    # engine)
+    p = AlignmentParams(algo=AlgoType.SEMI_GLOBAL,
+                        head_skip=SemiGlobalSkip.TARGET,
+                        tail_skip=SemiGlobalSkip.TARGET)
+    assert AlignEngine(p, with_tb=True).align(["ACGT"], ["TTACGTTT"])[0] \
+        .cigar_string != "4M"
+
+
+@pytest.mark.parametrize("jp,with_tb", [
+    (JParams(compute_start=True), True),
+    (JParams(algo=JAlgo.SEMI_GLOBAL, compute_start=True), True),
+    (JParams(algo=JAlgo.GLOBAL, compute_start=True), False),
+    (JParams(algo=JAlgo.GLOBAL, compute_start=True), True),
+    (JParams(algo=JAlgo.GLOBAL, second_best=True), True),
+    (JParams(algo=JAlgo.SEMI_GLOBAL, second_best=True), False),
+], ids=["local_start_tb", "semiglobal_start_tb", "global_start",
+        "global_start_tb", "global_second", "semiglobal_second"])
+def test_start_and_second_best_gating_matches_jax_engine(jp, with_tb):
+    """compute_start with traceback takes the walk's starts; GLOBAL
+    ignores compute_start, and every algo but LOCAL ignores second_best,
+    as genomics_tpu/runtime/dispatch.py:283-285 and :345 do."""
+    qs, ts = _pairs(13, n=60)
+    head = tail = JSkip.TARGET
+    want = JEngine(jp, with_tb=with_tb, head=head, tail=tail,
+                   use_pallas=False).align(qs, ts)
+    got = AlignEngine(params_from_jax(jp), with_tb=with_tb,
+                      head=SemiGlobalSkip.TARGET,
+                      tail=SemiGlobalSkip.TARGET).align(qs, ts)
+    _assert_jobs_equal(got, want)
+
+
+@pytest.mark.parametrize("params,with_tb,item", [
+    (AlignmentParams(algo=AlgoType.SEMI_GLOBAL, compute_start=True), False,
+     "B9"),
+    (AlignmentParams(second_best=True), True, "B5"),
+    (AlignmentParams(algo=AlgoType.KSW), False, "B11"),
+    (AlignmentParams(algo=AlgoType.BANDED), False, "B12"),
+    (AlignmentParams(second_best=True), False, "B5"),
+    (AlignmentParams(compute_start=True), False, "B6"),
+], ids=["semiglobal_start", "second_best_tb", "ksw", "banded", "second_best",
+        "start"])
+def test_unported_features_raise(params, with_tb, item):
     with pytest.raises(NotImplementedError, match=item):
-        AlignEngine(params)
+        AlignEngine(params, with_tb=with_tb)
 
 
 def test_cpu_engine_launches_no_kernel():
-    before = dict(cuda_align.LAUNCHES)
+    before = dict(cuda_align.LAUNCHES), dict(tb_walk.LAUNCHES)
     qs, ts = _pairs(5, n=10)
-    AlignEngine(AlignmentParams(), with_tb=True).align(qs, ts)
-    AlignEngine(AlignmentParams(), score_only=True).align(qs, ts)
-    assert cuda_align.LAUNCHES == before
+    for algo in (AlgoType.LOCAL, AlgoType.GLOBAL, AlgoType.SEMI_GLOBAL):
+        p = AlignmentParams(algo=algo)
+        AlignEngine(p, with_tb=True).align(qs, ts)
+        AlignEngine(p, score_only=True).align(qs, ts)
+    assert (cuda_align.LAUNCHES, tb_walk.LAUNCHES) == before
