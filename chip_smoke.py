@@ -11,19 +11,23 @@ Run from the root of a checkout.  Phases, one line each:
 3. parity   each kernel against its plain PyTorch version on the card,
             integer-equal: B=4096+37 at 152x152 (ACGT only; LOCAL with
             has_n True and False) and B=1000 in the 216x328 bucket with
-            Ns: local_sw SCORE/END/TB, global_sw SCORE/TB, semiglobal_sw
-            END for all 16 HEAD x TAIL and TB for NONE/NONE,
-            TARGET/TARGET, QUERY/QUERY and BOTH/BOTH, and the LOCAL,
-            GLOBAL and SEMI_GLOBAL walks;
+            Ns: local_sw SCORE/END/TB/SECOND, global_sw SCORE/TB,
+            semiglobal_sw END for all 16 HEAD x TAIL and TB for
+            NONE/NONE, TARGET/TARGET, QUERY/QUERY and BOTH/BOTH, the
+            LOCAL, GLOBAL and SEMI_GLOBAL walks, local_start fed the END
+            kernel's result and semiglobal_start for all 16 HEAD x TAIL
+            fed the semiglobal END kernel's;
 4. slice    20,000 GASAL2-shaped pairs (150 bp reads cut from 200-300 bp
             targets, ~2% substitutions, ~0.5% 1-3 bp indels, a few Ns)
             through AlignEngine(device="cuda"), every kernel's launch
             count set to 0 just before and read just after each path:
             LOCAL with traceback, ends only and score-only; then GLOBAL
             and SEMI_GLOBAL glocal (head=tail=TARGET), each with and
-            without traceback.  Checked against the CPU engine (every
-            field, CIGAR bytes included) and the pure-Python golds, plus
-            one GLOBAL run with models/assembly.py's scoring;
+            without traceback; then the start passes (LOCAL, glocal and
+            SEMI_GLOBAL NONE/BOTH compute_start) and LOCAL second_best
+            with and without traceback.  Checked against the CPU engine
+            (every field, CIGAR bytes included) and the pure-Python golds,
+            plus one GLOBAL run with models/assembly.py's scoring;
 5. timings  each kernel and its plain version on the card at bench.py's
             shape (B=65,536, 152x152), and the engine's pairs/s.
 
@@ -187,7 +191,7 @@ def main() -> int:
     from genomics_tpu_torch import AlgoType, AlignEngine, AlignmentParams, _build
     from genomics_tpu_torch.core import golds
     from genomics_tpu_torch.core.scoring import SemiGlobalSkip
-    from genomics_tpu_torch.ops import cuda_align, tb_walk
+    from genomics_tpu_torch.ops import cuda_align, scan_align_full, tb_walk
     from genomics_tpu_torch.ops.scan_align import (
         global_align_batch,
         local_align_batch,
@@ -231,7 +235,21 @@ def main() -> int:
     err = {k: 0 for k in ("local_sw.score", "local_sw.end", "local_sw.tb",
                           "tb_walk", "global_sw.score", "global_sw.tb",
                           "semiglobal_sw.end", "semiglobal_sw.tb",
-                          "tb_walk.global", "tb_walk.semiglobal")}
+                          "tb_walk.global", "tb_walk.semiglobal",
+                          "local_sw.second", "local_start",
+                          "semiglobal_start")}
+
+    def local_start_args(q, t, ql, tl, fwd):
+        rq, rt, _, _ = scan_align_full.local_start_inputs(
+            q, t, ql, tl, fwd.query_end, fwd.target_end)
+        return rq, rt, fwd.score, P
+
+    def semiglobal_start_args(q, t, ql, tl, fwd, head, tail):
+        """(args, flags) of the start pass fed the forward result fwd."""
+        rev = scan_align_full.semiglobal_start_inputs(q, t, ql, tl,
+                                                      fwd.target_end)
+        return ((*rev[:2], ql, tl, *rev[2:], fwd.score, fwd.query_end, PS),
+                scan_align_full.skip_flags(head, tail))
     rng = np.random.default_rng(args.seed)
     cases = [("B=4133 152x152 ACGT", 4096 + 37, 152, 152, 0.0),
              ("B=1000 216x328 with Ns", 1000, 216, 328, 0.01)]
@@ -259,6 +277,13 @@ def main() -> int:
                      got_tb.target_end, P)
         e["tb_walk"] = max_abs_err(tb_walk.tb_walk(*walk_args),
                                    tb_walk.tb_walk_plain(*walk_args))
+        e["local_sw.second"] = max_abs_err(
+            cuda_align.local_align_second(q, t, ql, tl, P),
+            scan_align_full.local_align_second_batch(q, t, ql, tl, P))
+        st_args = local_start_args(q, t, ql, tl, got_end)
+        e["local_start"] = max_abs_err(
+            cuda_align.local_start(*st_args),
+            scan_align_full._local_start_core(*st_args))
         # GLOBAL
         plain_g = global_align_batch(q, t, ql, tl, PG, with_tb=True)
         got_g = cuda_align.global_align(q, t, ql, tl, PG, with_tb=True)
@@ -270,13 +295,19 @@ def main() -> int:
                                           tb_walk.tb_walk_plain(*walk_args))
         # SEMI_GLOBAL: ends for all 16 skips, traceback for head == tail
         e["semiglobal_sw.end"] = e["semiglobal_sw.tb"] = 0
-        e["tb_walk.semiglobal"] = 0
+        e["tb_walk.semiglobal"] = e["semiglobal_start"] = 0
         for head in SKIPS:
             for tail in SKIPS:
                 kw = dict(head=head, tail=tail)
+                got_s = cuda_align.semiglobal_align(q, t, ql, tl, PS, **kw)
                 e["semiglobal_sw.end"] = max(e["semiglobal_sw.end"], max_abs_err(
-                    cuda_align.semiglobal_align(q, t, ql, tl, PS, **kw),
-                    semiglobal_align_batch(q, t, ql, tl, PS, **kw)[:3]))
+                    got_s, semiglobal_align_batch(q, t, ql, tl, PS, **kw)[:3]))
+                st_args, flags = semiglobal_start_args(q, t, ql, tl, got_s,
+                                                       head, tail)
+                e["semiglobal_start"] = max(e["semiglobal_start"], max_abs_err(
+                    cuda_align.semiglobal_start(*st_args, **flags),
+                    scan_align_full._semiglobal_start_core(*st_args,
+                                                           **flags)))
             got_s = cuda_align.semiglobal_align(q, t, ql, tl, PS, head=head,
                                                 tail=head, with_tb=True)
             e["semiglobal_sw.tb"] = max(e["semiglobal_sw.tb"], max_abs_err(
@@ -429,6 +460,82 @@ def main() -> int:
         f"{np.median(s_scores)}; e.g. glocal {s_tb[0].cigar_string} at "
         f"target {s_tb[0].target_start}-{s_tb[0].target_end}")
 
+    # 4c. start positions without traceback, and LOCAL second best
+    PLS = AlignmentParams(compute_start=True)
+    PSS = AlignmentParams(algo=AlgoType.SEMI_GLOBAL, compute_start=True)
+    P2 = AlignmentParams(second_best=True)
+    NB = dict(head=SemiGlobalSkip.NONE, tail=SemiGlobalSkip.BOTH)
+    opts = {  # name: (params, engine keywords)
+        "local start": (PLS, {}),
+        "semiglobal start": (PSS, dict(head=GLOCAL, tail=GLOCAL)),
+        "semiglobal start NONE/BOTH": (PSS, NB),
+        "local second": (P2, {}),
+        "local second tb": (P2, dict(with_tb=True)),
+    }
+    zero_counts(*counts)
+    got_opt = {k: timed(k, AlignEngine(pp, device=dev, **kw))
+               for k, (pp, kw) in opts.items()}
+    new_names = ("local_sw.second", "local_start", "semiglobal_start")
+    for k in new_names:
+        launches[k] = cuda_align.LAUNCHES[k]
+    log("4 slice", "start / second-best launches: " + str(
+        {k: cuda_align.LAUNCHES[k] for k in cuda_align.LAUNCHES}
+        | {"tb_walk": tb_walk.LAUNCHES["tb_walk"]}))
+    if not all(launches[k] for k in new_names):
+        raise AssertionError(f"a kernel of the start / second-best paths "
+                             f"never launched: {launches}")
+    l_st, s_st = got_opt["local start"], got_opt["semiglobal start"]
+    l_2, l_2tb = got_opt["local second"], got_opt["local second tb"]
+    walk_q = walk_t = 0
+    for k in range(n):
+        ends = lambda j: (j.score, j.query_end, j.target_end)
+        second = lambda j: (j.score_second, j.query_end_second,
+                            j.target_end_second)
+        if not (ends(l_st[k]) == ends(l_2[k]) == ends(l_2tb[k])
+                == ends(jobs_end[k])) or ends(s_st[k]) != ends(s_end[k]):
+            raise AssertionError(f"pair {k}: the start / second-best runs "
+                                 f"changed score or ends")
+        if second(l_2[k]) != second(l_2tb[k]) or not (
+                0 <= l_2[k].score_second <= l_2[k].score) or not np.array_equal(
+                l_2tb[k].cigar, jobs_tb[k].cigar):
+            raise AssertionError(f"pair {k}: second best {l_2[k]} vs "
+                                 f"{l_2tb[k]}")
+        walk_q += l_st[k].query_start == jobs_tb[k].query_start
+        walk_t += s_st[k].target_start == s_tb[k].target_start
+    sub = range(CPU_CHECK)
+    sq, st = [qs[k] for k in sub], [ts[k] for k in sub]
+    for k, (pp, kw) in opts.items():
+        assert_jobs_equal(got_opt[k], AlignEngine(pp, **kw).align(sq, st), k)
+    for k in gold_idx:
+        g = golds.local_align(qs[k], ts[k], P, with_start=True,
+                              second_best=True)
+        for got, fields in ((l_st[k], ("score", "query_end", "target_end",
+                                        "query_start", "target_start")),
+                            (l_2[k], ("score", "query_end", "target_end",
+                                      "score_second", "query_end_second",
+                                      "target_end_second"))):
+            if any(getattr(got, f) != g[f] for f in fields):
+                raise AssertionError(f"pair {k}: gold {g} vs engine {got}")
+        for key, kw in (("semiglobal start", opts["semiglobal start"][1]),
+                        ("semiglobal start NONE/BOTH", NB)):
+            h = golds.semiglobal_align(qs[k], ts[k], PS, with_start=True, **kw)
+            got = got_opt[key][k]
+            if (got.score, got.query_end, got.target_end, got.query_start,
+                    got.target_start) != (h["score"], h["query_end"],
+                                          h["target_end"], h["query_start"],
+                                          h["target_start"]):
+                raise AssertionError(f"pair {k}: {key} gold {h} vs engine "
+                                     f"{got}")
+    log("4 slice", f"start passes and second best == CPU engine on "
+        f"{CPU_CHECK} pairs each (every field), == gold on {GOLD_CHECK} "
+        f"pairs; score and ends == the forward runs on all {n}; LOCAL "
+        f"query_start == the walk's on {walk_q} of {n} (target_start is "
+        f"the reference's skewed one), glocal target_start == the walk's "
+        f"on {walk_t}; median second best "
+        f"{np.median([j.score_second for j in l_2])}; e.g. LOCAL starts "
+        f"({l_st[0].query_start}, {l_st[0].target_start}), glocal "
+        f"({s_st[0].query_start}, {s_st[0].target_start})")
+
     # -- 5. timings at bench.py's shape -----------------------------------
     qn, tn, qln, tln = random_codes(rng, BENCH_B, BENCH_L, BENCH_L, 0.0)
     q, t = torch.from_numpy(qn).to(dev), torch.from_numpy(tn).to(dev)
@@ -441,6 +548,20 @@ def main() -> int:
     g_res = cuda_align.global_align(q, t, ql, tl, PG, with_tb=True)
     s_res = cuda_align.semiglobal_align(q, t, ql, tl, PS, with_tb=True, **sg)
     si0, sj0 = walk_start(AlgoType.SEMI_GLOBAL, sg["tail"], s_res, ql, tl)
+    st_local = local_start_args(q, t, ql, tl, cuda_align.local_align(q, t, P))
+    st_semi, st_flags = semiglobal_start_args(
+        q, t, ql, tl, cuda_align.semiglobal_align(q, t, ql, tl, PS, **sg),
+        **sg)
+    plains = {
+        "local_sw.second": (cuda_align.local_align_second,
+                            scan_align_full.local_align_second_batch,
+                            (q, t, ql, tl, P), {}),
+        "local_start": (cuda_align.local_start,
+                        scan_align_full._local_start_core, st_local, {}),
+        "semiglobal_start": (cuda_align.semiglobal_start,
+                             scan_align_full._semiglobal_start_core,
+                             st_semi, st_flags),
+    }
     walks = {
         "tb_walk": (tb_res.tb, tb_res.score, tb_res.query_end,
                     tb_res.target_end, P),
@@ -466,6 +587,8 @@ def main() -> int:
     }
     for k, a in walks.items():
         ms[k] = cuda_ms(lambda a=a: tb_walk.tb_walk(*a), 10)
+    for k, (kern, _, a, kw) in plains.items():
+        ms[k] = cuda_ms(lambda kern=kern, a=a, kw=kw: kern(*a, **kw), 10)
     plain_ms = {
         "local_sw.score": cuda_ms(lambda: local_align_batch(Q.T, T.T, P), 2),
         "local_sw.end": cuda_ms(lambda: local_align_batch(q, t, P), 2),
@@ -487,11 +610,16 @@ def main() -> int:
         got = tb_walk.tb_walk(*a)
         err[k] = max(err[k], max_abs_err(got, tb_walk.tb_walk_plain(*a)))
         steps[k] = int((got[0] != 255).sum())
+    for k, (kern, plain, a, kw) in plains.items():
+        plain_ms[k] = cuda_ms(lambda plain=plain, a=a, kw=kw: plain(*a, **kw),
+                              1)
+        err[k] = max(err[k], max_abs_err(kern(*a, **kw), plain(*a, **kw)))
     if any(err.values()):
         raise AssertionError(f"kernels disagree with their plain versions "
                              f"at the timing shape: {err}")
     for k in ms:
         rate = (f"{steps[k] / ms[k] / 1e6:.3f} G steps/s" if k in steps
+                else "stops at the start" if k.endswith("_start")
                 else f"{cells / ms[k] / 1e6:.2f} GCUPS")
         log("5 timings", f"{k}: kernel {ms[k]:.4f} ms ({rate}), plain "
             f"{plain_ms[k]:.2f} ms, B={BENCH_B} {BENCH_L}x{BENCH_L}, on {smi}")
@@ -518,6 +646,12 @@ def main() -> int:
          "genomics_tpu/ops/pallas_align.py:1325"),
         ("tb_walk.global", "tb_walk.cu", "genomics_tpu/ops/tb_walk.py:29"),
         ("tb_walk.semiglobal", "tb_walk.cu", "native/cigar.cpp:32"),
+        ("local_sw.second", "local_sw.cu",
+         "genomics_tpu/ops/pallas_align.py:321"),
+        ("local_start", "local_start.cu",
+         "genomics_tpu/ops/pallas_align.py:1515"),
+        ("semiglobal_start", "semiglobal_start.cu",
+         "genomics_tpu/ops/pallas_gs.py:364"),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + f,

@@ -6,9 +6,11 @@ They are independent of every torch and CUDA code path of this package,
 so they are the oracles that `chip_smoke.py` spot-checks the card
 against on a machine without JAX.  References (CDP/GASAL2/src/kernels/):
 - local_align:      local_kernel_template.h (CORE_LOCAL_COMPUTE :19-30,
-                    kernel :72-519)
+                    kernel :72-519; second best :147-163, WITH_START
+                    reverse pass :441-511)
 - global_align:     global.h:31-303
-- semiglobal_align: semiglobal_kernel_template.h:40-230 (forward pass)
+- semiglobal_align: semiglobal_kernel_template.h:40-230 (forward pass,
+                    second best), :227-384 (WITH_START reverse pass)
 - decode_tb:        get_tb.h:5-149
 """
 from __future__ import annotations
@@ -58,7 +60,14 @@ def _sub_score_global(rbase: int, gbase: int, p: AlignmentParams) -> int:
     return score
 
 
-def local_align(query, target, params: AlignmentParams, with_tb: bool = False):
+def local_align(
+    query,
+    target,
+    params: AlignmentParams,
+    with_tb: bool = False,
+    with_start: bool = False,
+    second_best: bool = False,
+):
     """gasal_local_kernel emulation (local_kernel_template.h:72-519).
 
     Gap opens are taken from tmp = diag + sub, not from h.  Visit order:
@@ -66,10 +75,13 @@ def local_align(query, target, params: AlignmentParams, with_tb: bool = False):
     rows top to bottom inside a column; strict '<' max tracking, so the
     first cell attaining the final max in that order wins.
 
-    Returns a dict with score, query_end, target_end (+ tb_dirs, the
-    [t_pad8, q_pad8] nibble matrix, when with_tb)."""
+    Returns a dict with score, query_end, target_end (+ the *_second
+    fields with second_best, + query_start / target_start with
+    with_start, + tb_dirs, the [t_pad8, q_pad8] nibble matrix, with
+    with_tb)."""
     q = pad8(query)
     t = pad8(target)
+    qr = len(q) // 8  # query_batch_regs
     tr = len(t) // 8  # target_batch_regs
     goe, ge = params.gap_oe, params.gap_extend
 
@@ -79,6 +91,9 @@ def local_align(query, target, params: AlignmentParams, with_tb: bool = False):
     maxHH = 0
     maxXY_x = maxXY_y = 0
     prev_maxHH = 0
+    maxHH_s = 0
+    prev_maxHH_s = 0
+    maxXY_x_s = maxXY_y_s = 0
     dirs = np.zeros((len(t), len(q)), dtype=np.uint8) if with_tb else None
 
     for i in range(tr):  # target strip
@@ -109,6 +124,10 @@ def local_align(query, target, params: AlignmentParams, with_tb: bool = False):
                 h[m] = hm
                 f[m] = max(tmp - goe, f[m] - ge)
                 e = max(tmp - goe, e - ge)
+                if second_best:
+                    if maxHH_s < hm < maxHH:
+                        maxXY_y_s = gidx + m - 1
+                        maxHH_s = hm
                 if maxHH < hm:
                     maxXY_y = gidx + m - 1
                     maxHH = hm
@@ -117,12 +136,89 @@ def local_align(query, target, params: AlignmentParams, with_tb: bool = False):
             gE[ridx] = e
             if prev_maxHH < maxHH:
                 maxXY_x = ridx
+            if second_best:
+                # the quirk: prev_maxHH_second against the PRIMARY max
+                if prev_maxHH_s < maxHH:
+                    maxXY_x_s = ridx
+                prev_maxHH_s = max(maxHH_s, prev_maxHH_s)
             prev_maxHH = max(maxHH, prev_maxHH)
 
     out = {"score": maxHH, "query_end": maxXY_x, "target_end": maxXY_y}
+    if second_best:
+        out["score_second"] = maxHH_s
+        out["query_end_second"] = maxXY_x_s
+        out["target_end_second"] = maxXY_y_s
     if with_tb:
         out["tb_dirs"] = dirs
+    if with_start:
+        out.update(_local_start_pass(q, t, qr, tr, out, params))
     return out
+
+
+def _local_start_pass(q, t, qr, tr, fwd, params: AlignmentParams):
+    """WITH_START reverse pass (local_kernel_template.h:441-511): re-run
+    the DP on *word-aligned reversed* sequences starting at the words
+    containing the end positions, stopping (at column-segment granularity)
+    once the running max reaches the forward score."""
+    goe, ge = params.gap_oe, params.gap_extend
+    rend_pos, gend_pos, fwd_score = fwd["query_end"], fwd["target_end"], fwd["score"]
+    rend_reg = min((rend_pos >> 3) + 1, qr)
+    gend_reg = min((gend_pos >> 3) + 1, tr)
+    Lq = len(q)
+
+    gH = np.zeros(Lq, dtype=np.int64)
+    gE = np.zeros(Lq, dtype=np.int64)
+    maxHH = 0
+    prev_maxHH = 0
+    maxXY_x = 0
+    maxXY_y = 0
+    gidx = ((gend_reg << 3) + 8) - 1
+    i = 0
+    while i < gend_reg and maxHH < fwd_score:
+        h = [0] * 9
+        f = [0] * 9
+        p = [0] * 9
+        # target word gend_reg-1-i; the reference reads backwards from the
+        # end word, the bases inside a word reversed by indexing
+        # l = 0..28 (LSB first) instead of 28..0
+        tword = t[(gend_reg - 1 - i) * 8 : (gend_reg - i) * 8]
+        gidx -= 8
+        ridx = (rend_reg << 3) - 1
+        global_idx = 0
+        j = 0
+        while j < rend_reg and maxHH < fwd_score:
+            qword = q[(rend_reg - 1 - j) * 8 : (rend_reg - j) * 8]
+            k = 0
+            while k <= 28 and maxHH < fwd_score:
+                # rbase: bits k..k+3 → base index 7 - k/4 within the word
+                rbase = int(qword[7 - (k >> 2)])
+                h[0] = int(gH[global_idx])
+                e = int(gE[global_idx])
+                for m in range(1, 9):
+                    # l = 0..28 → base 7 - l/4 = 8-m
+                    gbase = int(tword[8 - m])
+                    sub = _sub_score_local(rbase, gbase, params)
+                    tmp = p[m] + sub
+                    hm = max(tmp, f[m], e, 0)
+                    h[m] = hm
+                    f[m] = max(tmp - goe, f[m] - ge)
+                    e = max(tmp - goe, e - ge)
+                    if maxHH < hm:
+                        # the reference's skewed target coordinate
+                        maxXY_y = gidx + (m - 1)
+                        maxHH = hm
+                    p[m] = h[m - 1]
+                gH[global_idx] = h[8]
+                gE[global_idx] = e
+                if prev_maxHH < maxHH:
+                    maxXY_x = ridx
+                prev_maxHH = max(maxHH, prev_maxHH)
+                ridx -= 1
+                global_idx += 1
+                k += 4
+            j += 1
+        i += 1
+    return {"query_start": maxXY_x, "target_start": maxXY_y}
 
 
 def global_align(query, target, params: AlignmentParams, with_tb: bool = False):
@@ -209,19 +305,17 @@ def semiglobal_align(
     params: AlignmentParams,
     head: SemiGlobalSkip = SemiGlobalSkip.NONE,
     tail: SemiGlobalSkip = SemiGlobalSkip.NONE,
+    second_best: bool = False,
     with_start: bool = False,
 ):
-    """gasal_semi_global_kernel emulation, forward pass
-    (semiglobal_kernel_template.h:40-230).
+    """gasal_semi_global_kernel emulation (semiglobal_kernel_template.h:
+    40-230), with the WITH_START reverse pass (:227-384).
 
     HEAD skip picks free-vs-penalized row/col boundaries; TAIL skip picks
     where the max is scanned (bottom row for TARGET, last column for
     QUERY — with the rightmost-column fixup at :205-210).  Uses the
     optimized core (:17-28): standard h-based Gotoh updates carried via
     prev_hm_diff.  Substitution uses the LOCAL macro (N scores 0)."""
-    if with_start:
-        raise NotImplementedError(
-            "the semiglobal start pass is not ported yet (ROADMAP B9)")
     q = pad8(query)
     t = pad8(target)
     read_len = len(_as_codes(query))
@@ -238,6 +332,9 @@ def semiglobal_align(
     maxHH = MINUS_INF
     maxXY_x = ref_len   # NOTE: reference swaps x/y inits (template :63-64)
     maxXY_y = read_len
+    maxHH_s = MINUS_INF
+    maxXY_x_s = ref_len
+    maxXY_y_s = read_len
 
     if head_q:
         gH = np.zeros(Lq, dtype=np.int64)
@@ -290,6 +387,143 @@ def semiglobal_align(
                     if h[m] > maxHH and (gidx + m - 1) < ref_len:
                         maxXY_y = gidx + m - 1
                         maxHH = h[m]
+                    if second_best:
+                        if h[m] > maxHH_s and h[m] < maxHH and (gidx + m - 1) < ref_len:
+                            maxXY_y_s = gidx + m - 1
+                            maxHH_s = h[m]
+
+    if tail_q:
+        for m in range(Lq):
+            score_tmp = int(gH[m])
+            if score_tmp > maxHH and m < read_len:
+                maxXY_x = m
+                maxHH = score_tmp
+            if second_best:
+                # NOTE: reference checks m < ref_len here (template :198) —
+                # replicated verbatim, quirk included.
+                if score_tmp > maxHH_s and score_tmp < maxHH and m < ref_len:
+                    maxXY_x_s = m
+                    maxHH_s = score_tmp
+        if maxXY_x != ref_len:
+            maxXY_y = read_len
+        if second_best and maxXY_x_s != ref_len:
+            maxXY_y_s = read_len
+
+    out = {"score": maxHH, "query_end": maxXY_x, "target_end": maxXY_y}
+    if second_best:
+        out["score_second"] = maxHH_s
+        out["query_end_second"] = maxXY_x_s
+        out["target_end_second"] = maxXY_y_s
+    if with_start:
+        out.update(_semiglobal_start_pass(q, t, read_len, ref_len, tr, out,
+                                          params, head, tail))
+    return out
+
+
+def _semiglobal_start_pass(q, t, read_len, ref_len, tr, fwd,
+                           params: AlignmentParams,
+                           head: SemiGlobalSkip, tail: SemiGlobalSkip):
+    """Semiglobal WITH_START reverse pass (semiglobal_kernel_template.h:
+    227-384): re-run the semiglobal DP on the PLAIN-REVERSED sequences
+    (full-length reversal into zero-initialized words — trailing code 0,
+    unlike the forward N-padding), starting at target word `gend_reg`,
+    with word-granularity early exit once the running max reaches the
+    forward score.  Reference quirks replicated:
+
+    - the penalized (non-free-target-head) row boundary counts rows from
+      the STARTING strip (`u`/`r` restart at 1, :307-318), while
+      maxXY_y records absolute reversed coordinates (gidx + m - 1);
+    - maxXY_x is NOT reset before the pass (:275-276 reset only
+      maxHH/maxXY_y) — for TAIL without QUERY the query start derives
+      from the forward query end;
+    - the TAIL-QUERY final scan (:361-377) reads global[] columns
+      m < read_len, which all live in the last strip processed, and
+      applies the `maxXY_x != ref_len` fixup verbatim;
+    - `gend_reg` clamped at 0 (the reference underflows into UB when the
+      forward maxXY_y quirk value read_len lands beyond the last word)."""
+    goe, ge = params.gap_oe, params.gap_extend
+    gapo = params.gap_open
+    head_q = head in (SemiGlobalSkip.QUERY, SemiGlobalSkip.BOTH)
+    head_t = head in (SemiGlobalSkip.TARGET, SemiGlobalSkip.BOTH)
+    tail_q = tail in (SemiGlobalSkip.QUERY, SemiGlobalSkip.BOTH)
+    tail_t = tail in (SemiGlobalSkip.TARGET, SemiGlobalSkip.BOTH)
+    Lq = len(q)
+    Lt = len(t)
+    qr = Lq // 8
+    # plain full-length reversal into zeroed words (:232-266)
+    rev_q = np.zeros(Lq, dtype=np.uint8)
+    rev_q[:read_len] = q[:read_len][::-1]
+    rev_t = np.zeros(Lt, dtype=np.uint8)
+    rev_t[:ref_len] = t[:ref_len][::-1]
+
+    gend_pos = fwd["target_end"]
+    fwd_score = fwd["score"]
+    a = tr - ((gend_pos >> 3) + 1)
+    gend_reg = (a - 1) if a > 0 else a
+    gend_reg = max(gend_reg, 0)
+
+    maxHH = MINUS_INF
+    maxXY_y = 0
+    maxXY_x = fwd["query_end"]
+
+    if head_q:
+        gH = np.zeros(Lq, dtype=np.int64)
+    else:
+        gH = np.array([0] + [-(gapo + ge * i) for i in range(1, Lq)],
+                      dtype=np.int64)
+    gE = np.full(Lq, MINUS_INF, dtype=np.int64)
+
+    h = [0] * 9
+    f = [0] * 9
+    p = [0] * 9
+    u = 1
+    r = 1
+
+    i = gend_reg
+    while i < tr and maxHH < fwd_score:
+        gidx = i << 3
+        if head_t:
+            for m in range(9):
+                h[m] = 0
+                f[m] = MINUS_INF
+                p[m] = 0
+        else:
+            for m in range(1, 9):
+                h[m] = -(gapo + ge * (u - 1))
+                f[m] = MINUS_INF
+                p[m] = 0 if r == 1 else -(gapo + ge * (r - 1))
+                u += 1
+                r += 1
+        ridx = 0
+        j = 0
+        while j < qr and maxHH < fwd_score:
+            for kk in range(8):
+                rbase = int(rev_q[j * 8 + kk])
+                h[0] = int(gH[ridx])
+                e = int(gE[ridx])
+                prev_hm_diff = h[0] - goe
+                for m in range(1, 9):
+                    gbase = int(rev_t[gidx + m - 1])
+                    sub = _sub_score_local(rbase, gbase, params)
+                    curr_hm_diff = h[m] - goe
+                    f[m] = max(curr_hm_diff, f[m] - ge)
+                    curr_hm_diff = p[m] + sub
+                    curr_hm_diff = max(curr_hm_diff, f[m])
+                    e = max(prev_hm_diff, e - ge)
+                    curr_hm_diff = max(curr_hm_diff, e)
+                    h[m] = curr_hm_diff
+                    p[m] = prev_hm_diff + goe
+                    prev_hm_diff = curr_hm_diff - goe
+                gH[ridx] = h[8]
+                gE[ridx] = e
+                ridx += 1
+                if tail_t and ridx == read_len:
+                    for m in range(1, 9):
+                        if h[m] > maxHH and (gidx + m - 1) < ref_len:
+                            maxXY_y = gidx + (m - 1)
+                            maxHH = h[m]
+            j += 1
+        i += 1
 
     if tail_q:
         for m in range(Lq):
@@ -299,8 +533,10 @@ def semiglobal_align(
                 maxHH = score_tmp
         if maxXY_x != ref_len:
             maxXY_y = read_len
-
-    return {"score": maxHH, "query_end": maxXY_x, "target_end": maxXY_y}
+    return {
+        "target_start": (ref_len - 1) - maxXY_y,
+        "query_start": (read_len - 1) - maxXY_x,
+    }
 
 
 def decode_tb(

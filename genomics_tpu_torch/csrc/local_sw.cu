@@ -10,6 +10,9 @@
 //               traceback: END + one packed int32 of 4-bit direction
 //               nibbles per (strip, query column), the sqb layout
 //               [Lt/8, Lq, B] that tb_walk.cu reads.
+//   mode SECOND _local_kernel_intertask_second (:321): END + GASAL2's
+//               inline second best (score2, qend2, tend2), through its own
+//               entry point local_sw_second_launch (it reads the lengths).
 // The TPU's lanes / inter-task split exists for its vector layout only;
 // here one kernel serves every batch size.
 //
@@ -25,12 +28,20 @@
 // is the same under any seed <= 0, and seed 0 gives the nibbles of the
 // JAX TB kernel and the golds.
 //
+// SECOND keeps the reference's state per cell, in visit order (:147-163):
+// a cell inside the pair's own 8-padded extent (column < qr8, row < tr8)
+// is the new second best iff score2 < h < the primary max, the primary
+// max already updated by this cell; after each query column inside the
+// extent, qend2 = column iff prev_score2 < the PRIMARY max (a reference
+// quirk, kept), then prev_score2 = max(prev_score2, score2).  Cells
+// beyond the extent take part in the DP but never in the second best.
+//
 // Bound: integer ALU work per cell (about 12 operations in SCORE, 15 in
-// END, 25 in TB) plus, in TB, the nibble-cube writes (4 bytes per 8 cells,
-// the only device-memory traffic that grows with the cell count besides
-// the gH/gE carry).  This first design is the simple one: DPX
-// __vimax3_s32, packed 16-bit cells and shared-memory carries are left to
-// later work.
+// END, 25 in TB, 20 in SECOND) plus, in TB, the nibble-cube writes (4
+// bytes per 8 cells, the only device-memory traffic that grows with the
+// cell count besides the gH/gE carry).  This first design is the simple
+// one: DPX __vimax3_s32, packed 16-bit cells and shared-memory carries are
+// left to later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,7 +50,7 @@ namespace {
 
 constexpr int kN4 = 14;  // 4-bit code of N (and of padding)
 constexpr int kThreads = 128;
-enum Mode { SCORE = 0, END = 1, TB = 2 };
+enum Mode { SCORE = 0, END = 1, TB = 2, SECOND = 3 };
 
 template <int MODE, bool WITH_N>
 __global__ void __launch_bounds__(kThreads)
@@ -52,12 +63,23 @@ local_sw_kernel(const uint8_t* __restrict__ Q,  // [Lq, B]
                 int* __restrict__ out_score,    // [B]
                 int* __restrict__ out_qend,     // [B] (END, TB)
                 int* __restrict__ out_tend,     // [B] (END, TB)
-                int* __restrict__ tb)           // [Lt/8, Lq, B] (TB)
+                int* __restrict__ tb,           // [Lt/8, Lq, B] (TB)
+                const int* __restrict__ qlen,   // [B] (SECOND)
+                const int* __restrict__ tlen,   // [B] (SECOND)
+                int* __restrict__ out_score2,   // [B] (SECOND)
+                int* __restrict__ out_qend2,    // [B] (SECOND)
+                int* __restrict__ out_tend2)    // [B] (SECOND)
 {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t sB = static_cast<size_t>(B);
   int best = 0, qend = 0, tend = 0;
+  // SECOND: the pair's 8-padded extent and the second-best state
+  int qr8 = 0, tr8 = 0, best2 = 0, prev2 = 0, qend2 = 0, tend2 = 0;
+  if (MODE == SECOND) {
+    qr8 = (qlen[b] + 7) / 8 * 8;
+    tr8 = (tlen[b] + 7) / 8 * 8;
+  }
   const int n_strips = Lt >> 3;
   for (int s = 0; s < n_strips; ++s) {
     int tc[8];
@@ -91,6 +113,10 @@ local_sw_kernel(const uint8_t* __restrict__ Q,  // [Lq, B]
           qend = j;
           tend = s * 8 + c;
         }
+        if (MODE == SECOND && j < qr8 && s * 8 + c < tr8 && best2 < h && h < best) {
+          best2 = h;
+          tend2 = s * 8 + c;
+        }
         const int tmpg = tmp - goe;
         if (MODE == TB) {
           // direction from the pre-update chains (pallas_align.py:776-787)
@@ -107,6 +133,10 @@ local_sw_kernel(const uint8_t* __restrict__ Q,  // [Lq, B]
       diag0 = hcol;
       gH[at] = hp[7];
       gE[at] = e;
+      if (MODE == SECOND) {
+        if (prev2 < best && j < qr8 && s * 8 < tr8) qend2 = j;
+        prev2 = max(prev2, best2);
+      }
       if (MODE == TB) tb[(static_cast<size_t>(s) * Lq + j) * sB + b] = static_cast<int>(word);
     }
   }
@@ -114,6 +144,11 @@ local_sw_kernel(const uint8_t* __restrict__ Q,  // [Lq, B]
   if (MODE != SCORE) {
     out_qend[b] = qend;
     out_tend[b] = tend;
+  }
+  if (MODE == SECOND) {
+    out_score2[b] = best2;
+    out_qend2[b] = qend2;
+    out_tend2[b] = tend2;
   }
 }
 
@@ -138,18 +173,43 @@ extern "C" int local_sw_launch(int mode, int with_n, const void* Q, const void* 
   auto w = static_cast<int*>(tb);
   if (mode == SCORE && with_n) {
     local_sw_kernel<SCORE, true><<<grid, block, 0, st>>>(
-        q, t, B, Lq, Lt, match, mismatch, n_score, goe, ge, h, e, s, qe, te, w);
+        q, t, B, Lq, Lt, match, mismatch, n_score, goe, ge, h, e, s, qe, te, w,
+        nullptr, nullptr, nullptr, nullptr, nullptr);
   } else if (mode == SCORE) {
     local_sw_kernel<SCORE, false><<<grid, block, 0, st>>>(
-        q, t, B, Lq, Lt, match, mismatch, n_score, goe, ge, h, e, s, qe, te, w);
+        q, t, B, Lq, Lt, match, mismatch, n_score, goe, ge, h, e, s, qe, te, w,
+        nullptr, nullptr, nullptr, nullptr, nullptr);
   } else if (mode == END && with_n) {
     local_sw_kernel<END, true><<<grid, block, 0, st>>>(
-        q, t, B, Lq, Lt, match, mismatch, n_score, goe, ge, h, e, s, qe, te, w);
+        q, t, B, Lq, Lt, match, mismatch, n_score, goe, ge, h, e, s, qe, te, w,
+        nullptr, nullptr, nullptr, nullptr, nullptr);
   } else if (mode == TB && with_n) {
     local_sw_kernel<TB, true><<<grid, block, 0, st>>>(
-        q, t, B, Lq, Lt, match, mismatch, n_score, goe, ge, h, e, s, qe, te, w);
+        q, t, B, Lq, Lt, match, mismatch, n_score, goe, ge, h, e, s, qe, te, w,
+        nullptr, nullptr, nullptr, nullptr, nullptr);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// SECOND (with N): END plus the second best, for pairs of lengths
+// qlen/tlen [B] int32.  Launches on `stream` without synchronising;
+// returns cudaGetLastError().
+extern "C" int local_sw_second_launch(const void* Q, const void* T,
+                                      const void* qlen, const void* tlen,
+                                      int B, int Lq, int Lt, int match,
+                                      int mismatch, int n_score, int goe, int ge,
+                                      void* gH, void* gE, void* score,
+                                      void* qend, void* tend, void* score2,
+                                      void* qend2, void* tend2, void* stream) {
+  const dim3 grid((B + kThreads - 1) / kThreads), block(kThreads);
+  local_sw_kernel<SECOND, true><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(Q), static_cast<const uint8_t*>(T), B, Lq, Lt,
+      match, mismatch, n_score, goe, ge, static_cast<int*>(gH),
+      static_cast<int*>(gE), static_cast<int*>(score), static_cast<int*>(qend),
+      static_cast<int*>(tend), nullptr, static_cast<const int*>(qlen),
+      static_cast<const int*>(tlen), static_cast<int*>(score2),
+      static_cast<int*>(qend2), static_cast<int*>(tend2));
   return static_cast<int>(cudaGetLastError());
 }

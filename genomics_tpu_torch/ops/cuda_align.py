@@ -1,11 +1,13 @@
 """The DP kernels on the card: the wrappers of `csrc/local_sw.cu`,
-`csrc/global_sw.cu` and `csrc/semiglobal_sw.cu`.
+`csrc/global_sw.cu`, `csrc/semiglobal_sw.cu`, `csrc/local_start.cu` and
+`csrc/semiglobal_start.cu`.
 
 The counterpart of `genomics_tpu/ops/pallas_align.py` and
 `genomics_tpu/ops/pallas_gs.py`.  Every function takes the plain version
-(`ops.scan_align`) for tensors on the CPU and launches the hand-written
-kernel for tensors on a CUDA device; any other device raises.  There is
-no fallback from the kernel to the plain version.
+(`ops.scan_align`, `ops.scan_align_full`) for tensors on the CPU and
+launches the hand-written kernel for tensors on a CUDA device; any other
+device raises.  There is no fallback from the kernel to the plain
+version.
 
 One kernel (one thread per alignment) covers every batch size, so the
 TPU's lanes / inter-task split has no counterpart here.  The modes
@@ -16,11 +18,14 @@ replace these Pallas kernels:
                        and the lanes kernel `_local_kernel` (:116)
   local_sw.tb          `_local_kernel_intertask_tb` (pallas_align.py:717)
                        and `_local_kernel` (:116) with traceback
+  local_sw.second      `_local_kernel_intertask_second` (pallas_align.py:321)
+  local_start          `_local_start_kernel` (pallas_align.py:1515)
   global_sw.score      `_global_kernel_intertask` (pallas_gs.py:65)
   global_sw.tb         `_global_kernel` (pallas_align.py:1201) with traceback
   semiglobal_sw.end    `_semiglobal_kernel_intertask` (pallas_gs.py:181)
   semiglobal_sw.tb     `_semiglobal_kernel` (pallas_align.py:1325) with
                        traceback
+  semiglobal_start     `_semiglobal_start_kernel` (pallas_gs.py:364)
 """
 from __future__ import annotations
 
@@ -32,38 +37,57 @@ import torch
 from genomics_tpu_torch import _build
 from genomics_tpu_torch.core.encoding import N4
 from genomics_tpu_torch.core.scoring import AlignmentParams, SemiGlobalSkip
+from genomics_tpu_torch.ops import scan_align_full
 from genomics_tpu_torch.ops.scan_align import (
     AlignResult,
     global_align_batch,
     local_align_batch,
     semiglobal_align_batch,
 )
+from genomics_tpu_torch.ops.scan_align_full import SecondResult
 
 # Kernel launches per kernel mode; a wrapper adds one where it launches.
 LAUNCHES = {"local_sw.score": 0, "local_sw.end": 0, "local_sw.tb": 0,
+            "local_sw.second": 0, "local_start": 0,
             "global_sw.score": 0, "global_sw.tb": 0,
-            "semiglobal_sw.end": 0, "semiglobal_sw.tb": 0}
+            "semiglobal_sw.end": 0, "semiglobal_sw.tb": 0,
+            "semiglobal_start": 0}
 _LOCAL_MODES = {"score": 0, "end": 1, "tb": 2}
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
-# argument types of each csrc/<name>.cu entry point <name>_launch
+# argument types of each exported entry point, by (library, entry)
 _SIGNATURES = {
     # mode, with_n, Q, T, B, Lq, Lt, match, mismatch, n_score, goe, ge,
     # gH, gE, score, qend, tend, tb, stream
-    "local_sw": (_ci, _ci, _vp, _vp) + (_ci,) * 8 + (_vp,) * 7,
+    ("local_sw", "local_sw_launch"):
+        (_ci, _ci, _vp, _vp) + (_ci,) * 8 + (_vp,) * 7,
+    # Q, T, qlen, tlen, B, Lq, Lt, match, mismatch, n_score, goe, ge, gH,
+    # gE, score, qend, tend, score2, qend2, tend2, stream
+    ("local_sw", "local_sw_second_launch"):
+        (_vp,) * 4 + (_ci,) * 8 + (_vp,) * 9,
+    # Q, T, fwd, B, Lq, Lt, match, mismatch, n_score, goe, ge, gH, gE,
+    # col, strip, row, stream
+    ("local_start", "local_start_launch"): (_vp,) * 3 + (_ci,) * 8 + (_vp,) * 6,
     # mode, with_n_penalty, Q, T, qlen, tlen, B, Lq, Lt, match, mismatch,
     # n_penalty, gapo, ge, gH, gE, score, tb, stream
-    "global_sw": (_ci, _ci) + (_vp,) * 4 + (_ci,) * 8 + (_vp,) * 5,
+    ("global_sw", "global_sw_launch"):
+        (_ci, _ci) + (_vp,) * 4 + (_ci,) * 8 + (_vp,) * 5,
     # mode, flags, Q, T, qlen, tlen, B, Lq, Lt, match, mismatch, n_score,
     # gapo, ge, gH, gE, score, qend, tend, tb, stream
-    "semiglobal_sw": (_ci, _ci) + (_vp,) * 4 + (_ci,) * 8 + (_vp,) * 7,
+    ("semiglobal_sw", "semiglobal_sw_launch"):
+        (_ci, _ci) + (_vp,) * 4 + (_ci,) * 8 + (_vp,) * 7,
+    # flags, Q, T, qlen, tlen, row_off, row_count, fwd_score, fwd_qend, B,
+    # Lq, Lt, match, mismatch, n_score, gapo, ge, gH, gE, tstart, qstart,
+    # stream
+    ("semiglobal_start", "semiglobal_start_launch"):
+        (_ci,) + (_vp,) * 8 + (_ci,) * 8 + (_vp,) * 5,
 }
 
 
 @functools.cache
-def _kernel(name: str):
-    fn = getattr(_build.library(name), f"{name}_launch")
-    fn.argtypes = list(_SIGNATURES[name])
+def _kernel(lib: str, entry: str):
+    fn = getattr(_build.library(lib), entry)
+    fn.argtypes = list(_SIGNATURES[lib, entry])
     fn.restype = _ci
     return fn
 
@@ -86,12 +110,15 @@ def _check_codes(a: torch.Tensor, b: torch.Tensor, batch_dim: int):
         raise ValueError(f"q on {a.device}, t on {b.device}")
 
 
-def _check_lengths(qlen: torch.Tensor, tlen: torch.Tensor, q: torch.Tensor):
+def _check_lengths(q: torch.Tensor, *per_pair: torch.Tensor):
+    """Each per-pair input (qlen, tlen, ...) must be int32 [B] on q's
+    device."""
     B = q.shape[0]
-    for x in (qlen, tlen):
+    for x in per_pair:
         if x.shape != (B,) or x.dtype != torch.int32 or x.device != q.device:
-            raise ValueError(f"qlen/tlen must be int32 [{B}] on {q.device}; "
-                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+            raise ValueError(f"per-pair inputs (qlen/tlen, ...) must be "
+                             f"int32 [{B}] on {q.device}; got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
 
 
 def _outputs(name: str, mode: str, Q: torch.Tensor, T: torch.Tensor,
@@ -99,34 +126,53 @@ def _outputs(name: str, mode: str, Q: torch.Tensor, T: torch.Tensor,
     """Allocate a launch's outputs and scratch on Q's device.  Returns
     (score, qend, tend, tb, gH, gE); qend/tend are None without `ends`
     and tb is the sqb cube [Lt//8, Lq, B] in tb mode."""
+    gH, gE = _carry(name, Q, T)
     Lq, B = Q.shape
-    Lt = T.shape[0]
-    if Lt % 8:
-        raise ValueError(f"{name} walks 8-row target strips; Lt={Lt}")
-    dev, i32 = Q.device, torch.int32
-    score = torch.empty(B, dtype=i32, device=dev)
-    qend = torch.empty(B, dtype=i32, device=dev) if ends else None
-    tend = torch.empty(B, dtype=i32, device=dev) if ends else None
-    tb = (torch.empty((Lt // 8, Lq, B), dtype=i32, device=dev)
-          if mode == "tb" else None)
-    # per-column H/E carry between strips (GASAL2's global[] array)
-    gH = torch.empty((Lq, B), dtype=i32, device=dev)
-    gE = torch.empty((Lq, B), dtype=i32, device=dev)
-    return score, qend, tend, tb, gH, gE
+    score, qend, tend = _per_pair(3, Q)
+    tb = (torch.empty((T.shape[0] // 8, Lq, B), dtype=torch.int32,
+                      device=Q.device) if mode == "tb" else None)
+    return score, (qend if ends else None), (tend if ends else None), tb, gH, gE
+
+
+def _carry(name: str, Q: torch.Tensor, T: torch.Tensor):
+    """The per-column H/E carry between strips (GASAL2's global[] array):
+    two [Lq, B] int32 scratch tensors on Q's device."""
+    if T.shape[0] % 8:
+        raise ValueError(f"{name} walks 8-row target strips; Lt={T.shape[0]}")
+    return [torch.empty(Q.shape, dtype=torch.int32, device=Q.device)
+            for _ in range(2)]
+
+
+def _per_pair(n: int, Q: torch.Tensor):
+    """n int32 [B] outputs on Q's device."""
+    return [torch.empty(Q.shape[1], dtype=torch.int32, device=Q.device)
+            for _ in range(n)]
 
 
 def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _call(name: str, mode: str, dev: torch.device, *args):
-    """Launch csrc/<name>.cu on dev's current stream; count the launch."""
-    fn = _kernel(name)
+def _call(key: str, dev: torch.device, *args, entry: str | None = None):
+    """Launch the kernel counted under `key` ("<library>[.<mode>]") on
+    dev's current stream through its entry point (default
+    <library>_launch); count the launch."""
+    lib = key.split(".")[0]
+    fn = _kernel(lib, entry or f"{lib}_launch")
     with torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"{name} ({mode}) launch failed: CUDA error {err}")
-    LAUNCHES[f"{name}.{mode}"] += 1
+        raise RuntimeError(f"{key} launch failed: CUDA error {err}")
+    LAUNCHES[key] += 1
+
+
+def _n_score(params: AlignmentParams) -> int:
+    """What a pairing with N scores under the local macro."""
+    return -params.n_penalty if params.n_penalty is not None else 0
+
+
+def _skip_flags(head_q: bool, head_t: bool, tail_q: bool, tail_t: bool):
+    return int(head_q) | int(head_t) << 1 | int(tail_q) << 2 | int(tail_t) << 3
 
 
 def _launch(mode: str, Q: torch.Tensor, T: torch.Tensor,
@@ -139,10 +185,10 @@ def _launch(mode: str, Q: torch.Tensor, T: torch.Tensor,
     score, qend, tend, tb, gH, gE = _outputs("local_sw", mode, Q, T,
                                              mode != "score")
     if B:
-        n_score = -params.n_penalty if params.n_penalty is not None else 0
-        _call("local_sw", mode, Q.device, _LOCAL_MODES[mode], int(with_n),
+        _call(f"local_sw.{mode}", Q.device, _LOCAL_MODES[mode], int(with_n),
               Q.data_ptr(), T.data_ptr(), B, Lq, T.shape[0], params.match,
-              params.mismatch, n_score, params.gap_oe, params.gap_extend,
+              params.mismatch, _n_score(params), params.gap_oe,
+              params.gap_extend,
               gH.data_ptr(), gE.data_ptr(), score.data_ptr(), _ptr(qend),
               _ptr(tend), _ptr(tb))
     return score, qend, tend, tb
@@ -183,7 +229,7 @@ def global_align(
     [Lt//8, Lq, B]]; the ends are (qlen-1, tlen-1), as
     pallas_align.py:1279-1280 and :1316-1317 report them."""
     _check_codes(q, t, 0)
-    _check_lengths(qlen, tlen, q)
+    _check_lengths(q, qlen, tlen)
     if _on_cpu(q):
         return global_align_batch(q, t, qlen, tlen, params, with_tb=with_tb)
     mode = "tb" if with_tb else "score"
@@ -193,7 +239,7 @@ def global_align(
     score, _, _, tb, gH, gE = _outputs("global_sw", mode, Q, T, False)
     if B:
         npen = params.n_penalty is not None
-        _call("global_sw", mode, Q.device, int(with_tb), int(npen),
+        _call(f"global_sw.{mode}", Q.device, int(with_tb), int(npen),
               Q.data_ptr(), T.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
               B, Lq, T.shape[0], params.match, params.mismatch,
               params.n_penalty if npen else 0, params.gap_open,
@@ -216,7 +262,7 @@ def semiglobal_align(
     quirks included (see `ops.scan_align.semiglobal_align_batch`)
     [+ traceback nibbles, sqb [Lt//8, Lq, B]]."""
     _check_codes(q, t, 0)
-    _check_lengths(qlen, tlen, q)
+    _check_lengths(q, qlen, tlen)
     if _on_cpu(q):
         return semiglobal_align_batch(q, t, qlen, tlen, params, head=head,
                                       tail=tail, with_tb=with_tb)
@@ -226,18 +272,110 @@ def semiglobal_align(
     Lq, B = Q.shape
     score, qend, tend, tb, gH, gE = _outputs("semiglobal_sw", mode, Q, T, True)
     if B:
-        flags = (bool(head & SemiGlobalSkip.QUERY)
-                 | bool(head & SemiGlobalSkip.TARGET) << 1
-                 | bool(tail & SemiGlobalSkip.QUERY) << 2
-                 | bool(tail & SemiGlobalSkip.TARGET) << 3)
-        n_score = -params.n_penalty if params.n_penalty is not None else 0
-        _call("semiglobal_sw", mode, Q.device, int(with_tb), flags,
+        flags = _skip_flags(**scan_align_full.skip_flags(head, tail))
+        _call(f"semiglobal_sw.{mode}", Q.device, int(with_tb), flags,
               Q.data_ptr(), T.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
-              B, Lq, T.shape[0], params.match, params.mismatch, n_score,
+              B, Lq, T.shape[0], params.match, params.mismatch,
+              _n_score(params),
               params.gap_open, params.gap_extend, gH.data_ptr(),
               gE.data_ptr(), score.data_ptr(), qend.data_ptr(),
               tend.data_ptr(), _ptr(tb))
     return AlignResult(score, qend, tend, tb)
+
+
+def local_align_second(
+    q: torch.Tensor,      # [B, Lq] uint8, N4-padded
+    t: torch.Tensor,      # [B, Lt] uint8, Lt % 8 == 0
+    qlen: torch.Tensor,   # [B] int32
+    tlen: torch.Tensor,   # [B] int32
+    params: AlignmentParams,
+) -> SecondResult:
+    """Score + ends + GASAL2's inline second best (score2, qend2, tend2),
+    one pass; the counterpart of `pallas_align.local_align_second_tpu`."""
+    _check_codes(q, t, 0)
+    _check_lengths(q, qlen, tlen)
+    if _on_cpu(q):
+        return scan_align_full.local_align_second_batch(q, t, qlen, tlen,
+                                                        params)
+    Q, T = q.T.contiguous(), t.T.contiguous()
+    qlen, tlen = qlen.contiguous(), tlen.contiguous()
+    Lq, B = Q.shape
+    score, qend, tend, _, gH, gE = _outputs("local_sw", "end", Q, T, True)
+    score2, qend2, tend2 = _per_pair(3, Q)
+    if B:
+        _call("local_sw.second", Q.device, Q.data_ptr(), T.data_ptr(),
+              qlen.data_ptr(), tlen.data_ptr(), B, Lq, T.shape[0],
+              params.match, params.mismatch, _n_score(params), params.gap_oe,
+              params.gap_extend, gH.data_ptr(), gE.data_ptr(),
+              score.data_ptr(), qend.data_ptr(), tend.data_ptr(),
+              score2.data_ptr(), qend2.data_ptr(), tend2.data_ptr(),
+              entry="local_sw_second_launch")
+    return SecondResult(score, qend, tend, score2, qend2, tend2)
+
+
+def local_start(
+    rev_q: torch.Tensor,      # [B, Lq] uint8, reversed word-aligned prefix
+    rev_t: torch.Tensor,      # [B, Lt] uint8, Lt % 8 == 0
+    fwd_score: torch.Tensor,  # [B] int32, the forward score
+    params: AlignmentParams,
+):
+    """The LOCAL reverse pass: (cprime, sstrip, r0), [B] int32 each, as
+    `pallas_align.local_start_tpu` returns them; build the inputs with
+    `scan_align_full.local_start_inputs`."""
+    _check_codes(rev_q, rev_t, 0)
+    _check_lengths(rev_q, fwd_score)
+    if _on_cpu(rev_q):
+        return scan_align_full._local_start_core(rev_q, rev_t, fwd_score,
+                                                 params)
+    Q, T = rev_q.T.contiguous(), rev_t.T.contiguous()
+    fwd = fwd_score.contiguous()
+    Lq, B = Q.shape
+    gH, gE = _carry("local_start", Q, T)
+    col, strip, row = _per_pair(3, Q)
+    if B:
+        _call("local_start", Q.device, Q.data_ptr(), T.data_ptr(),
+              fwd.data_ptr(), B, Lq, T.shape[0], params.match,
+              params.mismatch, _n_score(params), params.gap_oe,
+              params.gap_extend, gH.data_ptr(), gE.data_ptr(),
+              col.data_ptr(), strip.data_ptr(), row.data_ptr())
+    return col, strip, row
+
+
+def semiglobal_start(
+    rev_q: torch.Tensor,      # [B, Lq] uint8, reversed query (trailing 0)
+    rev_t: torch.Tensor,      # [B, Lt] uint8, reversed target suffix
+    qlen: torch.Tensor,       # [B] int32
+    tlen: torch.Tensor,       # [B] int32
+    row_off: torch.Tensor,    # [B] int32, 8 * gend_reg
+    row_count: torch.Tensor,  # [B] int32, rows of the suffix
+    fwd_score: torch.Tensor,  # [B] int32
+    fwd_qend: torch.Tensor,   # [B] int32
+    params: AlignmentParams,
+    *, head_q: bool, head_t: bool, tail_q: bool, tail_t: bool,
+):
+    """The SEMI_GLOBAL reverse pass: (tstart, qstart), [B] int32 each,
+    as `pallas_gs.semiglobal_start_intertask` returns them; build the
+    inputs with `scan_align_full.semiglobal_start_inputs`."""
+    _check_codes(rev_q, rev_t, 0)
+    per_pair = (qlen, tlen, row_off, row_count, fwd_score, fwd_qend)
+    _check_lengths(rev_q, *per_pair)
+    flags = dict(head_q=head_q, head_t=head_t, tail_q=tail_q, tail_t=tail_t)
+    if _on_cpu(rev_q):
+        return scan_align_full._semiglobal_start_core(
+            rev_q, rev_t, *per_pair, params, **flags)
+    Q, T = rev_q.T.contiguous(), rev_t.T.contiguous()
+    per_pair = [x.contiguous() for x in per_pair]
+    Lq, B = Q.shape
+    gH, gE = _carry("semiglobal_start", Q, T)
+    tstart, qstart = _per_pair(2, Q)
+    if B:
+        _call("semiglobal_start", Q.device, _skip_flags(**flags),
+              Q.data_ptr(), T.data_ptr(), *(x.data_ptr() for x in per_pair),
+              B, Lq, T.shape[0], params.match, params.mismatch,
+              _n_score(params), params.gap_open, params.gap_extend,
+              gH.data_ptr(), gE.data_ptr(), tstart.data_ptr(),
+              qstart.data_ptr())
+    return tstart, qstart
 
 
 def _pads_to_sentinels(a: torch.Tensor, code: int) -> torch.Tensor:

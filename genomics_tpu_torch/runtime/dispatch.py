@@ -13,7 +13,11 @@ algorithms.  `AlignEngine`:
    (`ops.tb_walk`), so only the O(Lq+Lt) op stream per pair comes back;
    for SEMI_GLOBAL the walk's start cell is first resolved from the
    kernel's ends on the device;
-4. run-length encodes the op streams to byte-CIGARs on the host, with
+4. without traceback, serves `compute_start` (LOCAL, SEMI_GLOBAL) with
+   GASAL2's reverse start pass fed the forward kernel's result on the
+   device, and LOCAL's `second_best` with the inline second-best kernel
+   (`ops.scan_align_full`, `ops.cuda_align`);
+5. run-length encodes the op streams to byte-CIGARs on the host, with
    GLOBAL's and SEMI_GLOBAL's leading D/I pads.
 
 Results come back in submission order, every `AlignmentJob` field as the
@@ -38,7 +42,12 @@ from genomics_tpu_torch.core.scoring import (
     AlignmentParams,
     SemiGlobalSkip,
 )
-from genomics_tpu_torch.ops import cuda_align, tb_walk
+from genomics_tpu_torch.ops import (
+    cuda_align,
+    scan_align,
+    scan_align_full,
+    tb_walk,
+)
 
 MAX_PAIRS_PER_LAUNCH = 65536
 MAX_TB_BYTES = 1 << 32  # bound on one launch's traceback cube
@@ -48,8 +57,6 @@ _NOT_PORTED = {
     AlgoType.KSW: "A7/B11",
     AlgoType.BANDED: "A7/B12",
 }
-# compute_start without traceback: the reverse start passes
-_START_PASS = {AlgoType.LOCAL: "A6/B6", AlgoType.SEMI_GLOBAL: "A6/B9"}
 _WALK = {AlgoType.LOCAL: "local", AlgoType.GLOBAL: "global",
          AlgoType.SEMI_GLOBAL: "semiglobal"}
 
@@ -143,7 +150,12 @@ class AlignEngine:
     As in the JAX engine, SEMI_GLOBAL reads its skips from `head` and
     `tail` (not from params.head_skip / tail_skip), `score_only` applies
     to LOCAL only, `second_best` to LOCAL only, and `compute_start` is
-    served by the traceback walk when there is one (GLOBAL ignores it).
+    served by the traceback walk when there is one and by the reverse
+    start pass otherwise (GLOBAL ignores it).  Where the JAX engine's
+    Pallas and scan modes differ, this one gives the Pallas mode's
+    fields: score-only with `compute_start` reports ends of 0, and with
+    `second_best` (no traceback) the primary fields come from the
+    second-best kernel.
     """
 
     def __init__(
@@ -162,14 +174,10 @@ class AlignEngine:
                 f"{algo.name} alignment is not ported yet "
                 f"(ROADMAP {_NOT_PORTED[algo]})")
         self.with_tb = with_tb or params.with_traceback
-        if params.second_best and algo == AlgoType.LOCAL:
-            raise NotImplementedError(
-                "second_best is not ported yet (ROADMAP A6/B5)")
-        if params.compute_start and not self.with_tb and algo in _START_PASS:
-            raise NotImplementedError(
-                f"compute_start without traceback is not ported yet "
-                f"(ROADMAP {_START_PASS[algo]}); with traceback the walk "
-                f"gives the starts")
+        self.second_best = params.second_best and algo == AlgoType.LOCAL
+        # without traceback the starts come from the reverse start pass
+        self.start_pass = (params.compute_start and not self.with_tb
+                           and algo in (AlgoType.LOCAL, AlgoType.SEMI_GLOBAL))
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -191,20 +199,28 @@ class AlignEngine:
         return max(1, min(MAX_PAIRS_PER_LAUNCH, MAX_TB_BYTES // per_pair))
 
     def _run_chunk(self, qb: np.ndarray, tb: np.ndarray, qlen: np.ndarray,
-                   tlen: np.ndarray, has_n: bool):
-        """Launch one chunk; returns device tensors (score, qend, tend,
-        walk) with walk = (ops, final j, final i) or None."""
+                   tlen: np.ndarray, has_n: bool) -> dict:
+        """Launch one chunk; returns device tensors: score, qend and tend
+        (None when score-only), walk = (ops, final j, final i), starts =
+        (qstart, tstart) from the start pass and second = (score2, qend2,
+        tend2), each None when not asked for."""
         p = self.params
         q = torch.from_numpy(qb).to(self.device)
         t = torch.from_numpy(tb).to(self.device)
-        if self.score_only and not self.with_tb:
-            score = cuda_align.local_align_scores(q, t, p, has_n=has_n)
-            return score, None, None, None
-        ql = tl = None
-        if p.algo != AlgoType.LOCAL:
-            ql = torch.from_numpy(qlen).to(self.device)
-            tl = torch.from_numpy(tlen).to(self.device)
-        if p.algo == AlgoType.LOCAL:
+        ql = torch.from_numpy(qlen).to(self.device)
+        tl = torch.from_numpy(tlen).to(self.device)
+        out = dict(walk=None, starts=None, second=None)
+        if self.second_best and not self.with_tb:
+            # the inline second-best kernel gives the primary fields too
+            sec = cuda_align.local_align_second(q, t, ql, tl, p)
+            res = scan_align.AlignResult(*sec[:3])
+            out["second"] = sec[3:]
+        elif self.score_only and not self.with_tb and not self.start_pass:
+            out.update(score=cuda_align.local_align_scores(q, t, p,
+                                                           has_n=has_n),
+                       qend=None, tend=None)
+            return out
+        elif p.algo == AlgoType.LOCAL:
             res = cuda_align.local_align(q, t, p, with_tb=self.with_tb)
         elif p.algo == AlgoType.GLOBAL:
             res = cuda_align.global_align(q, t, ql, tl, p,
@@ -213,12 +229,26 @@ class AlignEngine:
             res = cuda_align.semiglobal_align(
                 q, t, ql, tl, p, head=self.head, tail=self.tail,
                 with_tb=self.with_tb)
-        walk = None
+        if self.second_best and self.with_tb:
+            # traceback kernel for the primary fields, the second-best
+            # kernel for the *_second ones (genomics_tpu dispatch.py:306)
+            out["second"] = cuda_align.local_align_second(q, t, ql, tl, p)[3:]
         if self.with_tb:
             i0, j0 = walk_start(p.algo, self.tail, res, ql, tl)
-            walk = tb_walk.tb_walk(res.tb, res.score, j0, i0, p,
-                                   _WALK[p.algo])
-        return res.score, res.query_end, res.target_end, walk
+            out["walk"] = tb_walk.tb_walk(res.tb, res.score, j0, i0, p,
+                                          _WALK[p.algo])
+        if self.start_pass and p.algo == AlgoType.LOCAL:
+            out["starts"] = scan_align_full.local_starts(q, t, ql, tl,
+                                                         *res[:3], p)
+        elif self.start_pass:
+            out["starts"] = scan_align_full.semiglobal_starts(
+                q, t, ql, tl, *res[:3], p, head=self.head, tail=self.tail)
+        if self.start_pass and self.score_only and out["second"] is None:
+            # score-only reports no ends, as the JAX engine's score kernel
+            # does; the full forward pass above only fed the start pass
+            res = res._replace(query_end=None, target_end=None)
+        out.update(score=res.score, qend=res.query_end, tend=res.target_end)
+        return out
 
     def _dispatch(self, queries, targets):
         """Launch every chunk (the device runs ahead of the host);
@@ -261,26 +291,34 @@ class AlignEngine:
     def _collect(self, pending, n) -> list[AlignmentJob]:
         """Copy results to the host (waits for the device) and build jobs."""
         out: list[AlignmentJob | None] = [None] * n
-        for idxs, (score, qend, tend, walk) in pending:
-            score = score.cpu().numpy()
-            qend = None if qend is None else qend.cpu().numpy()
-            tend = None if tend is None else tend.cpu().numpy()
+
+        def host(xs):
+            return None if xs is None else [x.cpu().numpy() for x in xs]
+
+        for idxs, r in pending:
+            score = r["score"].cpu().numpy()
+            ends = None if r["qend"] is None else host((r["qend"], r["tend"]))
+            starts, second = host(r["starts"]), host(r["second"])
             cigars = None
-            if walk is not None:
-                cigars, n_ops, qstart, tstart = tb_walk.cigars_from_walk(
-                    walk[0].cpu().numpy(), walk[1].cpu().numpy(),
-                    walk[2].cpu().numpy(), _WALK[self.params.algo],
+            if r["walk"] is not None:
+                cigars, n_ops, *starts = tb_walk.cigars_from_walk(
+                    *host(r["walk"]), _WALK[self.params.algo],
                     head_q=bool(self.head & SemiGlobalSkip.QUERY),
                     head_t=bool(self.head & SemiGlobalSkip.TARGET))
             for k, i in enumerate(idxs):
                 job = AlignmentJob(score=int(score[k]))
-                if qend is not None:
-                    job.query_end = int(qend[k])
-                    job.target_end = int(tend[k])
+                if ends is not None:
+                    job.query_end = int(ends[0][k])
+                    job.target_end = int(ends[1][k])
                 if cigars is not None:
                     job.cigar = cigars[k, :n_ops[k]].copy()
-                    job.query_start = int(qstart[k])
-                    job.target_start = int(tstart[k])
+                if starts is not None:
+                    job.query_start = int(starts[0][k])
+                    job.target_start = int(starts[1][k])
+                if second is not None:
+                    job.score_second = int(second[0][k])
+                    job.query_end_second = int(second[1][k])
+                    job.target_end_second = int(second[2][k])
                 out[i] = job
         return out  # type: ignore[return-value]
 

@@ -17,7 +17,7 @@ import torch
 
 from genomics_tpu_torch import AlgoType, AlignEngine, AlignmentParams
 from genomics_tpu_torch.core.scoring import SemiGlobalSkip
-from genomics_tpu_torch.ops import cuda_align, tb_walk
+from genomics_tpu_torch.ops import cuda_align, scan_align_full, tb_walk
 from genomics_tpu_torch.ops.scan_align import (
     global_align_batch,
     local_align_batch,
@@ -175,6 +175,57 @@ def test_global_walks_match_plain(cuda, algo):
     _assert_equal(got, want)
 
 
+@pytest.mark.parametrize("params", [
+    AlignmentParams(), AlignmentParams(n_penalty=2),
+], ids=["defaults", "n_penalty"])
+def test_second_best_kernel_matches_plain(cuda, params):
+    args = [x.to(cuda) for x in _batch(7, 1024 + 37, 40, 48, n_rate=0.03)]
+    want = scan_align_full.local_align_second_batch(*args, params)
+    before = cuda_align.LAUNCHES["local_sw.second"]
+    got = cuda_align.local_align_second(*args, params)
+    torch.cuda.synchronize()
+    assert cuda_align.LAUNCHES["local_sw.second"] == before + 1
+    _assert_equal(got, want)
+
+
+def test_local_start_kernel_matches_plain(cuda):
+    """Fed the END kernel's forward result, zero forward scores included."""
+    p = AlignmentParams()
+    q, t, ql, tl = [x.to(cuda) for x in _batch(8, 1024 + 37, 40, 48,
+                                                n_rate=0.03)]
+    fwd = cuda_align.local_align(q, t, p)
+    rq, rt, _, _ = scan_align_full.local_start_inputs(
+        q, t, ql, tl, fwd.query_end, fwd.target_end)
+    score = fwd.score.clone()
+    score[:16] = 0
+    want = scan_align_full._local_start_core(rq, rt, score, p)
+    before = cuda_align.LAUNCHES["local_start"]
+    got = cuda_align.local_start(rq, rt, score, p)
+    torch.cuda.synchronize()
+    assert cuda_align.LAUNCHES["local_start"] == before + 1
+    _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("head,tail", list(itertools.product(SKIPS, SKIPS)),
+                         ids=lambda s: s.name)
+def test_semiglobal_start_kernel_matches_plain(cuda, head, tail):
+    args = [x.to(cuda) for x in _batch(9, 1024 + 37, 40, 48, n_rate=0.03)]
+    p = AlignmentParams(algo=AlgoType.SEMI_GLOBAL)
+    q, t, ql, tl = args
+    fwd = cuda_align.semiglobal_align(*args, p, head=head, tail=tail)
+    rev = scan_align_full.semiglobal_start_inputs(q, t, ql, tl,
+                                                  fwd.target_end)
+    flags = scan_align_full.skip_flags(head, tail)
+    per_pair = (ql, tl, *rev[2:], fwd.score, fwd.query_end)
+    want = scan_align_full._semiglobal_start_core(*rev[:2], *per_pair, p,
+                                                  **flags)
+    before = cuda_align.LAUNCHES["semiglobal_start"]
+    got = cuda_align.semiglobal_start(*rev[:2], *per_pair, p, **flags)
+    torch.cuda.synchronize()
+    assert cuda_align.LAUNCHES["semiglobal_start"] == before + 1
+    _assert_equal(got, want)
+
+
 @pytest.mark.parametrize("algo,head,tail", [
     (AlgoType.LOCAL, SemiGlobalSkip.NONE, SemiGlobalSkip.NONE),
     (AlgoType.GLOBAL, SemiGlobalSkip.NONE, SemiGlobalSkip.NONE),
@@ -197,3 +248,39 @@ def test_engine_on_the_card_matches_cpu(cuda, algo, head, tail):
                     a.target_start, a.cigar_string) == (
                 b.score, b.query_end, b.target_end, b.query_start,
                 b.target_start, b.cigar_string)
+
+
+@pytest.mark.parametrize("params,with_tb,score_only,head,tail", [
+    (AlignmentParams(compute_start=True), False, False, SemiGlobalSkip.NONE,
+     SemiGlobalSkip.NONE),
+    (AlignmentParams(compute_start=True), False, True, SemiGlobalSkip.NONE,
+     SemiGlobalSkip.NONE),
+    (AlignmentParams(algo=AlgoType.SEMI_GLOBAL, compute_start=True), False,
+     False, SemiGlobalSkip.TARGET, SemiGlobalSkip.TARGET),
+    (AlignmentParams(algo=AlgoType.SEMI_GLOBAL, compute_start=True), False,
+     False, SemiGlobalSkip.NONE, SemiGlobalSkip.BOTH),
+    (AlignmentParams(second_best=True), False, False, SemiGlobalSkip.NONE,
+     SemiGlobalSkip.NONE),
+    (AlignmentParams(second_best=True), True, False, SemiGlobalSkip.NONE,
+     SemiGlobalSkip.NONE),
+    (AlignmentParams(second_best=True, compute_start=True), False, True,
+     SemiGlobalSkip.NONE, SemiGlobalSkip.NONE),
+], ids=["start", "start_score_only", "semiglobal_start_glocal",
+        "semiglobal_start_none_both", "second_best", "second_best_tb",
+        "second_best_start_score_only"])
+def test_engine_options_on_the_card_match_cpu(cuda, params, with_tb,
+                                              score_only, head, tail):
+    rng = np.random.default_rng(4)
+    ts = ["".join(rng.choice(list("ACGTN"), rng.integers(60, 200),
+                             p=[0.245] * 4 + [0.02])) for _ in range(300)]
+    qs = [s[10:10 + int(rng.integers(20, 50))] for s in ts]
+    kw = dict(with_tb=with_tb, score_only=score_only, head=head, tail=tail)
+    got = AlignEngine(params, device=cuda, **kw).align(qs, ts)
+    want = AlignEngine(params, device="cpu", **kw).align(qs, ts)
+    for a, b in zip(got, want):
+        assert (a.score, a.query_end, a.target_end, a.query_start,
+                a.target_start, a.score_second, a.query_end_second,
+                a.target_end_second, a.cigar_string) == (
+            b.score, b.query_end, b.target_end, b.query_start,
+            b.target_start, b.score_second, b.query_end_second,
+            b.target_end_second, b.cigar_string)

@@ -20,6 +20,7 @@ def test_imports_with_jax_blocked():
         "from genomics_tpu_torch import _build\n"
         "from genomics_tpu_torch.core import encoding, golds, scoring\n"
         "from genomics_tpu_torch.ops import cuda_align, scan_align, tb_walk\n"
+        "from genomics_tpu_torch.ops import scan_align_full\n"
         "from genomics_tpu_torch.runtime import dispatch\n"
         "from genomics_tpu_torch.runtime.dispatch import walk_start\n"
         "assert 'genomics_tpu' not in sys.modules\n"

@@ -289,19 +289,92 @@ def test_start_and_second_best_gating_matches_jax_engine(jp, with_tb):
     _assert_jobs_equal(got, want)
 
 
-@pytest.mark.parametrize("params,with_tb,item", [
-    (AlignmentParams(algo=AlgoType.SEMI_GLOBAL, compute_start=True), False,
-     "B9"),
-    (AlignmentParams(second_best=True), True, "B5"),
-    (AlignmentParams(algo=AlgoType.KSW), False, "B11"),
-    (AlignmentParams(algo=AlgoType.BANDED), False, "B12"),
-    (AlignmentParams(second_best=True), False, "B5"),
-    (AlignmentParams(compute_start=True), False, "B6"),
-], ids=["semiglobal_start", "second_best_tb", "ksw", "banded", "second_best",
-        "start"])
-def test_unported_features_raise(params, with_tb, item):
+def _one_bucket_pairs(seed, n=48):
+    """Reads of 25-32 bp cut from 33-48 bp targets (one 32 x 48 bucket),
+    with substitutions, a few Ns and some unrelated pairs."""
+    rng = np.random.default_rng(seed)
+    qs, ts = [], []
+    for k in range(n):
+        tgt = "".join(rng.choice(list("ACGT"), int(rng.integers(33, 49))))
+        start = int(rng.integers(0, len(tgt) - 32))
+        read = list(tgt[start:start + int(rng.integers(25, 33))])
+        for i in range(len(read)):
+            if rng.random() < 0.06:
+                read[i] = str(rng.choice(list("ACGTN")))
+        if k % 5 == 0:
+            read = list(rng.choice(list("ACGT"), len(read)))
+        qs.append("".join(read))
+        ts.append(tgt)
+    return qs, ts
+
+
+@pytest.mark.parametrize("use_pallas", [True, False], ids=["pallas", "scan"])
+@pytest.mark.parametrize("jp,with_tb,score_only,head,tail", [
+    (JParams(compute_start=True), False, False, JSkip.NONE, JSkip.NONE),
+    (JParams(algo=JAlgo.SEMI_GLOBAL, compute_start=True), False, False,
+     JSkip.TARGET, JSkip.TARGET),
+    (JParams(algo=JAlgo.SEMI_GLOBAL, compute_start=True, n_penalty=1), False,
+     False, JSkip.NONE, JSkip.BOTH),
+    (JParams(algo=JAlgo.SEMI_GLOBAL, compute_start=True), False, False,
+     JSkip.QUERY, JSkip.QUERY),
+    (JParams(algo=JAlgo.SEMI_GLOBAL, compute_start=True), False, False,
+     JSkip.BOTH, JSkip.NONE),
+    (JParams(second_best=True), False, False, JSkip.NONE, JSkip.NONE),
+    (JParams(second_best=True), True, False, JSkip.NONE, JSkip.NONE),
+    (JParams(second_best=True, n_penalty=2), False, True, JSkip.NONE,
+     JSkip.NONE),
+    (JParams(second_best=True, compute_start=True), False, False,
+     JSkip.NONE, JSkip.NONE),
+], ids=["start", "semiglobal_start", "semiglobal_start_none_both",
+        "semiglobal_start_query_query", "semiglobal_start_both_none",
+        "second_best", "second_best_tb", "second_best_score_only",
+        "second_best_and_start"])
+def test_start_and_second_best_match_jax_engine(jp, with_tb, score_only,
+                                                head, tail, use_pallas):
+    """compute_start without traceback (the reverse start passes) and
+    LOCAL second_best, every field; the first four cases raised before
+    the start passes and the second-best kernel were ported."""
+    qs, ts = _pairs(14, n=40)
+    if use_pallas and jp.second_best:
+        # the JAX engine pads each bucket to its second-best kernel's
+        # 1024-pair floor, so interpret mode pays per bucket: one bucket
+        qs, ts = _one_bucket_pairs(15)
+    want = JEngine(jp, with_tb=with_tb, score_only=score_only, head=head,
+                   tail=tail, use_pallas=use_pallas).align(qs, ts)
+    got = AlignEngine(params_from_jax(jp), with_tb=with_tb,
+                      score_only=score_only, head=SemiGlobalSkip(head.value),
+                      tail=SemiGlobalSkip(tail.value)).align(qs, ts)
+    _assert_jobs_equal(got, want)
+    if jp.compute_start and not with_tb:
+        assert any(j.query_start or j.target_start for j in got)
+    if jp.second_best:
+        assert any(j.score_second for j in got)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False], ids=["pallas", "scan"])
+def test_score_only_start_reports_no_ends(use_pallas):
+    """LOCAL score-only with compute_start: the Pallas engine's score
+    kernel reports ends of 0 and a full forward pass feeds the starts;
+    the JAX scan engine ignores score_only.  The port gives the Pallas
+    engine's fields."""
+    qs, ts = _pairs(16, n=40)
+    jp = JParams(compute_start=True)
+    want = JEngine(jp, score_only=True, use_pallas=use_pallas).align(qs, ts)
+    got = AlignEngine(params_from_jax(jp), score_only=True).align(qs, ts)
+    fields = ["score", "query_start", "target_start"]
+    if use_pallas:
+        fields += ["query_end", "target_end"]
+    _assert_jobs_equal(got, want, fields)
+    assert all(j.query_end == j.target_end == 0 for j in got)
+
+
+@pytest.mark.parametrize("params,item", [
+    (AlignmentParams(algo=AlgoType.KSW), "B11"),
+    (AlignmentParams(algo=AlgoType.BANDED), "B12"),
+], ids=["ksw", "banded"])
+def test_unported_features_raise(params, item):
     with pytest.raises(NotImplementedError, match=item):
-        AlignEngine(params, with_tb=with_tb)
+        AlignEngine(params)
 
 
 def test_cpu_engine_launches_no_kernel():

@@ -85,7 +85,7 @@ def test_plain_matches_pallas_lanes_tb(head, tail):
 
 def test_plain_matches_golds():
     """Every combination on pairs through the JAX gold and the port's
-    copy of it; the port's gold refuses the start pass."""
+    copy of it, the start pass included."""
     rng = np.random.default_rng(8)
     p = params_from_jax(JP)
     B, Lq, Lt = 12, 24, 40
@@ -103,8 +103,12 @@ def test_plain_matches_golds():
                     int(got.target_end[b])) == (
                 want["score"], want["query_end"], want["target_end"]), \
                 (head, tail, b)
-    with pytest.raises(NotImplementedError, match="B9"):
-        golds.semiglobal_align(q[0], t[0], p, with_start=True)
+    for head, tail in COMBOS:
+        qa, ta = q[1, :ql[1]], t[1, :tl[1]]
+        assert golds.semiglobal_align(
+            qa, ta, p, head=_mine(head), tail=_mine(tail), with_start=True) \
+            == jgolds.semiglobal_align(qa, ta, JP, head=head, tail=tail,
+                                       with_start=True), (head, tail)
 
 
 def test_cpu_wrapper_takes_the_plain_version():
