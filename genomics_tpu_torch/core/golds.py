@@ -1,6 +1,6 @@
-"""CPU golds for the LOCAL, GLOBAL and SEMI_GLOBAL paths — pure-Python
-emulations of the GASAL2 kernels and of its traceback decoder, copied
-from `genomics_tpu/core/golds.py`.
+"""CPU golds for the LOCAL, GLOBAL, SEMI_GLOBAL, BANDED and KSW paths —
+pure-Python emulations of the GASAL2 kernels and of its traceback
+decoder, copied from `genomics_tpu/core/golds.py`.
 
 They are independent of every torch and CUDA code path of this package,
 so they are the oracles that `chip_smoke.py` spot-checks the card
@@ -11,6 +11,8 @@ against on a machine without JAX.  References (CDP/GASAL2/src/kernels/):
 - global_align:     global.h:31-303
 - semiglobal_align: semiglobal_kernel_template.h:40-230 (forward pass,
                     second best), :227-384 (WITH_START reverse pass)
+- banded_align:     banded.h:10-140
+- ksw_align:        ksw_kernel_template.h:46-203
 - decode_tb:        get_tb.h:5-149
 """
 from __future__ import annotations
@@ -537,6 +539,146 @@ def _semiglobal_start_pass(q, t, read_len, ref_len, tr, fwd,
         "target_start": (ref_len - 1) - maxXY_y,
         "query_start": (read_len - 1) - maxXY_x,
     }
+
+
+def banded_align(query, target, params: AlignmentParams, band_width_tiles: int):
+    """gasal_banded_tiled_kernel emulation (banded.h:10-140): local DP
+    restricted to a tile-diagonal band; h-based (deprecated-style) core;
+    stale global[] entries outside the band are reused verbatim."""
+    q = pad8(query)
+    t = pad8(target)
+    qr = len(q) // 8
+    tr = len(t) // 8
+    goe, ge = params.gap_oe, params.gap_extend
+    k_band = band_width_tiles
+    k_other = tr - (qr - k_band)
+
+    Lq = len(q)
+    gH = np.zeros(Lq, dtype=np.int64)
+    gE = np.zeros(Lq, dtype=np.int64)
+    maxHH = 0
+    prev_maxHH = 0
+    maxXY_x = maxXY_y = 0
+
+    for i in range(tr):
+        h = [0] * 9
+        f = [0] * 9
+        p = [0] * 9
+        gidx = i << 3
+        ridx = max(0, i - k_other + 1) << 3
+        last_tile = min(k_band + i, qr)
+        for j in range(ridx >> 3, last_tile):
+            for kk in range(8):
+                ridx_cur = j * 8 + kk
+                rbase = int(q[ridx_cur])
+                h[0] = int(gH[ridx_cur])
+                e = int(gE[ridx_cur])
+                for m in range(1, 9):
+                    gbase = int(t[gidx + m - 1])
+                    sub = _sub_score_local(rbase, gbase, params)
+                    f[m] = max(h[m] - goe, f[m] - ge)
+                    hm = p[m] + sub
+                    hm = max(hm, f[m], 0)
+                    e = max(h[m - 1] - goe, e - ge)
+                    hm = max(hm, e)
+                    h[m] = hm
+                    if maxHH < hm:
+                        maxXY_y = gidx + m - 1
+                        maxHH = hm
+                    p[m] = h[m - 1]
+                gH[ridx_cur] = h[8]
+                gE[ridx_cur] = e
+                if prev_maxHH < maxHH:
+                    maxXY_x = ridx_cur
+                prev_maxHH = max(maxHH, prev_maxHH)
+    return {"score": maxHH, "query_end": maxXY_x, "target_end": maxXY_y}
+
+
+def ksw_align(query, target, params: AlignmentParams, h0: int):
+    """gasal_ksw_kernel emulation (ksw_kernel_template.h:46-203): seed
+    extension with initial score h0, M-based gap opens (the anti
+    "M-I-D-M" rule :136), beg/end active-window pruning (:178-184),
+    m==0 early break, and the gscore-vs-clip final choice (:189-198).
+    zdrop is hardcoded 0 in the reference (disabled), so params.zdrop is
+    ignored; the clip rule is PEN_CLIP5."""
+    q = pad8(query)
+    t = pad8(target)
+    qlen = len(_as_codes(query))
+    tlen = len(_as_codes(target))
+    goe, ge = params.gap_oe, params.gap_extend
+    PEN_CLIP5 = 5
+
+    ehh = np.zeros(len(q) + 9, dtype=np.int64)  # eh[].h
+    ehe = np.zeros(len(q) + 9, dtype=np.int64)  # eh[].e
+    ehh[0] = h0
+    ehh[1] = h0 - goe if h0 > goe else 0
+    j = 2
+    while j <= qlen and ehh[j - 1] > ge:
+        ehh[j] = ehh[j - 1] - ge
+        j += 1
+
+    mx = h0
+    max_i = max_j = -1
+    max_ie = -1
+    gscore = -1
+    beg, end = 0, qlen
+
+    for i in range(tlen):
+        gbase = int(t[i])
+        f = 0
+        m = 0
+        mj = -1
+        if beg == 0:
+            h1 = h0 - (goe + ge * i)
+            if h1 < 0:
+                h1 = 0
+        else:
+            h1 = 0
+        last_j = beg
+        for j in range(beg, end):
+            rbase = int(q[j])
+            M = int(ehh[j])
+            e = int(ehe[j])
+            ehh[j] = h1
+            sub = _sub_score_local(rbase, gbase, params)
+            M = M + sub if M else 0
+            h = max(M, e, f)
+            h1 = h
+            if m <= h:
+                mj = j
+                m = h
+            tt = max(M - goe, 0)
+            e = max(e - ge, tt)
+            ehe[j] = e
+            f = max(f - ge, tt)
+            last_j = j + 1
+        ehh[end] = h1
+        ehe[end] = 0
+        if last_j == qlen:
+            if gscore <= h1:
+                max_ie = i
+                gscore = h1
+        if m == 0:
+            break
+        if m > mx:
+            mx, max_i, max_j = m, i, mj
+        # beg/end update (zdrop==0 branch never breaks)
+        j = beg
+        while j < end and ehh[j] == 0 and ehe[j] == 0:
+            j += 1
+        beg = j
+        j = end
+        while j >= beg and ehh[j] == 0 and ehe[j] == 0:
+            j -= 1
+        end = min(j + 2, qlen)
+
+    if gscore <= 0 or gscore <= mx - PEN_CLIP5:
+        return {
+            "score": mx,
+            "query_end": max_j + 1,
+            "target_end": max_i + 1,
+        }
+    return {"score": gscore, "query_end": qlen, "target_end": max_ie + 1}
 
 
 def decode_tb(

@@ -1,13 +1,13 @@
 """The DP kernels on the card: the wrappers of `csrc/local_sw.cu`,
-`csrc/global_sw.cu`, `csrc/semiglobal_sw.cu`, `csrc/local_start.cu` and
-`csrc/semiglobal_start.cu`.
+`csrc/global_sw.cu`, `csrc/semiglobal_sw.cu`, `csrc/local_start.cu`,
+`csrc/semiglobal_start.cu`, `csrc/ksw_extend.cu` and `csrc/banded_sw.cu`.
 
-The counterpart of `genomics_tpu/ops/pallas_align.py` and
-`genomics_tpu/ops/pallas_gs.py`.  Every function takes the plain version
-(`ops.scan_align`, `ops.scan_align_full`) for tensors on the CPU and
-launches the hand-written kernel for tensors on a CUDA device; any other
-device raises.  There is no fallback from the kernel to the plain
-version.
+The counterpart of `genomics_tpu/ops/pallas_align.py`,
+`genomics_tpu/ops/pallas_gs.py` and `genomics_tpu/ops/pallas_ksw.py`.
+Every function takes the plain version (`ops.scan_align`,
+`ops.scan_align_full`) for tensors on the CPU and launches the
+hand-written kernel for tensors on a CUDA device; any other device
+raises.  There is no fallback from the kernel to the plain version.
 
 One kernel (one thread per alignment) covers every batch size, so the
 TPU's lanes / inter-task split has no counterpart here.  The modes
@@ -26,6 +26,12 @@ replace these Pallas kernels:
   semiglobal_sw.tb     `_semiglobal_kernel` (pallas_align.py:1325) with
                        traceback
   semiglobal_start     `_semiglobal_start_kernel` (pallas_gs.py:364)
+  ksw.end              `_ksw_kernel_intertask` (pallas_ksw.py:188) and
+                       the lanes kernel `_ksw_kernel` (:45)
+  ksw.score            `_ksw_kernel_intertask` score-only (:188, :315)
+  banded_sw.end        `_banded_kernel_intertask` (pallas_ksw.py:453) and
+                       the lanes kernel `_banded_kernel` (:392)
+  banded_sw.score      `_banded_kernel_intertask` score-only (:453, :559)
 """
 from __future__ import annotations
 
@@ -40,7 +46,9 @@ from genomics_tpu_torch.core.scoring import AlignmentParams, SemiGlobalSkip
 from genomics_tpu_torch.ops import scan_align_full
 from genomics_tpu_torch.ops.scan_align import (
     AlignResult,
+    banded_align_batch,
     global_align_batch,
+    ksw_align_batch,
     local_align_batch,
     semiglobal_align_batch,
 )
@@ -51,7 +59,8 @@ LAUNCHES = {"local_sw.score": 0, "local_sw.end": 0, "local_sw.tb": 0,
             "local_sw.second": 0, "local_start": 0,
             "global_sw.score": 0, "global_sw.tb": 0,
             "semiglobal_sw.end": 0, "semiglobal_sw.tb": 0,
-            "semiglobal_start": 0}
+            "semiglobal_start": 0, "ksw.end": 0, "ksw.score": 0,
+            "banded_sw.end": 0, "banded_sw.score": 0}
 _LOCAL_MODES = {"score": 0, "end": 1, "tb": 2}
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
@@ -81,7 +90,17 @@ _SIGNATURES = {
     # stream
     ("semiglobal_start", "semiglobal_start_launch"):
         (_ci,) + (_vp,) * 8 + (_ci,) * 8 + (_vp,) * 5,
+    # mode, with_n, Q, T, qlen, tlen, h0, B, Lq, Lt, match, mismatch,
+    # n_score, goe, ge, ehh, ehe, score, qend, tend, stream
+    ("ksw_extend", "ksw_extend_launch"):
+        (_ci, _ci) + (_vp,) * 5 + (_ci,) * 8 + (_vp,) * 6,
+    # mode, with_n, Q, T, qlen, tlen, B, Lq, Lt, k_band, match, mismatch,
+    # n_score, goe, ge, gH, gE, score, qend, tend, stream
+    ("banded_sw", "banded_sw_launch"):
+        (_ci, _ci) + (_vp,) * 4 + (_ci,) * 9 + (_vp,) * 6,
 }
+# library of each launch-count key whose name is not the library's
+_LIBRARY = {"ksw": "ksw_extend"}
 
 
 @functools.cache
@@ -154,10 +173,12 @@ def _ptr(x):
 
 
 def _call(key: str, dev: torch.device, *args, entry: str | None = None):
-    """Launch the kernel counted under `key` ("<library>[.<mode>]") on
-    dev's current stream through its entry point (default
-    <library>_launch); count the launch."""
+    """Launch the kernel counted under `key` ("<name>[.<mode>]", the
+    library csrc/<name>.cu unless `_LIBRARY` maps the name) on dev's
+    current stream through its entry point (default <library>_launch);
+    count the launch."""
     lib = key.split(".")[0]
+    lib = _LIBRARY.get(lib, lib)
     fn = _kernel(lib, entry or f"{lib}_launch")
     with torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
@@ -406,12 +427,138 @@ def local_align_scores_tm(
     """Score-only over time-major batches, the layout `bench.py` feeds
     the TPU kernel; the kernel reads it without a transpose."""
     _check_codes(Q, T, 1)
-    with_n = True if has_n is None else bool(has_n)
-    if not with_n:
-        Q, T = _pads_to_sentinels(Q, 16), _pads_to_sentinels(T, 17)
+    Q, T, with_n = _no_n_inputs(Q, T, has_n)
     if _on_cpu(Q):
         return local_align_batch(Q.T, T.T, params).score
     return _launch("score", Q, T, params, with_n)[0]
+
+
+def _no_n_inputs(q, t, has_n: bool | None):
+    """(q, t, with_n) for a score-only call: under has_n=False the pads
+    become the 16/17 sentinels, so the kernel can drop the N compare and
+    still score what the full kernel scores."""
+    with_n = True if has_n is None else bool(has_n)
+    if not with_n:
+        q, t = _pads_to_sentinels(q, 16), _pads_to_sentinels(t, 17)
+    return q, t, with_n
+
+
+def _ksw_launch(mode: str, q, t, qlen, tlen, h0, params: AlignmentParams,
+                with_n: bool):
+    """Run ksw_extend in `mode` on [B, L] uint8 q, t; returns (score,
+    qend, tend), qend/tend None in score mode."""
+    Q, T = q.T.contiguous(), t.T.contiguous()
+    qlen, tlen, h0 = qlen.contiguous(), tlen.contiguous(), h0.contiguous()
+    Lq, B = Q.shape
+    # eh[] has a live slot at column end <= qlen: Lq + 1 rows
+    ehh, ehe = (torch.empty((Lq + 1, B), dtype=torch.int32, device=Q.device)
+                for _ in range(2))
+    score, qend, tend = _per_pair(3, Q)
+    if mode == "score":
+        qend = tend = None
+    if B:
+        _call(f"ksw.{mode}", Q.device, int(mode == "end"), int(with_n),
+              Q.data_ptr(), T.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
+              h0.data_ptr(), B, Lq, T.shape[0], params.match,
+              params.mismatch, _n_score(params), params.gap_oe,
+              params.gap_extend, ehh.data_ptr(), ehe.data_ptr(),
+              score.data_ptr(), _ptr(qend), _ptr(tend))
+    return score, qend, tend
+
+
+def ksw_align(
+    q: torch.Tensor,      # [B, Lq] uint8, N4-padded
+    t: torch.Tensor,      # [B, Lt] uint8, N4-padded
+    qlen: torch.Tensor,   # [B] int32
+    tlen: torch.Tensor,   # [B] int32
+    h0: torch.Tensor,     # [B] int32 seed scores
+    params: AlignmentParams,
+) -> AlignResult:
+    """bwa-mem ksw_extend from the seed scores h0: score and (qend, tend)
+    as `pallas_ksw.ksw_align_tpu` reports them (see
+    `ops.scan_align.ksw_align_batch`)."""
+    _check_codes(q, t, 0)
+    _check_lengths(q, qlen, tlen, h0)
+    if _on_cpu(q):
+        return ksw_align_batch(q, t, qlen, tlen, h0, params)
+    return AlignResult(*_ksw_launch("end", q, t, qlen, tlen, h0, params,
+                                    True))
+
+
+def ksw_align_scores(q, t, qlen, tlen, h0, params: AlignmentParams,
+                     has_n: bool | None = None) -> torch.Tensor:
+    """ksw_extend scores only, [B] int32 (`pallas_ksw.ksw_align_scores_tpu`).
+    Pass has_n=False only when the batch holds no N other than padding."""
+    _check_codes(q, t, 0)
+    _check_lengths(q, qlen, tlen, h0)
+    q, t, with_n = _no_n_inputs(q, t, has_n)
+    if _on_cpu(q):
+        return ksw_align_batch(q, t, qlen, tlen, h0, params).score
+    return _ksw_launch("score", q, t, qlen, tlen, h0, params, with_n)[0]
+
+
+def _banded_launch(mode: str, q, t, qlen, tlen, params: AlignmentParams,
+                   band_width_tiles: int, with_n: bool):
+    """Run banded_sw in `mode` on [B, L] uint8 q, t; returns (score, qend,
+    tend), qend/tend None in score mode."""
+    Q, T = q.T.contiguous(), t.T.contiguous()
+    qlen, tlen = qlen.contiguous(), tlen.contiguous()
+    Lq, B = Q.shape
+    gH, gE = _carry("banded_sw", Q, T)
+    score, qend, tend = _per_pair(3, Q)
+    if mode == "score":
+        qend = tend = None
+    if B:
+        _call(f"banded_sw.{mode}", Q.device, int(mode == "end"), int(with_n),
+              Q.data_ptr(), T.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
+              B, Lq, T.shape[0], band_width_tiles, params.match,
+              params.mismatch, _n_score(params), params.gap_oe,
+              params.gap_extend, gH.data_ptr(), gE.data_ptr(),
+              score.data_ptr(), _ptr(qend), _ptr(tend))
+    return score, qend, tend
+
+
+def _check_banded(q, t, qlen, tlen):
+    _check_codes(q, t, 0)
+    _check_lengths(q, qlen, tlen)
+    if q.shape[1] % 8 or t.shape[1] % 8:
+        raise ValueError(f"banded alignment walks 8-wide tiles; need "
+                         f"Lq % 8 == Lt % 8 == 0, got {q.shape[1]}, "
+                         f"{t.shape[1]}")
+
+
+def banded_align(
+    q: torch.Tensor,      # [B, Lq] uint8, N4-padded, Lq % 8 == 0
+    t: torch.Tensor,      # [B, Lt] uint8, N4-padded, Lt % 8 == 0
+    qlen: torch.Tensor,   # [B] int32
+    tlen: torch.Tensor,   # [B] int32
+    params: AlignmentParams,
+    band_width_tiles: int,
+) -> AlignResult:
+    """GASAL2's banded local alignment: score and (qend, tend) as
+    `pallas_ksw.banded_align_tpu` reports them (see
+    `ops.scan_align.banded_align_batch`)."""
+    _check_banded(q, t, qlen, tlen)
+    if _on_cpu(q):
+        return banded_align_batch(q, t, qlen, tlen, params, band_width_tiles)
+    return AlignResult(*_banded_launch("end", q, t, qlen, tlen, params,
+                                       band_width_tiles, True))
+
+
+def banded_align_scores(q, t, qlen, tlen, params: AlignmentParams,
+                        band_width_tiles: int,
+                        has_n: bool | None = None) -> torch.Tensor:
+    """Banded scores only, [B] int32 (`pallas_ksw.banded_align_scores_tpu`).
+    Pass has_n=False only when the batch holds no N other than padding;
+    the scores equal the full kernel's (the TPU path's has_n=False scores
+    pad cells as matches, ROADMAP C7)."""
+    _check_banded(q, t, qlen, tlen)
+    q, t, with_n = _no_n_inputs(q, t, has_n)
+    if _on_cpu(q):
+        return banded_align_batch(q, t, qlen, tlen, params,
+                                  band_width_tiles).score
+    return _banded_launch("score", q, t, qlen, tlen, params,
+                          band_width_tiles, with_n)[0]
 
 
 def unpack_tb_nibbles(packed: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,14 @@
 """Plain PyTorch DP engines: the references the CUDA kernels are held to.
 
-A port of `genomics_tpu/ops/scan_align.py:43-372` (LOCAL, GLOBAL,
-SEMI_GLOBAL).  Each GASAL2 recurrence is swept one target row at a time
-and vectorised over the batch and the query axis: the H/E column state
-is a dense [B, Lq] carry, and the horizontal gap chain is a max-plus
-prefix scan (`torch.cummax`).  The scan is exact for the tmp-based gap
-opens of the local and global cores, and for the h-based opens of the
-semiglobal core because h = max(tmp, f, e) lets f's h-term split into
-tmp and e terms (gap_oe >= gap_extend).
+A port of `genomics_tpu/ops/scan_align.py:43-590` (LOCAL, GLOBAL,
+SEMI_GLOBAL, KSW, BANDED).  Each GASAL2 recurrence is swept one target
+row at a time and vectorised over the batch and the query axis: the H/E
+column state is a dense [B, Lq] carry, and the horizontal gap chain is a
+max-plus prefix scan (`torch.cummax`).  The scan is exact for the
+tmp-based gap opens of the local and global cores, and for the h-based
+opens of the semiglobal and banded cores because h = max(tmp, f, e) lets
+f's h-term split into tmp and e terms (gap_oe >= gap_extend).  KSW's
+beg/end window, m == 0 break and BANDED's band are masks on the row.
 
 LOCAL end positions follow GASAL2's strip visit order (strips of 8
 target rows, query-major inside a strip, strict '<' updates): among the
@@ -314,3 +315,185 @@ def semiglobal_align_batch(
         score = torch.where(better, new_score, score)
         tend = torch.where(qend != tlen, qlen, tend)
     return AlignResult(score, qend, tend, tb)
+
+
+def ksw_align_batch(
+    q: torch.Tensor,      # [B, Lq] uint8 codes, N4-padded
+    t: torch.Tensor,      # [B, Lt] uint8 codes, N4-padded
+    qlen: torch.Tensor,   # [B] int32 true lengths
+    tlen: torch.Tensor,   # [B] int32
+    h0: torch.Tensor,     # [B] int32 seed scores
+    params: AlignmentParams,
+    window_cells: bool = False,
+):
+    """Batched bwa-mem ksw_extend (ksw_kernel_template.h:46-203).
+
+    The reference's data-dependent control flow is carried as per-pair
+    state: the beg/end active window (masked updates emulate the skipped
+    cells exactly: skipped prefixes hold eh = (0, 0), so a full-row
+    compute with masked writes is equivalent), the m == 0 early break
+    (alive flag) and the gscore-vs-clip final choice (PEN_CLIP5).  zdrop
+    is hard-coded 0 in the reference (disabled).  Returns the
+    AlignResult; with window_cells, (AlignResult, cells) where cells [B]
+    int64 counts the window cells the reference's walk visits (the sum
+    of end - beg over the rows before the break)."""
+    _check_batch(q, t, False)
+    B, Lq = q.shape
+    Lt = t.shape[1]
+    dev = q.device
+    i32 = torch.int32
+    goe, ge = params.gap_oe, params.gap_extend
+    # eh[] has a live slot at index `end` <= qlen: one N4 column more
+    qe = torch.cat([q.to(i32), torch.full((B, 1), N4, dtype=i32, device=dev)],
+                   dim=1)
+    q_is_n = qe == N4
+    ti = t.to(i32)
+    qlen = qlen.to(device=dev, dtype=i32)
+    tlen = tlen.to(device=dev, dtype=i32)
+    h0 = h0.to(device=dev, dtype=i32)
+    j_idx = torch.arange(Lq + 1, dtype=i32, device=dev)[None, :]
+
+    # first row: eh[0].h = h0, eh[1].h = max(h0 - goe, 0), then
+    # eh[j].h = eh[j-1].h - ge while eh[j-1].h > ge and j <= qlen
+    # (ksw_kernel_template.h:79-83); eh[j] (j >= 2) is written iff
+    # h0 - goe - (j-2)*ge > ge
+    ehh = (h0[:, None] - goe - (j_idx - 1) * ge).clamp_min(0)
+    ehh = torch.where(j_idx == 0, h0[:, None], ehh)
+    written = (j_idx < 2) | ((h0[:, None] - goe - (j_idx - 2) * ge) > ge)
+    ehh = torch.where(written & (j_idx <= qlen[:, None]), ehh, 0)
+    ehe = torch.zeros_like(ehh)
+
+    beg = torch.zeros(B, dtype=i32, device=dev)
+    end = qlen.clone()
+    alive = torch.ones(B, dtype=torch.bool, device=dev)
+    mx = h0.clone()
+    max_i, max_j, max_ie, gscore = (torch.full((B,), -1, dtype=i32, device=dev)
+                                    for _ in range(4))
+    cells = torch.zeros(B, dtype=torch.int64, device=dev)
+    seed0 = torch.zeros(B, dtype=i32, device=dev)
+    for i in range(Lt):
+        do = alive & (i < tlen)
+        sub = _sub_scores(qe, q_is_n, ti[:, i:i + 1], params, False)
+        M = torch.where(ehh != 0, ehh + sub, 0)
+        tterm = (M - goe).clamp_min(0)
+        # f(beg) = 0 and cells before beg have M = 0, so a full-row scan
+        # seeded 0 gives the window's f chain
+        f_used = _fscan(tterm, seed0, ge)
+        h = torch.maximum(torch.maximum(M, ehe), f_used)
+        # h1 entering cell beg
+        h1_0 = torch.where(beg == 0, (h0 - (goe + ge * i)).clamp_min(0), 0)
+        inwin = (j_idx >= beg[:, None]) & (j_idx < end[:, None])
+        hwin = torch.where(inwin, h, NEG_BIG)
+        rowmax = hwin.amax(dim=1).clamp_min(0)
+        # mj: the LAST index attaining the row max (m <= h updates)
+        mj = torch.where(hwin == rowmax[:, None], j_idx, -1).amax(dim=1)
+        # eh writes: eh[j].h = H(i, j-1) in the window, eh[end].h = h1
+        Hleft = torch.cat([h1_0[:, None], h[:, :-1]], dim=1)
+        Hleft = torch.where(j_idx == beg[:, None], h1_0[:, None], Hleft)
+        at_end = j_idx == end[:, None]
+        h_endm1 = h.gather(1, (end - 1).clamp_min(0).long()[:, None])[:, 0]
+        h1_final = torch.where(end > beg, h_endm1, h1_0)
+        ehh_out = torch.where(inwin, Hleft, ehh)
+        ehh_out = torch.where(at_end, h1_final[:, None], ehh_out)
+        ehe_out = torch.where(inwin, torch.maximum(ehe - ge, tterm), ehe)
+        ehe_out = torch.where(at_end, 0, ehe_out)
+        ehh = torch.where(do[:, None], ehh_out, ehh)
+        ehe = torch.where(do[:, None], ehe_out, ehe)
+        if window_cells:
+            cells += torch.where(do, end - beg, 0)
+        # gscore, only when the row reached the last query column
+        gupd = do & (end == qlen) & (gscore <= h1_final)
+        gscore = torch.where(gupd, h1_final, gscore)
+        max_ie = torch.where(gupd, i, max_ie)
+        # the m == 0 break (after eh/gscore, before max/window updates)
+        died = do & (rowmax == 0)
+        alive = alive & ~died
+        do2 = do & ~died
+        mupd = do2 & (rowmax > mx)
+        mx = torch.where(mupd, rowmax, mx)
+        max_i = torch.where(mupd, i, max_i)
+        max_j = torch.where(mupd, mj, max_j)
+        # window update on the NEW eh arrays
+        act = (ehh != 0) | (ehe != 0)
+        first_act = torch.where(inwin & act, j_idx, 1 << 28).amin(dim=1)
+        beg_new = torch.minimum(first_act, end)
+        in2 = (j_idx >= beg_new[:, None]) & (j_idx <= end[:, None])
+        last_act = torch.where(in2 & act, j_idx, -(1 << 28)).amax(dim=1)
+        last_act = torch.maximum(last_act, beg_new - 1)
+        end_new = torch.minimum(last_act + 2, qlen)
+        beg = torch.where(do2, beg_new, beg)
+        end = torch.where(do2, end_new, end)
+    clip = (gscore <= 0) | (gscore <= mx - 5)   # PEN_CLIP5
+    res = AlignResult(torch.where(clip, mx, gscore),
+                      torch.where(clip, max_j + 1, qlen),
+                      torch.where(clip, max_i + 1, max_ie + 1))
+    return (res, cells) if window_cells else res
+
+
+def banded_align_batch(
+    q: torch.Tensor,      # [B, Lq] uint8 codes, N4-padded
+    t: torch.Tensor,      # [B, Lt] uint8 codes, N4-padded
+    qlen: torch.Tensor,   # [B] int32 true lengths
+    tlen: torch.Tensor,   # [B] int32
+    params: AlignmentParams,
+    band_width_tiles: int,
+) -> AlignResult:
+    """Batched banded local DP (banded.h:10-140): strips of 8 target rows,
+    query tiles of 8 restricted to the band [max(0, strip - k_other + 1),
+    min(k_band + strip, qr)) with k_other = tr - (qr - k_band); h-based
+    f/e chains; the strip's h/f/p reset at the band's left edge (diag 0,
+    f -ge); the stale out-of-band global[] state (masked writes); ends
+    by strip visit order (the smallest key among the best cells).  Reads
+    of rows or columns past a length score the N4 padding."""
+    _check_batch(q, t, False)
+    B, Lq = q.shape
+    Lt = t.shape[1]
+    dev = q.device
+    i32 = torch.int32
+    goe, ge = params.gap_oe, params.gap_extend
+    qi = q.to(i32)
+    ti = t.to(i32)
+    q_is_n = qi == N4
+    jidx = torch.arange(Lq, dtype=i32, device=dev)
+    qr = (qlen.to(device=dev, dtype=i32) + 7) // 8
+    tr = (tlen.to(device=dev, dtype=i32) + 7) // 8
+    k_other = tr - (qr - band_width_tiles)
+    zcol = torch.zeros((B, 1), dtype=i32, device=dev)
+    fseed = torch.full((B,), -ge, dtype=i32, device=dev)
+
+    gH = torch.zeros((B, Lq), dtype=i32, device=dev)
+    gE = torch.zeros((B, Lq), dtype=i32, device=dev)
+    best = torch.zeros(B, dtype=i32, device=dev)
+    bkey = torch.full((B,), _KEY_MAX, dtype=i32, device=dev)
+    for i in range(Lt):
+        strip = i >> 3
+        j0 = (strip - k_other + 1).clamp_min(0) * 8
+        jend = torch.clamp_max(qr, band_width_tiles + strip) * 8
+        inband = ((jidx >= j0[:, None]) & (jidx < jend[:, None])
+                  & (strip < tr)[:, None])
+        sub = _sub_scores(qi, q_is_n, ti[:, i:i + 1], params, False)
+        # diag: 0 at the band's first column (the strip's p[] reset)
+        tmp = torch.cat([zcol, gH[:, :-1]], dim=1) + sub
+        tmp = torch.where(jidx == j0[:, None], sub, tmp)
+        # e: from the previous row's H (gH) and the carried gE
+        E_used = torch.maximum(gH - goe, gE - ge)
+        # f: h-based, seeded so that f(j0) = max(0 - goe, 0 - ge) = -ge
+        g = torch.maximum(tmp, E_used).clamp_min(0) - goe
+        g = torch.where(inband, g, NEG_BIG)
+        g = torch.where(jidx == (j0 - 1)[:, None], -ge, g)
+        f_used = _fscan(g, fseed, ge)
+        h = torch.maximum(torch.maximum(tmp, f_used), E_used.clamp_min(0))
+        gH = torch.where(inband, h, gH)
+        gE = torch.where(inband, E_used, gE)
+        hmask = torch.where(inband, h, NEG_BIG)
+        rh = hmask.amax(dim=1)
+        row_j = torch.where(hmask == rh[:, None], jidx, Lq).amin(dim=1)
+        rkey = ((i >> 3) * Lq + row_j) * 8 + (i & 7)
+        take = ((rh > best) | ((rh == best) & (rkey < bkey))) & (rh > 0)
+        best = torch.where(take, rh, best)
+        bkey = torch.where(take, rkey, bkey)
+    cell = bkey >> 3
+    zero = best == 0
+    qend = torch.where(zero, 0, cell % Lq)
+    tend = torch.where(zero, 0, (cell // Lq) * 8 + (bkey & 7))
+    return AlignResult(best, qend, tend)

@@ -304,11 +304,14 @@ def _semiglobal_start_core(
     fwd_qend: torch.Tensor,   # [B] forward maxXY_x (NOT reset by the reference)
     params: AlignmentParams,
     *, head_q: bool, head_t: bool, tail_q: bool, tail_t: bool,
+    count_strips: bool = False,
 ):
     """Reverse semiglobal DP with the reference's word-granularity early
     exit, emulated exactly at strip granularity: the only in-loop update
     site is the column read_len-1, so the triggering strip processes all
-    its rows and no later strip runs.  Returns (tstart, qstart)."""
+    its rows and no later strip runs.  Returns (tstart, qstart), and with
+    count_strips also the strips each pair runs ([B] int32, the work a
+    per-thread kernel does)."""
     B, Lq = rev_q.shape
     Lt = rev_t.shape[1]
     dev = rev_q.device
@@ -333,6 +336,7 @@ def _semiglobal_start_core(
     y = torch.zeros(B, dtype=i32, device=dev)
     # the while-condition at the first strip: maxHH(=MINUS_INF) < fwd_score
     allow = fwd > MINUS_INF
+    strips = torch.zeros(B, dtype=i32, device=dev)
     for r in range(Lt):
         sub = _sub_scores(qi, q_is_n, ti[:, r:r + 1], params, False)
         if head_t:
@@ -350,6 +354,8 @@ def _semiglobal_start_core(
         f_used = _fscan(torch.maximum(tmp, E_used) - goe, fseed, ge)
         h = torch.maximum(torch.maximum(tmp, f_used), E_used)
         live = allow & (r < row_count)
+        if r % 8 == 0:
+            strips += live.to(i32)
         H = torch.where(live[:, None], h, H)
         E = torch.where(live[:, None], E_used, E)
         if tail_t:
@@ -372,6 +378,8 @@ def _semiglobal_start_core(
         # the reference's fixup, applied unconditionally inside the
         # TAIL-QUERY block (:377-378)
         y = torch.where(x != tlen, qlen, y)
+    if count_strips:
+        return (tlen - 1) - y, (qlen - 1) - x, strips
     return (tlen - 1) - y, (qlen - 1) - x
 
 

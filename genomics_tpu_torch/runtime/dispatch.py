@@ -1,7 +1,7 @@
-"""Bucketed batched dispatch of the LOCAL, GLOBAL and SEMI_GLOBAL paths.
+"""Bucketed batched dispatch of the five GASAL2 algorithms: LOCAL, GLOBAL,
+SEMI_GLOBAL, KSW (bwa-mem's ksw_extend) and BANDED.
 
-The counterpart of `genomics_tpu/runtime/dispatch.py` for those three
-algorithms.  `AlignEngine`:
+The counterpart of `genomics_tpu/runtime/dispatch.py`.  `AlignEngine`:
 
 1. buckets jobs by padded (query_len, target_len), padding with N4
    (`default_buckets`/`_bucket_of` are the JAX engine's, so both engines
@@ -9,8 +9,9 @@ algorithms.  `AlignEngine`:
 2. launches one kernel per bucket on `device` (chunks of at most
    MAX_PAIRS_PER_LAUNCH pairs, fewer where the traceback cube would pass
    MAX_TB_BYTES; results do not depend on the chunking);
-3. with traceback, walks the nibble cube on the device too
-   (`ops.tb_walk`), so only the O(Lq+Lt) op stream per pair comes back;
+3. with traceback (LOCAL, GLOBAL, SEMI_GLOBAL), walks the nibble cube
+   on the device too (`ops.tb_walk`), so only the O(Lq+Lt) op stream
+   per pair comes back;
    for SEMI_GLOBAL the walk's start cell is first resolved from the
    kernel's ends on the device;
 4. without traceback, serves `compute_start` (LOCAL, SEMI_GLOBAL) with
@@ -52,11 +53,6 @@ from genomics_tpu_torch.ops import (
 MAX_PAIRS_PER_LAUNCH = 65536
 MAX_TB_BYTES = 1 << 32  # bound on one launch's traceback cube
 
-# what each unported algorithm waits for (ROADMAP queue items)
-_NOT_PORTED = {
-    AlgoType.KSW: "A7/B11",
-    AlgoType.BANDED: "A7/B12",
-}
 _WALK = {AlgoType.LOCAL: "local", AlgoType.GLOBAL: "global",
          AlgoType.SEMI_GLOBAL: "semiglobal"}
 
@@ -142,20 +138,25 @@ def walk_start(algo: AlgoType, tail: SemiGlobalSkip, res, qlen, tlen):
 
 
 class AlignEngine:
-    """Batched LOCAL, GLOBAL or SEMI_GLOBAL alignment on one device.
+    """Batched alignment on one device, the card unless `device` says
+    otherwise.
 
-    >>> eng = AlignEngine(AlignmentParams(), with_tb=True, device="cuda")
+    >>> eng = AlignEngine(AlignmentParams(), with_tb=True)   # on "cuda"
     >>> results = eng.align(queries, targets)     # lists of str/bytes
+    >>> ksw = AlignEngine(AlignmentParams(algo=AlgoType.KSW))
+    >>> ext = ksw.align(queries, targets, h0=seed_scores)
 
     As in the JAX engine, SEMI_GLOBAL reads its skips from `head` and
-    `tail` (not from params.head_skip / tail_skip), `score_only` applies
-    to LOCAL only, `second_best` to LOCAL only, and `compute_start` is
+    `tail` (not from params.head_skip / tail_skip), BANDED its band from
+    `band_width_tiles` (not from params.band_width), KSW its seed scores
+    from align's `h0` (0 by default); `score_only` applies to LOCAL, KSW
+    and BANDED, `second_best` to LOCAL only, and `compute_start` is
     served by the traceback walk when there is one and by the reverse
-    start pass otherwise (GLOBAL ignores it).  Where the JAX engine's
-    Pallas and scan modes differ, this one gives the Pallas mode's
-    fields: score-only with `compute_start` reports ends of 0, and with
-    `second_best` (no traceback) the primary fields come from the
-    second-best kernel.
+    start pass otherwise (LOCAL and SEMI_GLOBAL).  KSW and BANDED give
+    no traceback.  Where the JAX engine's Pallas and scan modes differ,
+    this one gives the Pallas mode's fields: score-only reports ends of
+    0, and with `second_best` (no traceback) the primary fields come
+    from the second-best kernel.
     """
 
     def __init__(
@@ -166,14 +167,13 @@ class AlignEngine:
         tail: SemiGlobalSkip = SemiGlobalSkip.NONE,
         score_only: bool = False,
         buckets: Sequence[int] | None = None,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
+        band_width_tiles: int = 4,
     ):
         algo = params.algo
-        if algo in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{algo.name} alignment is not ported yet "
-                f"(ROADMAP {_NOT_PORTED[algo]})")
-        self.with_tb = with_tb or params.with_traceback
+        # KSW and BANDED have no traceback kernel: the JAX engine gives
+        # them no CIGAR, so the traceback-cube chunk limit does not apply
+        self.with_tb = (with_tb or params.with_traceback) and algo in _WALK
         self.second_best = params.second_best and algo == AlgoType.LOCAL
         # without traceback the starts come from the reverse start pass
         self.start_pass = (params.compute_start and not self.with_tb
@@ -188,8 +188,10 @@ class AlignEngine:
         self.params = params
         self.head = head
         self.tail = tail
-        # score-only runs the bench kernel: scores, and ends left at 0
-        self.score_only = score_only and algo == AlgoType.LOCAL
+        # score-only runs the score kernels: scores, and ends left at 0
+        self.score_only = score_only and algo in (
+            AlgoType.LOCAL, AlgoType.KSW, AlgoType.BANDED)
+        self.band_width_tiles = band_width_tiles
         self.buckets = list(buckets) if buckets else default_buckets()
 
     def _chunk_pairs(self, lq: int, lt: int) -> int:
@@ -198,8 +200,19 @@ class AlignEngine:
         per_pair = (lt // 8) * lq * 4
         return max(1, min(MAX_PAIRS_PER_LAUNCH, MAX_TB_BYTES // per_pair))
 
+    def _scores(self, q, t, ql, tl, h0, has_n: bool) -> torch.Tensor:
+        """The score-only kernel of LOCAL, KSW or BANDED."""
+        p = self.params
+        if p.algo == AlgoType.KSW:
+            return cuda_align.ksw_align_scores(q, t, ql, tl, h0, p,
+                                               has_n=has_n)
+        if p.algo == AlgoType.BANDED:
+            return cuda_align.banded_align_scores(
+                q, t, ql, tl, p, self.band_width_tiles, has_n=has_n)
+        return cuda_align.local_align_scores(q, t, p, has_n=has_n)
+
     def _run_chunk(self, qb: np.ndarray, tb: np.ndarray, qlen: np.ndarray,
-                   tlen: np.ndarray, has_n: bool) -> dict:
+                   tlen: np.ndarray, h0: np.ndarray, has_n: bool) -> dict:
         """Launch one chunk; returns device tensors: score, qend and tend
         (None when score-only), walk = (ops, final j, final i), starts =
         (qstart, tstart) from the start pass and second = (score2, qend2,
@@ -209,6 +222,8 @@ class AlignEngine:
         t = torch.from_numpy(tb).to(self.device)
         ql = torch.from_numpy(qlen).to(self.device)
         tl = torch.from_numpy(tlen).to(self.device)
+        h = (torch.from_numpy(h0).to(self.device) if p.algo == AlgoType.KSW
+             else None)
         out = dict(walk=None, starts=None, second=None)
         if self.second_best and not self.with_tb:
             # the inline second-best kernel gives the primary fields too
@@ -216,19 +231,23 @@ class AlignEngine:
             res = scan_align.AlignResult(*sec[:3])
             out["second"] = sec[3:]
         elif self.score_only and not self.with_tb and not self.start_pass:
-            out.update(score=cuda_align.local_align_scores(q, t, p,
-                                                           has_n=has_n),
-                       qend=None, tend=None)
+            out.update(score=self._scores(q, t, ql, tl, h, has_n), qend=None,
+                       tend=None)
             return out
         elif p.algo == AlgoType.LOCAL:
             res = cuda_align.local_align(q, t, p, with_tb=self.with_tb)
         elif p.algo == AlgoType.GLOBAL:
             res = cuda_align.global_align(q, t, ql, tl, p,
                                           with_tb=self.with_tb)
-        else:
+        elif p.algo == AlgoType.SEMI_GLOBAL:
             res = cuda_align.semiglobal_align(
                 q, t, ql, tl, p, head=self.head, tail=self.tail,
                 with_tb=self.with_tb)
+        elif p.algo == AlgoType.KSW:
+            res = cuda_align.ksw_align(q, t, ql, tl, h, p)
+        else:
+            res = cuda_align.banded_align(q, t, ql, tl, p,
+                                          self.band_width_tiles)
         if self.second_best and self.with_tb:
             # traceback kernel for the primary fields, the second-best
             # kernel for the *_second ones (genomics_tpu dispatch.py:306)
@@ -250,13 +269,18 @@ class AlignEngine:
         out.update(score=res.score, qend=res.query_end, tend=res.target_end)
         return out
 
-    def _dispatch(self, queries, targets):
+    def _dispatch(self, queries, targets, h0=None):
         """Launch every chunk (the device runs ahead of the host);
         returns the pending state for _collect."""
         if len(queries) != len(targets):
             raise ValueError(
                 f"queries/targets length mismatch: {len(queries)} vs "
                 f"{len(targets)}")
+        h0 = (np.zeros(len(queries), np.int32) if h0 is None
+              else np.asarray(h0, np.int32))
+        if h0.shape != (len(queries),):
+            raise ValueError(f"h0 needs one seed score per pair; got shape "
+                             f"{h0.shape} for {len(queries)} pairs")
         enc_q = [_codes(s) for s in queries]
         enc_t = [_codes(s) for s in targets]
         groups: dict[tuple[int, int], list[int]] = {}
@@ -273,6 +297,7 @@ class AlignEngine:
                 tb = np.full((len(chunk), lt), N4, np.uint8)
                 qlen = np.empty(len(chunk), np.int32)
                 tlen = np.empty(len(chunk), np.int32)
+                hb = h0[chunk]
                 has_n = False
                 for k, i in enumerate(chunk):
                     qlen[k] = len(enc_q[i])
@@ -281,7 +306,7 @@ class AlignEngine:
                     tb[k, :tlen[k]] = enc_t[i]
                     has_n = has_n or (N4 in enc_q[i]) or (N4 in enc_t[i])
                 pending.append(
-                    (chunk, self._run_chunk(qb, tb, qlen, tlen, has_n)))
+                    (chunk, self._run_chunk(qb, tb, qlen, tlen, hb, has_n)))
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -322,20 +347,23 @@ class AlignEngine:
                 out[i] = job
         return out  # type: ignore[return-value]
 
-    def align(self, queries: Sequence, targets: Sequence) -> list[AlignmentJob]:
+    def align(self, queries: Sequence, targets: Sequence,
+              h0: Sequence[int] | None = None) -> list[AlignmentJob]:
         """Align pairs (str, bytes or uint8 code arrays); returns results
-        in submission order."""
-        pending, n, _event = self._dispatch(queries, targets)
+        in submission order.  h0: KSW's seed score per pair (default 0;
+        the other algorithms ignore it)."""
+        pending, n, _event = self._dispatch(queries, targets, h0)
         return self._collect(pending, n)
 
-    def align_async(self, queries: Sequence, targets: Sequence) -> AsyncHandle:
+    def align_async(self, queries: Sequence, targets: Sequence,
+                    h0: Sequence[int] | None = None) -> AsyncHandle:
         """Submit a batch; the device starts now and the host returns.
 
         >>> h1 = eng.align_async(q1, t1)   # device busy with batch 1
         >>> h2 = eng.align_async(q2, t2)   # prep + launch batch 2 meanwhile
         >>> r1, r2 = h1.result(), h2.result()
         """
-        pending, n, event = self._dispatch(queries, targets)
+        pending, n, event = self._dispatch(queries, targets, h0)
         return AsyncHandle(lambda: self._collect(pending, n), event)
 
 

@@ -19,7 +19,9 @@ from genomics_tpu_torch import AlgoType, AlignEngine, AlignmentParams
 from genomics_tpu_torch.core.scoring import SemiGlobalSkip
 from genomics_tpu_torch.ops import cuda_align, scan_align_full, tb_walk
 from genomics_tpu_torch.ops.scan_align import (
+    banded_align_batch,
     global_align_batch,
+    ksw_align_batch,
     local_align_batch,
     semiglobal_align_batch,
 )
@@ -284,3 +286,78 @@ def test_engine_options_on_the_card_match_cpu(cuda, params, with_tb,
             b.score, b.query_end, b.target_end, b.query_start,
             b.target_start, b.score_second, b.query_end_second,
             b.target_end_second, b.cigar_string)
+
+
+@pytest.mark.parametrize("params", [
+    AlignmentParams(algo=AlgoType.KSW),
+    AlignmentParams(algo=AlgoType.KSW, n_penalty=2, match=2),
+], ids=["defaults", "n_penalty"])
+def test_ksw_kernel_matches_plain(cuda, params):
+    """END with Ns; SCORE with has_n True on the same batch and False on
+    an N-free one; seed scores 0-59 and a few above qlen * match."""
+    q, t, ql, tl = [x.to(cuda) for x in _batch(10, 1024 + 37, 40, 48,
+                                                n_rate=0.03)]
+    rng = np.random.default_rng(10)
+    h0 = torch.from_numpy(rng.integers(0, 60, q.shape[0]).astype(np.int32))
+    h0[:16] = 0
+    h0[16:32] = 200
+    h0 = h0.to(cuda)
+    want = ksw_align_batch(q, t, ql, tl, h0, params)
+    before = dict(cuda_align.LAUNCHES)
+    got = cuda_align.ksw_align(q, t, ql, tl, h0, params)
+    got_s = cuda_align.ksw_align_scores(q, t, ql, tl, h0, params, has_n=True)
+    torch.cuda.synchronize()
+    assert cuda_align.LAUNCHES["ksw.end"] == before["ksw.end"] + 1
+    assert cuda_align.LAUNCHES["ksw.score"] == before["ksw.score"] + 1
+    _assert_equal(got, want)
+    _assert_equal([got_s], [want.score])
+    q, t, ql, tl = [x.to(cuda) for x in _batch(11, 1024 + 37, 40, 48,
+                                                n_rate=0.0)]
+    _assert_equal([cuda_align.ksw_align_scores(q, t, ql, tl, h0, params,
+                                               has_n=False)],
+                  [ksw_align_batch(q, t, ql, tl, h0, params).score])
+
+
+@pytest.mark.parametrize("band", [1, 2, 4, 9])
+@pytest.mark.parametrize("params", [
+    AlignmentParams(algo=AlgoType.BANDED),
+    AlignmentParams(algo=AlgoType.BANDED, n_penalty=2, match=2),
+], ids=["defaults", "n_penalty"])
+def test_banded_kernel_matches_plain(cuda, params, band):
+    q, t, ql, tl = [x.to(cuda) for x in _batch(12, 1024 + 37, 40, 48,
+                                                n_rate=0.03)]
+    want = banded_align_batch(q, t, ql, tl, params, band)
+    before = dict(cuda_align.LAUNCHES)
+    got = cuda_align.banded_align(q, t, ql, tl, params, band)
+    got_s = cuda_align.banded_align_scores(q, t, ql, tl, params, band,
+                                           has_n=True)
+    torch.cuda.synchronize()
+    assert cuda_align.LAUNCHES["banded_sw.end"] == before["banded_sw.end"] + 1
+    assert (cuda_align.LAUNCHES["banded_sw.score"]
+            == before["banded_sw.score"] + 1)
+    _assert_equal(got, want)
+    _assert_equal([got_s], [want.score])
+    q, t, ql, tl = [x.to(cuda) for x in _batch(13, 1024 + 37, 40, 48,
+                                                n_rate=0.0)]
+    _assert_equal([cuda_align.banded_align_scores(q, t, ql, tl, params, band,
+                                                  has_n=False)],
+                  [banded_align_batch(q, t, ql, tl, params, band).score])
+
+
+@pytest.mark.parametrize("algo", [AlgoType.KSW, AlgoType.BANDED],
+                         ids=["ksw", "banded"])
+def test_ksw_and_banded_engine_on_the_card_match_cpu(cuda, algo):
+    rng = np.random.default_rng(5)
+    ts = ["".join(rng.choice(list("ACGTN"), rng.integers(60, 200),
+                             p=[0.245] * 4 + [0.02])) for _ in range(300)]
+    qs = [s[:int(rng.integers(20, 50))] for s in ts]
+    h0 = rng.integers(0, 60, len(qs))
+    for score_only in (False, True):
+        kw = dict(score_only=score_only, band_width_tiles=2)
+        got = AlignEngine(AlignmentParams(algo=algo), device=cuda,
+                          **kw).align(qs, ts, h0=h0)
+        want = AlignEngine(AlignmentParams(algo=algo), device="cpu",
+                           **kw).align(qs, ts, h0=h0)
+        for a, b in zip(got, want):
+            assert (a.score, a.query_end, a.target_end) == (
+                b.score, b.query_end, b.target_end)

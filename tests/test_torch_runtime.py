@@ -112,7 +112,7 @@ def test_engine_n_penalty_and_chunking_do_not_change_results(
     jp = JParams(n_penalty=2)
     want = JEngine(jp, with_tb=True, use_pallas=False).align(qs, ts)
     monkeypatch.setattr(dispatch, cap, value)
-    eng = AlignEngine(params_from_jax(jp), with_tb=True)
+    eng = AlignEngine(params_from_jax(jp), with_tb=True, device="cpu")
     pending, n, _ = eng._dispatch(qs, ts)
     assert len(pending) > 6                # more chunks than buckets
     assert max(len(idxs) for idxs, _ in pending) <= max_chunk
@@ -134,16 +134,16 @@ def test_pack_nibbles_matches_jax_and_plain_layout():
 def test_engine_accepts_codes_and_bytes():
     qs, ts = _pairs(2, n=20)
     p = AlignmentParams()
-    want = AlignEngine(p, with_tb=True).align(qs, ts)
-    got = AlignEngine(p, with_tb=True).align(
+    want = AlignEngine(p, with_tb=True, device="cpu").align(qs, ts)
+    got = AlignEngine(p, with_tb=True, device="cpu").align(
         [encoding.encode4(s) for s in qs], [s.encode() for s in ts])
     _assert_jobs_equal(got, want)
-    assert AlignEngine(p).align([], []) == []
+    assert AlignEngine(p, device="cpu").align([], []) == []
 
 
 def test_align_async_matches_align():
     qs, ts = _pairs(3, n=40)
-    eng = AlignEngine(AlignmentParams(), with_tb=True)
+    eng = AlignEngine(AlignmentParams(), with_tb=True, device="cpu")
     h1 = eng.align_async(qs[:20], ts[:20])
     h2 = eng.align_async(qs[20:], ts[20:])
     assert h1.done()             # CPU work is done at submission
@@ -197,6 +197,17 @@ def test_cuda_engine_raises_without_a_card():
         AlignEngine(AlignmentParams(), device="cuda")
 
 
+@pytest.mark.parametrize("algo", list(AlgoType), ids=lambda a: a.name)
+def test_engine_defaults_to_the_card(algo):
+    """No device given means the card: without one the engine raises
+    instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        assert AlignEngine(AlignmentParams(algo=algo)).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        AlignEngine(AlignmentParams(algo=algo))
+
+
 @pytest.mark.parametrize("use_pallas", [True, False], ids=["pallas", "scan"])
 @pytest.mark.parametrize("with_tb", [False, True], ids=["ends", "traceback"])
 @pytest.mark.parametrize("jp", [
@@ -208,7 +219,8 @@ def test_global_engine_matches_jax_engine(jp, with_tb, use_pallas):
     eq, et = _exact_fit_pairs(8)
     qs, ts = qs + eq, ts + et
     want = JEngine(jp, with_tb=with_tb, use_pallas=use_pallas).align(qs, ts)
-    got = AlignEngine(params_from_jax(jp), with_tb=with_tb).align(qs, ts)
+    got = AlignEngine(params_from_jax(jp), with_tb=with_tb,
+                      device="cpu").align(qs, ts)
     _assert_jobs_equal(got, want)
     if with_tb:
         assert all(j.cigar_string for j in got)
@@ -226,7 +238,8 @@ def test_semiglobal_engine_ends_match_jax_engine(head, tail):
     jp = JParams(algo=JAlgo.SEMI_GLOBAL, n_penalty=1 if head.value else None)
     want = JEngine(jp, head=head, tail=tail, use_pallas=False).align(qs, ts)
     got = AlignEngine(params_from_jax(jp), head=SemiGlobalSkip(head.value),
-                      tail=SemiGlobalSkip(tail.value)).align(qs, ts)
+                      tail=SemiGlobalSkip(tail.value),
+                      device="cpu").align(qs, ts)
     _assert_jobs_equal(got, want)
 
 
@@ -243,7 +256,8 @@ def test_semiglobal_engine_traceback_matches_jax_engine(skip, use_pallas):
                    use_pallas=use_pallas).align(qs, ts)
     got = AlignEngine(params_from_jax(jp), with_tb=True,
                       head=SemiGlobalSkip(skip.value),
-                      tail=SemiGlobalSkip(skip.value)).align(qs, ts)
+                      tail=SemiGlobalSkip(skip.value),
+                      device="cpu").align(qs, ts)
     _assert_jobs_equal(got, want)
 
 
@@ -251,7 +265,7 @@ def test_semiglobal_glocal_hand_case():
     """tests/test_runtime.py's hand case: the read inside its target."""
     eng = AlignEngine(AlignmentParams(algo=AlgoType.SEMI_GLOBAL),
                       with_tb=True, head=SemiGlobalSkip.TARGET,
-                      tail=SemiGlobalSkip.TARGET)
+                      tail=SemiGlobalSkip.TARGET, device="cpu")
     res = eng.align(["ACGT"], ["TTACGTTT"])[0]
     assert res.cigar_string == "4M"
     assert res.query_start == 0 and res.target_start == 2
@@ -262,8 +276,8 @@ def test_semiglobal_glocal_hand_case():
     p = AlignmentParams(algo=AlgoType.SEMI_GLOBAL,
                         head_skip=SemiGlobalSkip.TARGET,
                         tail_skip=SemiGlobalSkip.TARGET)
-    assert AlignEngine(p, with_tb=True).align(["ACGT"], ["TTACGTTT"])[0] \
-        .cigar_string != "4M"
+    assert AlignEngine(p, with_tb=True, device="cpu").align(
+        ["ACGT"], ["TTACGTTT"])[0].cigar_string != "4M"
 
 
 @pytest.mark.parametrize("jp,with_tb", [
@@ -285,7 +299,7 @@ def test_start_and_second_best_gating_matches_jax_engine(jp, with_tb):
                    use_pallas=False).align(qs, ts)
     got = AlignEngine(params_from_jax(jp), with_tb=with_tb,
                       head=SemiGlobalSkip.TARGET,
-                      tail=SemiGlobalSkip.TARGET).align(qs, ts)
+                      tail=SemiGlobalSkip.TARGET, device="cpu").align(qs, ts)
     _assert_jobs_equal(got, want)
 
 
@@ -343,7 +357,8 @@ def test_start_and_second_best_match_jax_engine(jp, with_tb, score_only,
                    tail=tail, use_pallas=use_pallas).align(qs, ts)
     got = AlignEngine(params_from_jax(jp), with_tb=with_tb,
                       score_only=score_only, head=SemiGlobalSkip(head.value),
-                      tail=SemiGlobalSkip(tail.value)).align(qs, ts)
+                      tail=SemiGlobalSkip(tail.value),
+                      device="cpu").align(qs, ts)
     _assert_jobs_equal(got, want)
     if jp.compute_start and not with_tb:
         assert any(j.query_start or j.target_start for j in got)
@@ -360,7 +375,8 @@ def test_score_only_start_reports_no_ends(use_pallas):
     qs, ts = _pairs(16, n=40)
     jp = JParams(compute_start=True)
     want = JEngine(jp, score_only=True, use_pallas=use_pallas).align(qs, ts)
-    got = AlignEngine(params_from_jax(jp), score_only=True).align(qs, ts)
+    got = AlignEngine(params_from_jax(jp), score_only=True,
+                      device="cpu").align(qs, ts)
     fields = ["score", "query_start", "target_start"]
     if use_pallas:
         fields += ["query_end", "target_end"]
@@ -368,20 +384,89 @@ def test_score_only_start_reports_no_ends(use_pallas):
     assert all(j.query_end == j.target_end == 0 for j in got)
 
 
-@pytest.mark.parametrize("params,item", [
-    (AlignmentParams(algo=AlgoType.KSW), "B11"),
-    (AlignmentParams(algo=AlgoType.BANDED), "B12"),
-], ids=["ksw", "banded"])
-def test_unported_features_raise(params, item):
-    with pytest.raises(NotImplementedError, match=item):
-        AlignEngine(params)
-
-
 def test_cpu_engine_launches_no_kernel():
     before = dict(cuda_align.LAUNCHES), dict(tb_walk.LAUNCHES)
     qs, ts = _pairs(5, n=10)
-    for algo in (AlgoType.LOCAL, AlgoType.GLOBAL, AlgoType.SEMI_GLOBAL):
+    for algo in AlgoType:
         p = AlignmentParams(algo=algo)
-        AlignEngine(p, with_tb=True).align(qs, ts)
-        AlignEngine(p, score_only=True).align(qs, ts)
+        AlignEngine(p, with_tb=True, device="cpu").align(qs, ts)
+        AlignEngine(p, score_only=True, device="cpu").align(qs, ts)
     assert (cuda_align.LAUNCHES, tb_walk.LAUNCHES) == before
+
+
+def _extension_pairs(seed, n=48):
+    """Seed-extension-shaped pairs in two buckets (queries of 17-32 bp
+    against targets of 33-48): each query a mutated prefix of its target,
+    with substitutions, a 1-2 bp indel, a few Ns and some unrelated
+    queries; seed scores h0 of 0-59, with a few 0."""
+    rng = np.random.default_rng(seed)
+    qs, ts = [], []
+    for k in range(n):
+        tgt = "".join(rng.choice(list("ACGT"), int(rng.integers(33, 49))))
+        read = list(tgt[:int(rng.integers(17, 33))])
+        if k % 4 == 1:
+            i = int(rng.integers(3, len(read) - 3))
+            read[i:i + int(rng.integers(1, 3))] = []
+        for i in range(len(read)):
+            if rng.random() < 0.05:
+                read[i] = str(rng.choice(list("ACGTN")))
+        if k % 6 == 0:
+            read = list(rng.choice(list("ACGT"), len(read)))
+        qs.append("".join(read))
+        ts.append(tgt)
+    h0 = rng.integers(0, 60, n)
+    h0[::7] = 0
+    return qs, ts, h0
+
+
+@pytest.mark.parametrize("use_pallas", [True, False], ids=["pallas", "scan"])
+@pytest.mark.parametrize("algo,band,with_tb,score_only", [
+    ("KSW", 4, False, False),
+    ("KSW", 4, True, False),
+    ("KSW", 4, False, True),
+    ("BANDED", 1, False, False),
+    ("BANDED", 4, False, False),
+    ("BANDED", 4, True, False),
+    ("BANDED", 1, False, True),
+], ids=["ksw", "ksw_with_tb", "ksw_score_only", "banded_1", "banded_4",
+        "banded_with_tb", "banded_score_only"])
+def test_ksw_and_banded_engine_match_jax_engine(algo, band, with_tb,
+                                                score_only, use_pallas):
+    """Every field, with h0 per pair (KSW) and the band (BANDED).  KSW and
+    BANDED give no CIGAR under with_tb, as the JAX engine does; score-only
+    reports ends of 0, the JAX Pallas engine's fields (its scan engine
+    ignores score_only).  The buckets hold under 1,024 pairs, so the JAX
+    BANDED score-only path is its lanes kernel, which C7 does not touch."""
+    qs, ts, h0 = _extension_pairs(17)
+    jp = JParams(algo=JAlgo[algo])
+    want = JEngine(jp, with_tb=with_tb, score_only=score_only,
+                   band_width_tiles=band, use_pallas=use_pallas).align(
+        qs, ts, h0=h0)
+    eng = AlignEngine(params_from_jax(jp), with_tb=with_tb,
+                      score_only=score_only, band_width_tiles=band,
+                      device="cpu")
+    got = eng.align(qs, ts, h0=h0)
+    fields = ["score"] if score_only and not use_pallas else FIELDS
+    _assert_jobs_equal(got, want, fields)
+    assert all(j.cigar is None for j in got)
+    if score_only:
+        assert all(j.query_end == j.target_end == 0 for j in got)
+    assert len({j.score for j in got}) > 5
+
+
+@pytest.mark.parametrize("algo", ["KSW", "BANDED"])
+def test_ksw_and_banded_align_async_matches_align(algo):
+    qs, ts, h0 = _extension_pairs(18, n=24)
+    eng = AlignEngine(AlignmentParams(algo=AlgoType[algo]), device="cpu")
+    h1 = eng.align_async(qs[:10], ts[:10], h0=h0[:10])
+    h2 = eng.align_async(qs[10:], ts[10:], h0=h0[10:])
+    assert h1.done()
+    _assert_jobs_equal(h1.result() + h2.result(), eng.align(qs, ts, h0=h0))
+
+
+def test_ksw_h0_defaults_to_zero_and_is_checked():
+    qs, ts, _ = _extension_pairs(19, n=12)
+    eng = AlignEngine(AlignmentParams(algo=AlgoType.KSW), device="cpu")
+    _assert_jobs_equal(eng.align(qs, ts), eng.align(qs, ts, h0=[0] * 12))
+    with pytest.raises(ValueError, match="h0"):
+        eng.align(qs, ts, h0=[1, 2])
