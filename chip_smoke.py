@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's alignment, PairHMM and edit-distance paths once
-on one CUDA card.
+"""Drive the PyTorch port's alignment (engine and `align` CLI), PairHMM
+and edit-distance paths once on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -12,7 +12,15 @@ Run from the root of a checkout.  Phases, one line each:
 3. parity   each kernel against its plain PyTorch version on the card,
             integer-equal: B=4096+37 at 152x152 (ACGT only; LOCAL, KSW
             and BANDED score-only with has_n True and False) and B=1000
-            in the 216x328 bucket with Ns: local_sw SCORE/END/TB/SECOND,
+            in the 216x328 bucket with Ns: local_sw SCORE/END/TB/SECOND and
+            SCORE16/END16 (held to their int16 plain version and to the
+            int32 modes, also at match=200, scores up to 30,400, and with
+            match x Lq one below each int16 limit on pairs that reach it:
+            127 x 258 = 32,766 for END16, 991 x 33 = 32,703 for SCORE16;
+            then match x Lq just inside and just past each limit, at Lq
+            168, must take the mode the gate gives, by launch counts: the
+            ends END16 only under GENOMICS_TPU_INT16_CELLS=1, the scores
+            SCORE16 only on N-free batches),
             global_sw SCORE/TB, semiglobal_sw END for all 16 HEAD x TAIL
             and TB for NONE/NONE, TARGET/TARGET, QUERY/QUERY and
             BOTH/BOTH, the LOCAL, GLOBAL and SEMI_GLOBAL walks,
@@ -28,7 +36,12 @@ Run from the root of a checkout.  Phases, one line each:
             targets, ~2% substitutions, ~0.5% 1-3 bp indels, a few Ns)
             through AlignEngine(device="cuda"), every kernel's launch
             count set to 0 just before and read just after each path:
-            LOCAL with traceback, ends only and score-only; then GLOBAL
+            LOCAL with traceback, ends only (END, and END16 under
+            GENOMICS_TPU_INT16_CELLS=1), score-only (SCORE: every chunk
+            holds Ns), score-only on N-free copies of the pairs (SCORE16;
+            its host-clock wall beside the same run with SCORE forced, in
+            turns) and ends at match=160 under the switch, past the int16
+            range (END); then GLOBAL
             and SEMI_GLOBAL glocal (head=tail=TARGET), each with and
             without traceback; then the start passes (LOCAL, glocal and
             SEMI_GLOBAL NONE/BOTH compute_start) and LOCAL second_best
@@ -39,7 +52,13 @@ Run from the root of a checkout.  Phases, one line each:
             pairs, each with ends and score-only.  Checked against the
             CPU engine (every field, CIGAR bytes included) and the
             pure-Python golds, plus one GLOBAL run with
-            models/assembly.py's scoring.  Then PairHMM over 256 GATK-
+            models/assembly.py's scoring.  Then the same 20,000 pairs
+            written to two FASTA files under all four header ops through
+            `python -m genomics_tpu_torch align -q Q.fa -t T.fa` (its
+            main()), twice: as is (END) and under
+            GENOMICS_TPU_INT16_CELLS=1 (END16), each run's first 1,024
+            lines byte-equal to the CLI's own --device cpu run, 64 held to
+            the gold.  Then PairHMM over 256 GATK-
             shaped regions x 32 reads x 8 haplotypes (150 / 300 bp;
             65,536 pairs, 2.95 G cells) through
             models.pairhmm.compute_region_likelihoods (the inter-task
@@ -50,19 +69,23 @@ Run from the root of a checkout.  Phases, one line each:
             ops.myers.edit_distance_semiglobal (W=5), held to the plain
             version and, on 64, to the plain DP;
 5. timings  each kernel and its plain version on the card at bench.py's
-            shape (B=65,536, 152x152; KSW with h0 = 30, BANDED with a band
+            shape (B=65,536, 152x152; the four score / end modes of local_sw
+            as launches alone, in turns; KSW with h0 = 30, BANDED with a band
             of 4 tiles, as benchmarks/run_all.py runs them), PairHMM at
             B=16,384 x 128 x 128 and Myers at B=16,384, Lp 96, Lt 152
             (run_all.py's shapes; the launch alone on inputs already in
             the kernel's layout, and the wrapper with its layout passes
             beside it), the least time the card could take for
-            the same work (the bound; see `bound`), and the engine's
-            pairs/s.
+            the same work (the bound; see `bound` and OPS_PER_CELL), the
+            four score / end modes again at the engine's 216 x 328 bucket
+            over launches of 1,024 to 65,536 pairs (the sweep that decides
+            whether SCORE16 may be the default), and the engine's pairs/s.
 
 Then one JSON line with the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  With --profile, phases 3-5 give way to
-one line per engine path over the 20,000 pairs, the PairHMM regions and
-the `ed` reads: wall, device busy time
+one line per engine path over the 20,000 pairs (LOCAL score-only on
+their N-free copies with SCORE16 and with SCORE forced), the `align` CLI
+over them with and without GENOMICS_TPU_INT16_CELLS=1, the PairHMM regions and the `ed` reads: wall, device busy time
 and per-kernel device time (torch.profiler), and the host functions with
 the most self time (cProfile).  Any failure exits non-zero before the
 last line.  Needs one CUDA card and nvcc; imports no JAX.
@@ -70,11 +93,15 @@ last line.  Needs one CUDA card and nvcc; imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
+import io
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -111,16 +138,27 @@ F32_OPS_PER_CELL = 8       # PairHMM: 1 add, 4 multiplies, 3 fmas
 MYERS_OPS_PER_WORD, MYERS_OPS_PER_STEP = 11, 10
 # Integer operations per DP cell (per walk step for the walks), one per
 # add, max, compare or select, as each kernel's source counts them; the
-# score kernels as timed (has_n=False).
+# score kernels as timed (has_n=False).  The packed-16-bit modes do the
+# work of SCORE and END, 12 and 15 operations per cell, with two cells'
+# worth in one lane-operation wherever the value is 16 bits: SCORE16's 12
+# are all packed, so 6 lane-operations a cell; END16's 15 are 13 packed
+# (the 11 of SCORE but its best max, then the best's compare and select)
+# and the qend and tend selects in int32, so 13 / 2 + 2 = 8.5.
 OPS_PER_CELL = {
     "local_sw.score": 12, "local_sw.end": 15, "local_sw.tb": 25,
-    "local_sw.second": 20, "local_start": 15,
+    "local_sw.second": 20, "local_sw.score16": 12 / 2,
+    "local_sw.end16": 13 / 2 + 2, "local_start": 15,
     "global_sw.score": 10, "global_sw.tb": 20,
     "semiglobal_sw.end": 14, "semiglobal_sw.tb": 24, "semiglobal_start": 14,
     "tb_walk": 25, "tb_walk.global": 25, "tb_walk.semiglobal": 25,
     "ksw.end": 24, "ksw.score": 19,
     "banded_sw.end": 19, "banded_sw.score": 13,
 }
+# local_sw's score / end modes at the engine's 216 x 328 bucket, from the
+# align CLI's launches (5,000-pair chunks: ~4,150 pairs here) to the
+# engine's largest; 16,384 pairs are 128 of SCORE's 128-thread blocks
+# (64 of SCORE16's: one thread per two pairs), 16,896 fill the 132 SMs
+SWEEP_B = (1024, 2048, 4096, 8192, 16384, 16896, 24576, 32768, 49152, 65536)
 
 
 def log(phase: str, msg: str):
@@ -148,6 +186,36 @@ def fp32_peak() -> float:
     mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return sms * FP32_LANES_PER_SM * mhz * 1e6
+
+
+@contextlib.contextmanager
+def int16_cells():
+    """GENOMICS_TPU_INT16_CELLS=1 within the block: LOCAL ends take END16
+    wherever every value fits in int16."""
+    old = os.environ.get("GENOMICS_TPU_INT16_CELLS")
+    os.environ["GENOMICS_TPU_INT16_CELLS"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["GENOMICS_TPU_INT16_CELLS"]
+        else:
+            os.environ["GENOMICS_TPU_INT16_CELLS"] = old
+
+
+@contextlib.contextmanager
+def int32_scores():
+    """LOCAL score-only in SCORE within the block, where the gate would
+    pick SCORE16: the baseline SCORE16's engine wall is compared with."""
+    from genomics_tpu_torch.ops import cuda_align
+
+    pick = cuda_align.local_mode
+    cuda_align.local_mode = lambda ends, *a, **k: (
+        pick(ends, *a, **k) if ends else "score")
+    try:
+        yield
+    finally:
+        cuda_align.local_mode = pick
 
 
 def bound(ops: float, nbytes: float, peak: float) -> tuple[float, str]:
@@ -276,6 +344,45 @@ def extension_pairs(rng, n, match):
     return qs, ts, np.array(h0, np.int32), np.array(unrelated)
 
 
+COMPLEMENT = bytes.maketrans(b"ACGTN", b"TGCAN")
+HEADER_OPS = ">", "<", "/", "+"
+
+
+def write_pair_fastas(dirname: str, qs, ts) -> tuple[str, str]:
+    """Write the pairs to q.fasta and t.fasta under dirname, pair k's read
+    under header op HEADER_OPS[k % 4] and its target under
+    HEADER_OPS[(k // 4) % 4], each stored so that applying its op (reverse,
+    complement or both; each its own inverse) gives back the pair."""
+    def stored(seq: bytes, op: str) -> str:
+        if op in "/+":
+            seq = seq.translate(COMPLEMENT)
+        return (seq[::-1] if op in "<+" else seq).decode()
+
+    paths = (f"{dirname}/q.fasta", f"{dirname}/t.fasta")
+    with open(paths[0], "w") as fq, open(paths[1], "w") as ft:
+        for k, (q, t) in enumerate(zip(qs, ts)):
+            qop, top = HEADER_OPS[k % 4], HEADER_OPS[(k // 4) % 4]
+            fq.write(f"{qop}read{k}\n{stored(q, qop)}\n")
+            ft.write(f"{top}target{k}\n{stored(t, top)}\n")
+    return paths
+
+
+def run_cli(argv) -> str:
+    """stdout of `python -m genomics_tpu_torch` with argv, run in-process."""
+    from genomics_tpu_torch import __main__ as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        if cli.main(argv) != 0:
+            raise AssertionError(f"align {argv} returned non-zero")
+    return out.getvalue()
+
+
+def n_free(seqs):
+    """Copies of byte sequences with every N made an A."""
+    return [x.replace(b"N", b"A") for x in seqs]
+
+
 def zero_counts(*counts):
     for c in counts:
         for k in c:
@@ -338,7 +445,7 @@ def profile_paths(paths, smi: str):
             us = ev.self_device_time_total
             busy += us
             for name in KERNEL_SOURCES:   # global_sw is in semiglobal_sw
-                if re.search(rf"(?<![A-Za-z]){name}_kernel", ev.key):
+                if re.search(rf"(?<![A-Za-z]){name}(16)?_kernel", ev.key):
                     kern[name] = kern.get(name, 0.0) + us
         pr = cProfile.Profile()
         pr.enable()
@@ -420,7 +527,6 @@ def gold_likelihoods(records) -> np.ndarray:
     """golds.pairhmm_forward over records, in worker processes (about 0.6
     s a record at 150 x 300 in one)."""
     import multiprocessing
-    import os
     from concurrent.futures import ProcessPoolExecutor
 
     from genomics_tpu_torch.core import golds
@@ -540,9 +646,10 @@ def main() -> int:
         global_align_batch,
         ksw_align_batch,
         local_align_batch,
+        local_align_batch16,
         semiglobal_align_batch,
     )
-    from genomics_tpu_torch.runtime.dispatch import walk_start
+    from genomics_tpu_torch.runtime.dispatch import default_buckets, walk_start
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
@@ -589,6 +696,7 @@ def main() -> int:
         paths = [(label, AlignEngine(pp, device=dev, **kw), pairs, None)
                  for label, pp, kw in (
                      ("LOCAL with traceback", P, dict(with_tb=True)),
+                     ("LOCAL ends", P, {}),
                      ("LOCAL score-only", P, dict(score_only=True)),
                      ("GLOBAL with traceback", PG, dict(with_tb=True)),
                      ("GLOBAL score", PG, {}),
@@ -608,14 +716,37 @@ def main() -> int:
         paths += [(label, AlignEngine(PK, device=dev, **kw), (kq, kt), kh0)
                   for label, kw in (("KSW ends", {}),
                                     ("KSW score-only", dict(score_only=True)))]
+        paths.append(("LOCAL score-only, N-free pairs (SCORE16)",
+                      AlignEngine(P, score_only=True, device=dev),
+                      tuple(map(n_free, pairs)), None))
         runs = [(label, functools.partial(eng.align, q, t, h0=h0), len(q))
                 for label, eng, (q, t), h0 in paths]
+
+        def within(ctx, fn):
+            def run():
+                with ctx():
+                    return fn()
+            return run
+        so_nf = functools.partial(AlignEngine(P, score_only=True,
+                                              device=dev).align,
+                                  *map(n_free, pairs))
+        runs += [("LOCAL score-only, N-free pairs, SCORE forced",
+                  within(int32_scores, so_nf), PAIRS),
+                 ("LOCAL ends, GENOMICS_TPU_INT16_CELLS=1 (END16)",
+                  within(int16_cells, functools.partial(
+                      AlignEngine(P, device=dev).align, *pairs)), PAIRS)]
         regions = regions_batch(np.random.default_rng(args.seed + 4), REGIONS,
                                 REGION_READS, REGION_HAPS, REGION_RL,
                                 REGION_HL)
         reads_ed, wins = ed_pairs(np.random.default_rng(args.seed + 5),
                                   ED_PAIRS)
+        fasta_dir = tempfile.TemporaryDirectory()
+        qf, tf = write_pair_fastas(fasta_dir.name, *pairs)
+        cli = functools.partial(run_cli, ["align", "-q", qf, "-t", tf])
         runs += [
+            ("align -y local (CLI over the FASTA files)", cli, PAIRS),
+            ("align -y local, GENOMICS_TPU_INT16_CELLS=1",
+             within(int16_cells, cli), PAIRS),
             ("PairHMM regions", functools.partial(
                 pairhmm.compute_region_likelihoods, regions, device=dev),
              REGIONS * REGION_READS * REGION_HAPS),
@@ -623,10 +754,12 @@ def main() -> int:
                                            reads_ed, wins, device=dev),
              ED_PAIRS)]
         profile_paths(runs, smi)
+        fasta_dir.cleanup()
         return 0
 
     # -- 3. each kernel against its plain version, on the card ------------
     err = {k: 0 for k in ("local_sw.score", "local_sw.end", "local_sw.tb",
+                          "local_sw.score16", "local_sw.end16",
                           "tb_walk", "global_sw.score", "global_sw.tb",
                           "semiglobal_sw.end", "semiglobal_sw.tb",
                           "tb_walk.global", "tb_walk.semiglobal",
@@ -656,21 +789,55 @@ def main() -> int:
         q, t = torch.from_numpy(qn).to(dev), torch.from_numpy(tn).to(dev)
         ql, tl = torch.from_numpy(qln).to(dev), torch.from_numpy(tln).to(dev)
         e = {}
-        # LOCAL
+        # LOCAL: the 16-bit modes held to their int16 plain version and to
+        # the int32 modes; END16 and the int32 modes through their
+        # launches, the N-free scores through the score path (SCORE16)
         plain_tb = local_align_batch(q, t, P, with_tb=True)
         got_end = cuda_align.local_align(q, t, P)
         got_tb = cuda_align.local_align(q, t, P, with_tb=True)
-        e["local_sw.end"] = max_abs_err(got_end[:3], plain_tb[:3])
+        e["local_sw.end"] = max(
+            max_abs_err(got_end[:3], plain_tb[:3]), max_abs_err(
+                cuda_align._launch("end", q.T, t.T, P, True)[:3],
+                plain_tb[:3]))
+        got_end16 = cuda_align._launch("end16", q.T, t.T, P, True)[:3]
+        e["local_sw.end16"] = max(
+            max_abs_err(got_end16, plain_tb[:3]),
+            max_abs_err(got_end16, local_align_batch16(q, t, P)[:3]))
         e["local_sw.tb"] = max_abs_err(got_tb, plain_tb)
         e["local_sw.score"] = max_abs_err(
             [cuda_align.local_align_scores(q, t, P, has_n=True)],
             [plain_tb.score])
+        e["local_sw.score16"] = 0
+        top = ""
         if n_rate == 0.0:   # only padding Ns: the has_n=False contract holds
+            qs16, ts16 = (cuda_align._pads_to_sentinels(x.T, c).contiguous()
+                          for x, c in ((q, 16), (t, 17)))
             e["local_sw.score"] = max(e["local_sw.score"], max_abs_err(
+                [cuda_align._launch("score", qs16, ts16, P, False)[0]],
+                [plain_tb.score]))
+            e["local_sw.score16"] = max_abs_err(
                 [cuda_align.local_align_scores(q, t, P, has_n=False),
                  cuda_align.local_align_scores_tm(
-                     q.T.contiguous(), t.T.contiguous(), P, has_n=False)],
-                [plain_tb.score] * 2))
+                     q.T.contiguous(), t.T.contiguous(), P, has_n=False),
+                 local_align_batch16(qs16.T, ts16.T, P, ends=False).score],
+                [plain_tb.score] * 3)
+            # the top of the int16 range: match=200 at Lq 152
+            P200 = AlignmentParams(match=200)
+            plain200 = local_align_batch(q, t, P200)
+            e["local_sw.end16"] = max(e["local_sw.end16"], max_abs_err(
+                [*cuda_align._launch("end16", q.T, t.T, P200, True)[:3],
+                 *local_align_batch16(q, t, P200)[:3],
+                 *cuda_align._launch("end", q.T, t.T, P200, True)[:3]],
+                [*plain200[:3]] * 3))
+            zero_counts(cuda_align.LAUNCHES)
+            e["local_sw.score16"] = max(e["local_sw.score16"], max_abs_err(
+                [cuda_align.local_align_scores(q, t, P200, has_n=False),
+                 cuda_align._launch("score", qs16, ts16, P200, False)[0]],
+                [plain200.score] * 2))
+            if not cuda_align.LAUNCHES["local_sw.score16"]:
+                raise AssertionError(f"{label}: N-free scores at match=200 "
+                                     f"did not take SCORE16")
+            top = f" (match=200: best score {int(plain200.score.max())})"
         walk_args = (got_tb.tb, got_tb.score, got_tb.query_end,
                      got_tb.target_end, P)
         e["tb_walk"] = max_abs_err(tb_walk.tb_walk(*walk_args),
@@ -738,8 +905,76 @@ def main() -> int:
         torch.cuda.synchronize()
         for k, v in e.items():
             err[k] = max(err[k], v)
-        log("3 parity", f"{label}: max |kernel - plain| " + " ".join(
+        log("3 parity", f"{label}{top}: max |kernel - plain| " + " ".join(
             f"{k} {v}" for k, v in e.items()))
+    if any(err.values()):
+        raise AssertionError(f"kernels disagree with their plain versions: {err}")
+    # one below each int16 limit, on an odd B of related pairs whose first
+    # 8 are identical (the query the target's first Lq bases), so that the
+    # best score is the limit less one: END16 at 127 x 258 = 32,766 (the
+    # ends' limit is 32,767), SCORE16 at 991 x 33 = 32,703 (32,704)
+    edge_rng = np.random.default_rng(args.seed + 6)
+    for mode, match, Lq, Lt in (("end16", 127, 258, 264),
+                                ("score16", 991, 33, 40)):
+        qn, tn, _, _ = random_codes(edge_rng, 1025, Lq, Lt, 0.0)
+        full = np.array([1, 3, 7, 4], np.uint8)[edge_rng.integers(0, 4, Lt)]
+        qn[:8], tn[:8] = full[:Lq], full
+        q, t = torch.from_numpy(qn).to(dev), torch.from_numpy(tn).to(dev)
+        pp = AlignmentParams(match=match)
+        plain = local_align_batch(q, t, pp)
+        if mode == "end16":
+            got = [*cuda_align._launch("end16", q.T, t.T, pp, True)[:3],
+                   *cuda_align._launch("end", q.T, t.T, pp, True)[:3],
+                   *local_align_batch16(q, t, pp)[:3]]
+            want = [*plain[:3]] * 3
+        else:
+            qs16, ts16 = (cuda_align._pads_to_sentinels(x.T, c).contiguous()
+                          for x, c in ((q, 16), (t, 17)))
+            got = [cuda_align._launch("score16", qs16, ts16, pp, False)[0],
+                   cuda_align._launch("score", qs16, ts16, pp, False)[0],
+                   local_align_batch16(qs16.T, ts16.T, pp, ends=False).score]
+            want = [plain.score] * 3
+        top = int(plain.score.max())
+        if top != match * Lq:
+            raise AssertionError(f"{mode} edge: best score {top}, not "
+                                 f"{match * Lq}")
+        err[f"local_sw.{mode}"] = max(err[f"local_sw.{mode}"],
+                                      max_abs_err(got, want))
+        log("3 parity", f"{mode} one below its limit: match {match} x Lq "
+            f"{Lq} = {top}, B=1025, max |kernel - plain| "
+            f"{max_abs_err(got, want)} (== the int32 mode and both plain "
+            "versions)")
+    # just inside and just past each int16 limit at Lq 168: 194 x 168 =
+    # 32,592 is inside both, 195 x 168 = 32,760 past the scores' 32,704
+    # only, 196 x 168 = 32,928 past both; the ends take END16 only under
+    # GENOMICS_TPU_INT16_CELLS=1 and the scores SCORE16 only without Ns.
+    # The launch counts show the mode.
+    qt = [torch.from_numpy(x).to(dev)
+          for x in random_codes(edge_rng, 1000, 168, 96, 0.0)[:2]]
+    for match, cells16, has_n, modes in (
+            (194, True, False, ("end16", "score16")),
+            (195, True, False, ("end16", "score")),
+            (196, True, False, ("end", "score")),
+            (194, False, False, ("end", "score16")),
+            (194, True, True, ("end16", "score"))):
+        pp = AlignmentParams(match=match)
+        zero_counts(cuda_align.LAUNCHES)
+        with int16_cells() if cells16 else contextlib.nullcontext():
+            got = [*cuda_align.local_align(*qt, pp)[:3],
+                   cuda_align.local_align_scores(*qt, pp, has_n=has_n)]
+        ran = {k for k, v in cuda_align.LAUNCHES.items() if v}
+        if ran != {f"local_sw.{m}" for m in modes}:
+            raise AssertionError(f"match {match} at Lq 168, INT16_CELLS "
+                                 f"{cells16}, has_n {has_n}: launched {ran}, "
+                                 f"not {modes}")
+        plain = local_align_batch(*qt, pp)
+        for m in modes:
+            err[f"local_sw.{m}"] = max(err[f"local_sw.{m}"], max_abs_err(
+                got, [*plain[:3], plain.score]))
+    log("3 parity", "match x Lq at Lq 168, B=1000, under "
+        "GENOMICS_TPU_INT16_CELLS=1: 194 -> END16 + SCORE16, 195 -> END16 + "
+        "SCORE, 196 -> END + SCORE; 194 without it -> END + SCORE16; 194 "
+        "with has_n -> END16 + SCORE (launch counts), each == plain")
     if any(err.values()):
         raise AssertionError(f"kernels disagree with their plain versions: {err}")
 
@@ -803,23 +1038,68 @@ def main() -> int:
                                  f"jobs for {n} pairs")
         return jobs
 
-    # 4a. LOCAL
+    # 4a. LOCAL: ends in END, and in END16 under GENOMICS_TPU_INT16_CELLS=1;
+    # score-only in SCORE where a chunk holds an N (here every chunk) and in
+    # SCORE16 on the N-free copies; ends past the int16 range (match=160 at
+    # the 216 bucket) in END even under the switch
+    qs_nf, ts_nf = n_free(qs), n_free(ts)
+    PW = AlignmentParams(match=160)
     zero_counts(*counts)
     jobs_tb = timed("local tb", AlignEngine(P, with_tb=True, device=dev))
     jobs_end = timed("local ends", AlignEngine(P, device=dev))
+    with int16_cells():
+        jobs_end16 = timed("local ends INT16_CELLS=1",
+                           AlignEngine(P, device=dev))
     jobs_so = timed("local score-only",
                     AlignEngine(P, score_only=True, device=dev))
+    jobs_so16 = timed("local score-only N-free", AlignEngine(
+        P, score_only=True, device=dev), (qs_nf, ts_nf))
+    end16_before = cuda_align.LAUNCHES["local_sw.end16"]
+    with int16_cells():
+        jobs_wide = timed("local ends match=160", AlignEngine(PW, device=dev))
+    if cuda_align.LAUNCHES["local_sw.end16"] != end16_before:
+        raise AssertionError("ends at match=160 x 216 took END16")
     launches = {k: cuda_align.LAUNCHES[k] for k in
-                ("local_sw.score", "local_sw.end", "local_sw.tb")}
+                ("local_sw.score", "local_sw.end", "local_sw.tb",
+                 "local_sw.score16", "local_sw.end16")}
     launches["tb_walk"] = tb_walk.LAUNCHES["tb_walk"]
-    log("4 slice", f"LOCAL launches: {launches}")
+    edges = default_buckets()
+    bucket = lambda s: next(e for e in edges if len(s) <= e)
+    per_bucket = {}
+    for a, b in zip(qs, ts):
+        key = bucket(a), bucket(b)
+        per_bucket[key] = per_bucket.get(key, 0) + 1
+    log("4 slice", f"LOCAL launches: {launches}; pairs per bucket (one "
+        f"launch each): {per_bucket}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the LOCAL path never launched: "
                              f"{launches}")
+    # the engine's score-only wall on the N-free copies, SCORE16 (the gate's
+    # pick) against SCORE forced, in turns (A, B, B, A) five times
+    so_eng = AlignEngine(P, score_only=True, device=dev)
+    so_walls = {"local_sw.score16": [], "local_sw.score": []}
+    for key in ("local_sw.score16", "local_sw.score", "local_sw.score",
+                "local_sw.score16") * 5:
+        zero_counts(*counts)
+        with int32_scores() if key == "local_sw.score" else (
+                contextlib.nullcontext()):
+            t0 = time.time()
+            got = so_eng.align(qs_nf, ts_nf)
+            so_walls[key].append(time.time() - t0)
+        ran = {k for k, v in cuda_align.LAUNCHES.items() if v}
+        if ran != {key} or [j.score for j in got] != [
+                j.score for j in jobs_so16]:
+            raise AssertionError(f"score-only with {key}: launched {ran}")
+    log("4 slice", "LOCAL score-only on the N-free copies, host clock over "
+        f"{n} pairs in turns: " + ", ".join(
+            f"{k.split('.')[1].upper()} min {min(v):.4f} s, median "
+            f"{float(np.median(v)):.4f} s ({' '.join(f'{x:.4f}' for x in v)})"
+            for k, v in so_walls.items()) + f", on {smi}")
     for k in range(n):
         a, b, c = jobs_tb[k], jobs_end[k], jobs_so[k]
-        if (a.score, a.query_end, a.target_end) != (
-                b.score, b.query_end, b.target_end) or a.score != c.score:
+        if any((a.score, a.query_end, a.target_end) != (
+                x.score, x.query_end, x.target_end)
+                for x in (b, jobs_end16[k])) or a.score != c.score:
             raise AssertionError(f"pair {k}: traceback, ends-only and "
                                  f"score-only runs disagree")
         if not 0 <= a.score <= 150 * P.match or (
@@ -841,9 +1121,27 @@ def main() -> int:
         if (got.score, got.query_end, got.target_end) != (
                 g["score"], g["query_end"], g["target_end"]):
             raise AssertionError(f"pair {k}: gold {g} vs engine {got}")
+    sub = range(CPU_CHECK)
+    for what, got, pp, kw, (sq, st) in (
+            ("LOCAL ends", jobs_end, P, {}, (qs, ts)),
+            ("LOCAL score-only N-free", jobs_so16, P, dict(score_only=True),
+             (qs_nf, ts_nf)),
+            ("LOCAL ends match=160", jobs_wide, PW, {}, (qs, ts))):
+        assert_jobs_equal(got, AlignEngine(pp, device="cpu", **kw).align(
+            [sq[k] for k in sub], [st[k] for k in sub]), what)
+    for k in gold_idx:
+        for got, pp, pair in ((jobs_so16[k], P, (qs_nf[k], ts_nf[k])),
+                              (jobs_wide[k], PW, (qs[k], ts[k]))):
+            g = golds.local_align(*pair, pp)
+            if got.score != g["score"] or (pp is PW and (
+                    got.query_end, got.target_end) != (g["query_end"],
+                                                        g["target_end"])):
+                raise AssertionError(f"pair {k}: gold {g} vs engine {got}")
     log("4 slice", f"LOCAL == CPU engine on {2 * CPU_CHECK} pairs (every "
-        f"field, CIGAR bytes included); == gold on {GOLD_CHECK} pairs; "
-        f"median score {np.median(scores)}; e.g. "
+        f"field, CIGAR bytes included), ends (END), N-free score-only "
+        f"(SCORE16) and match=160 ends (END) on {CPU_CHECK}; == gold on "
+        f"{GOLD_CHECK} pairs; median score {np.median(scores)}, at "
+        f"match=160 {np.median([j.score for j in jobs_wide])}; e.g. "
         f"{jobs_tb[0].cigar_string} score {jobs_tb[0].score}")
 
     # 4b. GLOBAL and SEMI_GLOBAL glocal
@@ -1061,7 +1359,53 @@ def main() -> int:
         f"read's end on {int(k_full.sum())}; BANDED median score "
         f"{np.median([j.score for j in b_end])}")
 
-    # 4e. PairHMM over GATK-shaped regions: every region's reads x haps in
+    # 4e. the `align` CLI over the same pairs, written to two FASTA files
+    # under all four header ops, as is (END) and under
+    # GENOMICS_TPU_INT16_CELLS=1 (END16): the two runs equal line for line,
+    # their first CPU_CHECK lines byte-equal to the CLI's own --device cpu
+    # run (without the switch: the int32 plain version), GOLD_CHECK pairs
+    # held to the gold
+    cli_runs = {"-y local": (False, "local_sw.end"),
+                "-y local, GENOMICS_TPU_INT16_CELLS=1": (True, "local_sw.end16")}
+    cli_lines, cli_launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        qf, tf = write_pair_fastas(tmp, qs, ts)
+        argv = ["align", "-q", qf, "-t", tf]
+        for label, (cells16, kernel) in cli_runs.items():
+            zero_counts(*counts)
+            t0 = time.time()
+            with int16_cells() if cells16 else contextlib.nullcontext():
+                lines = run_cli(argv).splitlines()
+            secs[f"align {label}"] = time.time() - t0
+            cli_launches[label] = {k: v for k, v in cuda_align.LAUNCHES.items()
+                                   if v}
+            if len(lines) != n or set(cli_launches[label]) != {kernel}:
+                raise AssertionError(f"align {label}: {len(lines)} lines, "
+                                     f"launches {cli_launches[label]}")
+            cli_lines[label] = lines
+        cpu = run_cli(argv + ["--device", "cpu", "--limit",
+                              str(CPU_CHECK)]).splitlines()
+    for label, lines in cli_lines.items():
+        if lines != cli_lines["-y local"] or cpu != lines[:CPU_CHECK]:
+            k = next((i for i, (a, b) in enumerate(zip(cpu, lines)) if a != b),
+                     None)
+            raise AssertionError(f"align {label} differs from the run without "
+                                 f"the switch or, at line {k}, from --device "
+                                 f"cpu")
+    for k in gold_idx:
+        g = golds.local_align(qs[k], ts[k], P)
+        want = f"{k}\tscore={g['score']}\tqe={g['query_end']}\tte={g['target_end']}"
+        if cli_lines["-y local"][k] != want:
+            raise AssertionError(f"align line {k}: "
+                                 f"{cli_lines['-y local'][k]!r} vs gold {want!r}")
+    log("4 slice", f"align CLI over {n} pairs in two FASTA files (header "
+        f"ops {' '.join(HEADER_OPS)}), launches {cli_launches}; the runs "
+        f"equal, == --device cpu byte for byte on {CPU_CHECK} lines, == gold "
+        f"on {GOLD_CHECK}; host clock " + ", ".join(
+            f"{label} {secs['align ' + label]:.3f} s" for label in cli_runs)
+        + f", on {smi}")
+
+    # 4f. PairHMM over GATK-shaped regions: every region's reads x haps in
     # one compute_region_likelihoods call (the inter-task kernel), both
     # exact modes; then assembly-style candidate scoring (one region's
     # reads x haps at a time, models/assembly.py:176-190) through the
@@ -1124,7 +1468,7 @@ def main() -> int:
         f"compute_likelihoods' own seconds {ph_res.seconds:.3f} "
         f"({ph_res.gcups:.2f} GCUPS), on {smi}")
 
-    # 4f. the mapper's `ed` stage: 65,536 150 bp reads (W = 5) against the
+    # 4g. the mapper's `ed` stage: 65,536 150 bp reads (W = 5) against the
     # 200 bp windows they were cut from, through edit_distance_semiglobal
     reads_ed, wins = ed_pairs(np.random.default_rng(args.seed + 5), ED_PAIRS)
     zero_counts(*counts, cuda_pairhmm.LAUNCHES, myers.LAUNCHES)
@@ -1186,10 +1530,21 @@ def main() -> int:
         "tb_walk.semiglobal": (s_res.tb, s_res.score, sj0, si0, PS,
                                "semiglobal"),
     }
-    ms = {
-        "local_sw.score": cuda_ms(
-            lambda: cuda_align.local_align_scores_tm(Q, T, P, has_n=False), 20),
-        "local_sw.end": cuda_ms(lambda: cuda_align.local_align(q, t, P), 10),
+    # local_sw's score and end modes as launches alone (the score modes on
+    # the inputs with the pads already remapped), int32 and 16-bit in
+    # turns: A, B, B, A, each the mean of its two readings
+    Qs, Ts = cuda_align._pads_to_sentinels(Q, 16), cuda_align._pads_to_sentinels(T, 17)
+    modes = {"local_sw.score": lambda: cuda_align._launch("score", Qs, Ts, P, False),
+             "local_sw.score16": lambda: cuda_align._launch("score16", Qs, Ts, P,
+                                                            False),
+             "local_sw.end": lambda: cuda_align._launch("end", Q, T, P, True),
+             "local_sw.end16": lambda: cuda_align._launch("end16", Q, T, P, True)}
+    ms = {k: 0.0 for k in modes}
+    for a, b in (("local_sw.score", "local_sw.score16"),
+                 ("local_sw.end", "local_sw.end16")):
+        for k in (a, b, b, a):
+            ms[k] += cuda_ms(modes[k], 20) / 2
+    ms |= {
         "local_sw.tb": cuda_ms(
             lambda: cuda_align.local_align(q, t, P, with_tb=True), 5),
         "global_sw.score": cuda_ms(
@@ -1209,6 +1564,9 @@ def main() -> int:
     plain_ms = {
         "local_sw.score": cuda_ms(lambda: local_align_batch(Q.T, T.T, P), 2),
         "local_sw.end": cuda_ms(lambda: local_align_batch(q, t, P), 2),
+        "local_sw.score16": cuda_ms(
+            lambda: local_align_batch16(Qs.T, Ts.T, P, ends=False), 2),
+        "local_sw.end16": cuda_ms(lambda: local_align_batch16(q, t, P), 2),
         "local_sw.tb": cuda_ms(
             lambda: local_align_batch(q, t, P, with_tb=True), 1),
         "global_sw.score": cuda_ms(
@@ -1255,6 +1613,10 @@ def main() -> int:
         plain_ms[k] = cuda_ms(lambda plain=plain, a=a, kw=kw: plain(*a, **kw),
                               1)
         err[k] = max(err[k], max_abs_err(kern(*a, **kw), plain(*a, **kw)))
+    plain16 = local_align_batch16(q, t, P)
+    for k in modes:
+        want = plain16[:1] if "score" in k else plain16[:3]
+        err[k] = max(err[k], max_abs_err(modes[k]()[:len(want)], want))
     if any(err.values()):
         raise AssertionError(f"kernels disagree with their plain versions "
                              f"at the timing shape: {err}")
@@ -1277,6 +1639,8 @@ def main() -> int:
     work = {   # name: (cells or steps, bytes)
         "local_sw.score": (cells, seqs + pp),
         "local_sw.end": (cells, seqs + 3 * pp),
+        "local_sw.score16": (cells, seqs + pp),
+        "local_sw.end16": (cells, seqs + 3 * pp),
         "local_sw.tb": (cells, seqs + 3 * pp + cube),
         "global_sw.score": (cells, seqs + 3 * pp),
         "global_sw.tb": (cells, seqs + 3 * pp + cube),
@@ -1299,6 +1663,13 @@ def main() -> int:
         f"{HBM_BYTES_PER_S / 1e12} TB/s")
     bounds = {k: bound(OPS_PER_CELL[k] * u, nb, peak)
               for k, (u, nb) in work.items()}
+
+    def per_cell(k):
+        if k.endswith("16"):
+            return (f"{OPS_PER_CELL[k]} lane-op per cell: "
+                    f"{12 if 'score' in k else 15} op, two cells to a packed "
+                    "lane-op")
+        return f"{OPS_PER_CELL[k]} op per {'step' if k in steps else 'cell'}"
     for k in ms:
         if k in steps:
             rate = f"{steps[k] / ms[k] / 1e6:.3f} G steps/s"
@@ -1313,9 +1684,45 @@ def main() -> int:
             rate = f"{cells / ms[k] / 1e6:.2f} GCUPS"
         log("5 timings", f"{k}: kernel {ms[k]:.4f} ms ({rate}), plain "
             f"{plain_ms[k]:.2f} ms, bound {bounds[k][0]:.4f} ms by "
-            f"{bounds[k][1]} ({OPS_PER_CELL[k]} op per "
-            f"{'step' if k in steps else 'cell'}, {work[k][1]} bytes), "
+            f"{bounds[k][1]} ({per_cell(k)}, {work[k][1]} bytes), "
             f"B={BENCH_B} {BENCH_L}x{BENCH_L}, on {smi}")
+    # the four score / end modes over launch sizes at the engine's 216 x 328
+    # bucket (the align CLI's 5,000-pair chunks, test_prog's
+    # STREAM_BATCH_SIZE, give it about 4,150 pairs), then at the engine's
+    # own launches over the 20,000 pairs of phase 4; launches alone, in
+    # turns (A, B, B, A).  SCORE16 may be the scores' default only if it is
+    # nowhere slower than SCORE here
+    sw_rng = np.random.default_rng(args.seed + 7)
+    sweep = {}
+    engine_shapes = sorted((c, lq, lt) for (lq, lt), c in per_bucket.items())
+    for shape in [(Bs, 216, 328) for Bs in SWEEP_B] + engine_shapes:
+        qn, tn, _, _ = random_codes(sw_rng, *shape, 0.0)
+        Qc, Tc = (torch.from_numpy(x.T.copy()).to(dev) for x in (qn, tn))
+        Qcs, Tcs = (cuda_align._pads_to_sentinels(x, c)
+                    for x, c in ((Qc, 16), (Tc, 17)))
+        got = sweep[shape] = dict.fromkeys(("score", "score16", "end",
+                                            "end16"), 0.0)
+        for m in ("score", "score16", "score16", "score", "end", "end16",
+                  "end16", "end"):
+            a, b = (Qcs, Tcs) if "score" in m else (Qc, Tc)
+            got[m] += cuda_ms(lambda m=m, a=a, b=b: cuda_align._launch(
+                m, a, b, P, "score" not in m), 5) / 2
+        log("5 timings", f"local_sw at B={shape[0]} {shape[1]}x{shape[2]}"
+            f"{' (an engine launch)' if shape in engine_shapes else ''} "
+            "(launches alone, in turns): " + ", ".join(
+                f"{m} {v:.4f} ms" for m, v in got.items())
+            + f"; END16 / END {got['end16'] / got['end']:.3f}, SCORE16 / "
+            f"SCORE {got['score16'] / got['score']:.3f}, on {smi}")
+    ratio16 = {s_: v["score16"] / v["score"] for s_, v in sweep.items()}
+    slower = {s_[0]: round(r, 3) for s_, r in ratio16.items() if r > 1.0}
+    faster16 = [Bs for Bs in SWEEP_B if all(
+        sweep[b, 216, 328]["end16"] < sweep[b, 216, 328]["end"]
+        for b in SWEEP_B if b >= Bs)]
+    log("5 timings", f"SCORE16 / SCORE over the sweep and the engine's "
+        f"launches: {min(ratio16.values()):.3f}-{max(ratio16.values()):.3f}; "
+        f"SCORE16 slower at {slower or 'no size'}; END16 faster than END "
+        f"from B={faster16[0] if faster16 else None} of the sweep on, on "
+        f"{smi}")
     log("5 timings", "engine, " + "; ".join(
         f"{k} {v:.3f} s ({n / v:.0f} pairs/s)" for k, v in secs.items())
         + f", {n} pairs, host clock, on {smi}")
@@ -1425,6 +1832,10 @@ def main() -> int:
         ("tb_walk.semiglobal", "tb_walk.cu", "native/cigar.cpp:32"),
         ("local_sw.second", "local_sw.cu",
          "genomics_tpu/ops/pallas_align.py:321"),
+        ("local_sw.score16", "local_sw.cu",
+         "genomics_tpu/ops/pallas_align.py:557"),
+        ("local_sw.end16", "local_sw.cu",
+         "genomics_tpu/ops/pallas_align.py:636"),
         ("local_start", "local_start.cu",
          "genomics_tpu/ops/pallas_align.py:1515"),
         ("semiglobal_start", "semiglobal_start.cu",

@@ -3,15 +3,18 @@
 The JAX package `genomics_tpu` stays the reference; this package gives
 the same results on an NVIDIA Hopper card and never imports JAX.  So far
 it ports `AlignEngine` (all five GASAL2 algorithms: bucketing, the DP
-kernels, the traceback walk and the byte-CIGARs), the PairHMM
-likelihoods and Myers edit distance.
+kernels, the traceback walk and the byte-CIGARs) with the GASAL2 facade
+over it (`models.aligner`, the CLI's `align`), the PairHMM likelihoods
+and Myers edit distance.
 
 Layer map (the JAX package's names):
-  core/      encoding, scoring parameters, the pure-Python golds
+  core/      encoding, scoring parameters, batch containers, the
+             pure-Python golds
   ops/       plain PyTorch versions and the wrappers of the CUDA kernels
   csrc/      the hand-written CUDA kernels, built at first use (_build.py)
   runtime/   bucketed batched dispatch
-  models/    the PairHMM engine
+  models/    the GASAL2 facade and the PairHMM engine
+  utils/     FASTA / FASTQ IO
   device.py  the device policy: the card unless told, no CPU fallback
 """
 
@@ -20,4 +23,5 @@ from genomics_tpu_torch.core.scoring import (  # noqa: F401
     AlgoType,
     SemiGlobalSkip,
 )
+from genomics_tpu_torch.core.batch import PairBatch, SeqBatch  # noqa: F401
 from genomics_tpu_torch.runtime.dispatch import AlignEngine, AlignmentJob  # noqa: F401

@@ -13,6 +13,11 @@
 //   mode SECOND _local_kernel_intertask_second (:321): END + GASAL2's
 //               inline second best (score2, qend2, tend2), through its own
 //               entry point local_sw_second_launch (it reads the lengths).
+//   mode SCORE16 _local_kernel_intertask_score16 (:557): SCORE with every
+//               DP quantity in signed 16 bits, no N compare (the has_n=False
+//               contract: the wrapper has remapped the pads to 16/17).
+//   mode END16  _local_kernel_intertask16 (:636): END (N-aware) with every
+//               DP quantity in signed 16 bits; the ends stay int32.
 // The TPU's lanes / inter-task split exists for its vector layout only;
 // here one kernel serves every batch size.
 //
@@ -40,8 +45,28 @@
 // END, 25 in TB, 20 in SECOND) plus, in TB, the nibble-cube writes (4
 // bytes per 8 cells, the only device-memory traffic that grows with the
 // cell count besides the gH/gE carry).  This first design is the simple
-// one: DPX __vimax3_s32, packed 16-bit cells and shared-memory carries are
-// left to later work.
+// one: DPX __vimax3_s32 and shared-memory carries are left to later work.
+//
+// SCORE16 / END16 (local_sw16_kernel) run one thread per two adjacent
+// pairs (2k, 2k+1): H, E, f, diag and best of both pairs sit packed as
+// s16x2 in one 32-bit register, so each SIMD or DPX instruction does two
+// cells' work, and the gH/gE carry is a [Lq, ceil(B/2)] packed scratch,
+// half the int32 modes' bytes.  Bound: the work of SCORE and END, 12 and
+// 15 operations per cell, at two cells to a packed lane-operation: 6 per
+// cell in SCORE16; in END16 13 packed (all but the qend and tend selects)
+// and those two in int32 per pair, 8.5.  The substitution takes 4
+// instructions here (xor, min.u16x2 to 0 / 1 per half, one multiply,
+// add.s16x2), since __vcmpeq2 is a sequence on sm_90.  END16 replaces the
+// best only where h is strictly greater (__vibmax_s16x2's predicates), so
+// the earliest cell in strip order keeps it, as the JAX kernel's key
+// ((ib * Lq + j) * 8 + c) does.  The packed adds wrap: the results are
+// right only in range, which the wrapper checks (match * Lq against the
+// JAX gates, and the gap and mismatch terms); there every value equals
+// the int32 modes' bit for bit: h >= 0 and tmp >= -mismatch (or the N
+// score), so f and e floor at -(mismatch + goe + ge).  An odd B's last
+// thread pairs its pair with a dummy of codes 16 / 17 (all mismatches,
+// score 0) whose outputs are not written.  A simple packed kernel first:
+// tuning is later work (PERF.md section 6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,7 +75,7 @@ namespace {
 
 constexpr int kN4 = 14;  // 4-bit code of N (and of padding)
 constexpr int kThreads = 128;
-enum Mode { SCORE = 0, END = 1, TB = 2, SECOND = 3 };
+enum Mode { SCORE = 0, END = 1, TB = 2, SECOND = 3, SCORE16 = 4, END16 = 5 };
 
 template <int MODE, bool WITH_N>
 __global__ void __launch_bounds__(kThreads)
@@ -152,9 +177,162 @@ local_sw_kernel(const uint8_t* __restrict__ Q,  // [Lq, B]
   }
 }
 
+__device__ __forceinline__ uint32_t pack2(int x) {
+  return (static_cast<uint32_t>(x) & 0xFFFFu) * 0x10001u;
+}
+
+// Packed 16-bit PTX instructions, one SASS instruction each on sm_90
+// (VIADD.16x2, VIMNMX.S16x2 / .U16x2); the substitution is built from
+// them because __vcmpeq2 compiles to a sequence there (it is used only
+// for the N masks, once per column and strip).
+__device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("add.s16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t max2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("max.s16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t minu2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("min.u16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ int lo16(uint32_t x) {
+  return static_cast<int16_t>(x & 0xFFFFu);
+}
+
+__device__ __forceinline__ int hi16(uint32_t x) {
+  return static_cast<int16_t>(x >> 16);
+}
+
+// SCORE16 (ENDS = false) and END16 (ENDS = true): the SCORE / END walk
+// above on two pairs at once, every DP quantity packed s16x2 (low half
+// pair 2k, high half pair 2k+1).
+template <bool ENDS>
+__global__ void __launch_bounds__(kThreads)
+local_sw16_kernel(const uint8_t* __restrict__ Q,  // [Lq, B]
+                  const uint8_t* __restrict__ T,  // [Lt, B]
+                  int B, int Lq, int Lt, int match, int mismatch, int n_score,
+                  int goe, int ge,
+                  uint32_t* __restrict__ gH,      // [Lq, ceil(B/2)] scratch
+                  uint32_t* __restrict__ gE,      // [Lq, ceil(B/2)] scratch
+                  int* __restrict__ out_score,    // [B]
+                  int* __restrict__ out_qend,     // [B] (END16)
+                  int* __restrict__ out_tend)     // [B] (END16)
+{
+  const int P = (B + 1) >> 1;
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= P) return;
+  const int b = 2 * k;
+  const bool two = b + 1 < B;
+  const size_t sB = static_cast<size_t>(B), sP = static_cast<size_t>(P);
+  // sub = match2 + ne * (-(match + mismatch)) per half, ne = 0 / 1: each
+  // half's product fits in 16 bits, so one 32-bit multiply does both
+  const uint32_t match2 = pack2(match);
+  const uint32_t miss = static_cast<uint32_t>(-(match + mismatch)) & 0xFFFFu;
+  const uint32_t nsc2 = pack2(n_score), n42 = pack2(kN4);
+  const uint32_t ngoe2 = pack2(-goe), nge2 = pack2(-ge);
+  // the f chains start each strip at the TPU kernels' int16 -inf, -4096
+  // (pallas_align.py:588, :653); any seed <= 0 gives the same H
+  const uint32_t nbig2 = pack2(-4096);
+  uint32_t best = 0;
+  int qend0 = 0, tend0 = 0, qend1 = 0, tend1 = 0;
+  // column j's codes of both pairs and its carry
+  auto load = [&](int j, int s, uint32_t& qc, uint32_t& hcol, uint32_t& e) {
+    const uint8_t* col = Q + static_cast<size_t>(j) * sB + b;
+    qc = col[0] | static_cast<uint32_t>(two ? col[1] : 16) << 16;
+    const size_t at = static_cast<size_t>(j) * sP + k;
+    hcol = s ? gH[at] : 0;
+    e = s ? gE[at] : 0;
+  };
+  const int n_strips = Lt >> 3;
+  for (int s = 0; s < n_strips; ++s) {
+    uint32_t tc[8], tn[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const uint8_t* row = T + static_cast<size_t>(s * 8 + c) * sB + b;
+      tc[c] = row[0] | static_cast<uint32_t>(two ? row[1] : 17) << 16;
+      tn[c] = ENDS ? __vcmpeq2(tc[c], n42) : 0;
+    }
+    uint32_t hp[8], f[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      hp[c] = 0;
+      f[c] = nbig2;
+    }
+    uint32_t diag0 = 0;
+    // With half the int32 modes' threads, a warp that waits for its
+    // column's loads finds few others to run: the next two columns' loads
+    // are in flight while this one computes.
+    uint32_t qc1, hcol1, e1, qc2, hcol2, e2;
+    load(0, s, qc1, hcol1, e1);
+    load(min(1, Lq - 1), s, qc2, hcol2, e2);
+    for (int j = 0; j < Lq; ++j) {
+      const uint32_t qc = qc1, hcol = hcol1;
+      uint32_t e = e1;
+      qc1 = qc2;
+      hcol1 = hcol2;
+      e1 = e2;
+      load(min(j + 2, Lq - 1), s, qc2, hcol2, e2);
+      const uint32_t qn = ENDS ? __vcmpeq2(qc, n42) : 0;
+      const size_t at = static_cast<size_t>(j) * sP + k;
+      uint32_t diag = diag0;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const uint32_t ne = minu2(qc ^ tc[c], 0x00010001u);
+        uint32_t sub = add2(match2, ne * miss);
+        if (ENDS) {
+          const uint32_t nm = qn | tn[c];
+          sub = (sub & ~nm) | (nsc2 & nm);
+        }
+        const uint32_t tmp = add2(diag, sub);
+        const uint32_t h = __vimax3_s16x2_relu(tmp, f[c], e);
+        if (ENDS) {
+          bool keep_hi, keep_lo;  // best >= h: a tie keeps the earlier cell
+          best = __vibmax_s16x2(best, h, &keep_hi, &keep_lo);
+          qend0 = keep_lo ? qend0 : j;
+          tend0 = keep_lo ? tend0 : s * 8 + c;
+          qend1 = keep_hi ? qend1 : j;
+          tend1 = keep_hi ? tend1 : s * 8 + c;
+        } else {
+          best = max2(best, h);
+        }
+        const uint32_t tmpg = add2(tmp, ngoe2);
+        f[c] = __viaddmax_s16x2(f[c], nge2, tmpg);
+        e = __viaddmax_s16x2(e, nge2, tmpg);
+        diag = hp[c];
+        hp[c] = h;
+      }
+      diag0 = hcol;
+      gH[at] = hp[7];
+      gE[at] = e;
+    }
+  }
+  out_score[b] = lo16(best);
+  if (ENDS) {
+    out_qend[b] = qend0;
+    out_tend[b] = tend0;
+  }
+  if (two) {
+    out_score[b + 1] = hi16(best);
+    if (ENDS) {
+      out_qend[b + 1] = qend1;
+      out_tend[b + 1] = tend1;
+    }
+  }
+}
+
 }  // namespace
 
-// mode: 0 SCORE, 1 END, 2 TB.  with_n = 0 is taken in SCORE mode only.
+// mode: 0 SCORE, 1 END, 2 TB, 4 SCORE16, 5 END16.  SCORE takes with_n 0
+// or 1, SCORE16 only 0, the others only 1.  The 16-bit modes' gH/gE are
+// [Lq, ceil(B/2)] 32-bit words (one thread per two pairs).
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 extern "C" int local_sw_launch(int mode, int with_n, const void* Q, const void* T,
                                int B, int Lq, int Lt, int match, int mismatch,
@@ -162,6 +340,7 @@ extern "C" int local_sw_launch(int mode, int with_n, const void* Q, const void* 
                                void* score, void* qend, void* tend, void* tb,
                                void* stream) {
   const dim3 grid((B + kThreads - 1) / kThreads), block(kThreads);
+  const dim3 grid16((B + 2 * kThreads - 1) / (2 * kThreads));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto q = static_cast<const uint8_t*>(Q);
   auto t = static_cast<const uint8_t*>(T);
@@ -183,6 +362,14 @@ extern "C" int local_sw_launch(int mode, int with_n, const void* Q, const void* 
     local_sw_kernel<END, true><<<grid, block, 0, st>>>(
         q, t, B, Lq, Lt, match, mismatch, n_score, goe, ge, h, e, s, qe, te, w,
         nullptr, nullptr, nullptr, nullptr, nullptr);
+  } else if (mode == SCORE16 && !with_n) {
+    local_sw16_kernel<false><<<grid16, block, 0, st>>>(
+        q, t, B, Lq, Lt, match, mismatch, n_score, goe, ge,
+        static_cast<uint32_t*>(gH), static_cast<uint32_t*>(gE), s, qe, te);
+  } else if (mode == END16 && with_n) {
+    local_sw16_kernel<true><<<grid16, block, 0, st>>>(
+        q, t, B, Lq, Lt, match, mismatch, n_score, goe, ge,
+        static_cast<uint32_t*>(gH), static_cast<uint32_t*>(gE), s, qe, te);
   } else if (mode == TB && with_n) {
     local_sw_kernel<TB, true><<<grid, block, 0, st>>>(
         q, t, B, Lq, Lt, match, mismatch, n_score, goe, ge, h, e, s, qe, te, w,

@@ -19,6 +19,8 @@ replace these Pallas kernels:
   local_sw.tb          `_local_kernel_intertask_tb` (pallas_align.py:717)
                        and `_local_kernel` (:116) with traceback
   local_sw.second      `_local_kernel_intertask_second` (pallas_align.py:321)
+  local_sw.score16     `_local_kernel_intertask_score16` (pallas_align.py:557)
+  local_sw.end16       `_local_kernel_intertask16` (pallas_align.py:636)
   local_start          `_local_start_kernel` (pallas_align.py:1515)
   global_sw.score      `_global_kernel_intertask` (pallas_gs.py:65)
   global_sw.tb         `_global_kernel` (pallas_align.py:1201) with traceback
@@ -32,10 +34,16 @@ replace these Pallas kernels:
   banded_sw.end        `_banded_kernel_intertask` (pallas_ksw.py:453) and
                        the lanes kernel `_banded_kernel` (:392)
   banded_sw.score      `_banded_kernel_intertask` score-only (:453, :559)
+
+LOCAL scores of N-free batches take the packed-16-bit mode wherever every
+DP value fits in int16, and LOCAL ends take it only under
+GENOMICS_TPU_INT16_CELLS=1, as in the JAX package (`local_mode`).  A
+failed launch raises like any other.
 """
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -50,24 +58,30 @@ from genomics_tpu_torch.ops.scan_align import (
     global_align_batch,
     ksw_align_batch,
     local_align_batch,
+    local_align_batch16,
     semiglobal_align_batch,
 )
 from genomics_tpu_torch.ops.scan_align_full import SecondResult
 
 # Kernel launches per kernel mode; a wrapper adds one where it launches.
 LAUNCHES = {"local_sw.score": 0, "local_sw.end": 0, "local_sw.tb": 0,
-            "local_sw.second": 0, "local_start": 0,
+            "local_sw.second": 0, "local_sw.score16": 0, "local_sw.end16": 0,
+            "local_start": 0,
             "global_sw.score": 0, "global_sw.tb": 0,
             "semiglobal_sw.end": 0, "semiglobal_sw.tb": 0,
             "semiglobal_start": 0, "ksw.end": 0, "ksw.score": 0,
             "banded_sw.end": 0, "banded_sw.score": 0}
-_LOCAL_MODES = {"score": 0, "end": 1, "tb": 2}
+_LOCAL_MODES = {"score": 0, "end": 1, "tb": 2, "score16": 4, "end16": 5}
+# The JAX package's range checks on the best score, match x Lq < limit:
+# the ends' (pallas_align.py:904) and the scores' (:1098).
+END16_LIMIT = (1 << 15) - 1
+SCORE16_LIMIT = (1 << 15) - 64
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # argument types of each exported entry point, by (library, entry)
 _SIGNATURES = {
     # mode, with_n, Q, T, B, Lq, Lt, match, mismatch, n_score, goe, ge,
-    # gH, gE, score, qend, tend, tb, stream
+    # gH, gE, score, qend, tend, tb, stream (every mode of _LOCAL_MODES)
     ("local_sw", "local_sw_launch"):
         (_ci, _ci, _vp, _vp) + (_ci,) * 8 + (_vp,) * 7,
     # Q, T, qlen, tlen, B, Lq, Lt, match, mismatch, n_score, goe, ge, gH,
@@ -128,7 +142,7 @@ def _outputs(name: str, mode: str, Q: torch.Tensor, T: torch.Tensor,
     """Allocate a launch's outputs and scratch on Q's device.  Returns
     (score, qend, tend, tb, gH, gE); qend/tend are None without `ends`
     and tb is the sqb cube [Lt//8, Lq, B] in tb mode."""
-    gH, gE = _carry(name, Q, T)
+    gH, gE = _carry(name, Q, T, packed=mode.endswith("16"))
     Lq, B = Q.shape
     score, qend, tend = _per_pair(3, Q)
     tb = (torch.empty((T.shape[0] // 8, Lq, B), dtype=torch.int32,
@@ -136,12 +150,15 @@ def _outputs(name: str, mode: str, Q: torch.Tensor, T: torch.Tensor,
     return score, (qend if ends else None), (tend if ends else None), tb, gH, gE
 
 
-def _carry(name: str, Q: torch.Tensor, T: torch.Tensor):
+def _carry(name: str, Q: torch.Tensor, T: torch.Tensor, packed=False):
     """The per-column H/E carry between strips (GASAL2's global[] array):
-    two [Lq, B] int32 scratch tensors on Q's device."""
+    two [Lq, B] int32 scratch tensors on Q's device, or [Lq, ceil(B/2)]
+    when `packed` (two pairs' int16 values per word)."""
     if T.shape[0] % 8:
         raise ValueError(f"{name} walks 8-row target strips; Lt={T.shape[0]}")
-    return [torch.empty(Q.shape, dtype=torch.int32, device=Q.device)
+    Lq, B = Q.shape
+    shape = (Lq, (B + 1) // 2) if packed else (Lq, B)
+    return [torch.empty(shape, dtype=torch.int32, device=Q.device)
             for _ in range(2)]
 
 
@@ -176,15 +193,46 @@ def _skip_flags(head_q: bool, head_t: bool, tail_q: bool, tail_t: bool):
     return int(head_q) | int(head_t) << 1 | int(tail_q) << 2 | int(tail_t) << 3
 
 
+def int16_fits(Lq: int, params: AlignmentParams, limit: int) -> bool:
+    """Every DP value of a LOCAL run over queries padded to Lq fits in
+    int16.  The JAX package checks match x Lq < limit; here the N score
+    counts as a substitution score there too, and two more terms must fit
+    (ROADMAP C13): the kernels' -(match + mismatch) and the gap chains'
+    floor, -(the worst substitution + gap_oe + gap_extend)."""
+    n_score = _n_score(params)
+    top = max(params.match, n_score) * Lq
+    floor = max(params.mismatch, -n_score) + params.gap_oe + params.gap_extend
+    return (top < limit and floor <= (1 << 15) - 1
+            and params.match + params.mismatch <= (1 << 15) - 1)
+
+
+def local_mode(ends: bool, Lq: int, params: AlignmentParams,
+               has_n: bool = True) -> str:
+    """The local_sw mode of a LOCAL launch without traceback over queries
+    padded to Lq.  Ends: "end16" under GENOMICS_TPU_INT16_CELLS=1 (the
+    JAX package's switch, read at each call) when every value fits in
+    int16, else "end".  Scores: "score16" for an N-free batch when every
+    value fits, else "score"; the JAX package asks for
+    GENOMICS_TPU_INT16_SCORE=1 as well, which this port does not: the
+    results are the same, and on an H100 SCORE16 took 0.36-0.91 of SCORE's
+    time at every launch size from 1,024 to 65,536 pairs (chip_smoke.py
+    phase 5, PERF.md section 6)."""
+    if ends:
+        on = os.environ.get("GENOMICS_TPU_INT16_CELLS") == "1"
+        return "end16" if on and int16_fits(Lq, params, END16_LIMIT) else "end"
+    return ("score16" if not has_n and int16_fits(Lq, params, SCORE16_LIMIT)
+            else "score")
+
+
 def _launch(mode: str, Q: torch.Tensor, T: torch.Tensor,
             params: AlignmentParams, with_n: bool):
     """Run local_sw in `mode` on time-major Q [Lq, B], T [Lt, B] uint8.
-    Returns (score, qend, tend, tb); qend/tend are None in score mode and
-    tb is the sqb cube [Lt//8, Lq, B] in tb mode."""
+    Returns (score, qend, tend, tb); qend/tend are None in the score modes
+    and tb is the sqb cube [Lt//8, Lq, B] in tb mode."""
     Q, T = Q.contiguous(), T.contiguous()
     Lq, B = Q.shape
-    score, qend, tend, tb, gH, gE = _outputs("local_sw", mode, Q, T,
-                                             mode != "score")
+    score, qend, tend, tb, gH, gE = _outputs(
+        "local_sw", mode, Q, T, not mode.startswith("score"))
     if B:
         _call(f"local_sw.{mode}", Q.device, _LOCAL_MODES[mode], int(with_n),
               Q.data_ptr(), T.data_ptr(), B, Lq, T.shape[0], params.match,
@@ -208,11 +256,13 @@ def local_align(
     _check_codes(q, t, 0)
     if tb_layout not in ("sqb", "bsq"):
         raise ValueError(f"tb_layout must be 'sqb' or 'bsq'; got {tb_layout!r}")
-    if on_cpu(q):
+    mode = "tb" if with_tb else local_mode(True, q.shape[1], params)
+    if on_cpu(q) and mode == "end16":
+        res = local_align_batch16(q, t, params)
+    elif on_cpu(q):
         res = local_align_batch(q, t, params, with_tb=with_tb)
     else:
-        res = AlignResult(*_launch("tb" if with_tb else "end", q.T, t.T,
-                                   params, True))
+        res = AlignResult(*_launch(mode, q.T, t.T, params, True))
     if with_tb and tb_layout == "bsq":
         res = res._replace(tb=res.tb.permute(2, 0, 1).contiguous())
     return res
@@ -408,9 +458,12 @@ def local_align_scores_tm(
     the TPU kernel; the kernel reads it without a transpose."""
     _check_codes(Q, T, 1)
     Q, T, with_n = _no_n_inputs(Q, T, has_n)
+    mode = local_mode(False, Q.shape[0], params, with_n)
+    if on_cpu(Q) and mode == "score16":
+        return local_align_batch16(Q.T, T.T, params, ends=False).score
     if on_cpu(Q):
         return local_align_batch(Q.T, T.T, params).score
-    return _launch("score", Q, T, params, with_n)[0]
+    return _launch(mode, Q, T, params, with_n)[0]
 
 
 def _no_n_inputs(q, t, has_n: bool | None):

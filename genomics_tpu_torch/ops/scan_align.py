@@ -20,6 +20,10 @@ GLOBAL and SEMI_GLOBAL read their lengths instead.
 Traceback nibbles (dir | e_ext << 2 | f_ext << 3) come packed into the
 kernels' sqb layout [Lt/8, Lq, B], 8 target rows per int32.
 
+`local_align_batch16` is the plain version of the packed-16-bit LOCAL
+modes (`pallas_align.py:557, :636`): the same recurrence on int16
+tensors, swept by anti-diagonals.
+
 Runs on whatever device its tensors are on; `ops.cuda_align` calls it
 for CPU tensors and `chip_smoke.py` times it on the card.
 """
@@ -34,6 +38,7 @@ from genomics_tpu_torch.core.scoring import AlignmentParams, SemiGlobalSkip
 
 MINUS_INF = -32768
 NEG_BIG = -(1 << 28)  # safe -inf for scans (no underflow)
+NEG16 = -(1 << 12)    # the int16 paths' -inf (the TPU kernels' nbig)
 _KEY_MAX = (1 << 31) - 1
 
 
@@ -157,6 +162,80 @@ def local_align_batch(
     qend = torch.where(zero, 0, cell % Lq)
     tend = torch.where(zero, 0, (cell // Lq) * 8 + (bkey & 7))
     return AlignResult(best, qend, tend, tb)
+
+
+def local_align_batch16(
+    q: torch.Tensor,   # [B, Lq] uint8 codes, N4-padded
+    t: torch.Tensor,   # [B, Lt] uint8 codes, N4-padded
+    params: AlignmentParams,
+    ends: bool = True,
+) -> AlignResult:
+    """The plain version of the SCORE16 / END16 kernels: LOCAL score (and,
+    with `ends`, its end positions) with every DP quantity an int16.
+
+    The caller checks the range (`cuda_align.local_mode`): in it, every
+    value equals `local_align_batch`'s.  The recurrence is the kernels'
+    (f(i, 0) = -4096, the TPU kernels' int16 -inf, e(0, j) = 0, tmp-based
+    gap opens, floor at 0), swept
+    one anti-diagonal at a time so that no prefix-scan offset can leave
+    the int16 range: rows are the vector axis and row i holds cell
+    (i, d - i).  Cells off the matrix hold H = 0 (the boundary) and take
+    part in no maximum (NEG16).  Without `ends` there is no N compare:
+    that is the has_n=False contract, under which the caller has remapped
+    the padding to the 16/17 sentinels.  Ends are int32 and follow the
+    strip visit order, as `local_align_batch`'s do."""
+    _check_batch(q, t, False)
+    B, Lq = q.shape
+    Lt = t.shape[1]
+    dev = q.device
+    i16 = torch.int16
+    goe, ge = params.gap_oe, params.gap_extend
+    n_score = -params.n_penalty if params.n_penalty is not None else 0
+    # qrev[:, Lt + Lq - 1 - d + i] is query column d - i, or padding
+    pad = torch.full((B, Lt), N4, dtype=torch.uint8, device=dev)
+    qrev = torch.cat([pad, q.flip(1), pad], dim=1)
+    t_is_n = t == N4
+    rows = torch.arange(Lt, device=dev)
+    row_key = (rows >> 3) * Lq * 8 + (rows & 7)
+    zrow = torch.zeros((B, 1), dtype=i16, device=dev)
+    zero = torch.zeros((B, Lt), dtype=i16, device=dev)
+    H1, H2, T1, F1, E1 = zero, zero, zero, zero, zero  # diagonals d-1, d-2
+    best = torch.zeros(B, dtype=i16, device=dev)
+    bkey = torch.full((B,), _KEY_MAX, dtype=torch.int32, device=dev)
+    for d in range(Lq + Lt - 1):
+        j = d - rows
+        on = (j >= 0) & (j < Lq)
+        qc = qrev[:, Lt + Lq - 1 - d:2 * Lt + Lq - 1 - d]
+        sub = torch.where(qc == t, params.match, -params.mismatch).to(i16)
+        if ends:
+            sub = sub.masked_fill((qc == N4) | t_is_n, n_score)
+        # H(i-1, j-1) from diagonal d-2; row -1 and column -1 hold 0
+        tmp = torch.cat([zrow, H2[:, :-1]], dim=1) + sub
+        f = torch.where(j == 0, NEG16, torch.maximum(T1 - goe, F1 - ge))
+        e = torch.maximum(torch.cat([zrow, T1[:, :-1]], dim=1) - goe,
+                          torch.cat([zrow, E1[:, :-1]], dim=1) - ge)
+        e = torch.where(rows == 0, 0, e)
+        h = torch.maximum(torch.maximum(tmp, f), e.clamp_min(0))
+        h = torch.where(on, h, NEG16)
+        rh = h.amax(dim=1)
+        if ends:
+            key = torch.where(h == rh[:, None], row_key + j * 8, _KEY_MAX)
+            rkey = key.to(torch.int32).amin(dim=1)
+            take = (rh > best) | ((rh == best) & (rkey < bkey))
+            best = torch.where(take, rh, best)
+            bkey = torch.where(take, rkey, bkey)
+        else:
+            best = torch.maximum(best, rh)
+        H2, H1 = H1, h.clamp_min(0)
+        T1, F1, E1 = tmp, f, e
+    best = best.to(torch.int32)
+    if not ends:
+        return AlignResult(best, None, None)
+    cell = bkey >> 3
+    zero_best = best == 0
+    qend = torch.where(zero_best, 0, cell % Lq)
+    tend = torch.where(zero_best, 0, (cell // Lq) * 8 + (bkey & 7))
+    return AlignResult(best, qend, tend)
 
 
 def global_align_batch(

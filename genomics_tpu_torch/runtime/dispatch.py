@@ -293,13 +293,16 @@ class AlignEngine:
                 qlen = np.empty(len(chunk), np.int32)
                 tlen = np.empty(len(chunk), np.int32)
                 hb = h0[chunk]
-                has_n = False
                 for k, i in enumerate(chunk):
                     qlen[k] = len(enc_q[i])
                     tlen[k] = len(enc_t[i])
                     qb[k, :qlen[k]] = enc_q[i]
                     tb[k, :tlen[k]] = enc_t[i]
-                    has_n = has_n or (N4 in enc_q[i]) or (N4 in enc_t[i])
+                # the padding is N4 as well: a sequence holds an N iff the
+                # chunk has more N4 codes than pad cells
+                pads = qb.size + tb.size - int(qlen.sum()) - int(tlen.sum())
+                has_n = bool(np.count_nonzero(qb == N4)
+                             + np.count_nonzero(tb == N4) > pads)
                 pending.append(
                     (chunk, self._run_chunk(qb, tb, qlen, tlen, hb, has_n)))
         event = None

@@ -33,6 +33,7 @@ from genomics_tpu_torch.ops.scan_align import (
     global_align_batch,
     ksw_align_batch,
     local_align_batch,
+    local_align_batch16,
     semiglobal_align_batch,
 )
 
@@ -85,7 +86,8 @@ def _assert_equal(got, want):
 @pytest.mark.parametrize("params", [
     AlignmentParams(), AlignmentParams(n_penalty=2),
 ], ids=["defaults", "n_penalty"])
-def test_local_kernel_matches_plain(cuda, with_tb, params):
+def test_local_kernel_matches_plain(cuda, monkeypatch, with_tb, params):
+    monkeypatch.delenv("GENOMICS_TPU_INT16_CELLS", raising=False)
     q, t, _, _ = _batch(0, 1024 + 37, 40, 48, n_rate=0.03)
     want = local_align_batch(q.to(cuda), t.to(cuda), params, with_tb=with_tb)
     key = "local_sw.tb" if with_tb else "local_sw.end"
@@ -107,6 +109,132 @@ def test_score_kernel_matches_plain(cuda, has_n):
         q.T.contiguous(), t.T.contiguous(), AlignmentParams(), has_n=has_n)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(got_tm, want, rtol=0, atol=0)
+
+
+def _same_pairs(B, Lq, Lt):
+    """B copies of one random pair whose query is the target's first Lq
+    bases: the best score is match x Lq."""
+    rng = np.random.default_rng(13)
+    t = np.repeat(ACGT[rng.integers(0, 4, (1, Lt))], B, axis=0)
+    return torch.from_numpy(t[:, :Lq].copy()), torch.from_numpy(t)
+
+
+@pytest.mark.parametrize("B,Lq,Lt,n_rate,params", [
+    (4096 + 37, 152, 152, 0.0, AlignmentParams()),
+    (1000, 216, 328, 0.01, AlignmentParams()),
+    (1000, 216, 328, 0.01, AlignmentParams(n_penalty=2)),
+    (257, 152, 152, 0.0, AlignmentParams(match=200)),
+    (33, 258, 264, None, AlignmentParams(match=127)),
+    (33, 33, 40, None, AlignmentParams(match=991)),
+], ids=["odd_b", "with_ns", "n_penalty", "range_edge",
+        "one_below_the_ends_limit", "one_below_the_score_limit"])
+def test_int16_modes_match_plain_and_int32(cuda, monkeypatch, B, Lq, Lt,
+                                           n_rate, params):
+    """SCORE16 and END16 (the ends' mode under GENOMICS_TPU_INT16_CELLS=1
+    and, on N-free batches, the scores' default) against their plain
+    version and the int32 kernels; an odd B leaves the last thread one
+    pair; match=200 at Lq 152 scores up to 30,400; 127 x 258 = 32,766 and
+    991 x 33 = 32,703 are one below the ends' and the scores' limits, and
+    identical pairs (n_rate None) score exactly that."""
+    monkeypatch.setenv("GENOMICS_TPU_INT16_CELLS", "1")
+    if n_rate is None:
+        q, t = (x.to(cuda) for x in _same_pairs(B, Lq, Lt))
+    else:
+        q, t, _, _ = (x.to(cuda) for x in _batch(9, B, Lq, Lt, n_rate))
+    top = params.match * Lq
+    before = dict(cuda_align.LAUNCHES)
+    got = cuda_align.local_align(q, t, params)
+    want = cuda_align._launch("end", q.T, t.T, params, True)[:3]
+    torch.cuda.synchronize()
+    assert cuda_align.LAUNCHES["local_sw.end16"] == before["local_sw.end16"] + 1
+    _assert_equal(got[:3], local_align_batch16(q, t, params))
+    _assert_equal(got[:3], want)
+    if n_rate is None:
+        assert int(got.score.max()) == top
+    if not n_rate and top < cuda_align.SCORE16_LIMIT:
+        got = cuda_align.local_align_scores(q, t, params, has_n=False)
+        qs, ts = (cuda_align._pads_to_sentinels(x, c) for x, c in
+                  ((q, 16), (t, 17)))
+        plain = local_align_batch16(qs, ts, params, ends=False).score
+        torch.cuda.synchronize()
+        assert (cuda_align.LAUNCHES["local_sw.score16"]
+                == before["local_sw.score16"] + 1)
+        _assert_equal([got, got], [plain, want[0]])
+
+
+@pytest.mark.parametrize("match,modes", [
+    (195, ("end16", "score")), (196, ("end", "score"))])
+def test_past_the_int16_range_takes_the_int32_modes(cuda, monkeypatch, match,
+                                                    modes):
+    """At Lq 168, match 195 passes the score limit (32,767 - 64) only and
+    match 196 both (the ends under GENOMICS_TPU_INT16_CELLS=1, so that the
+    range alone decides); the int32 kernels run and agree with the plain
+    version."""
+    monkeypatch.setenv("GENOMICS_TPU_INT16_CELLS", "1")
+    p = AlignmentParams(match=match)
+    q, t, _, _ = (x.to(cuda) for x in _batch(10, 300, 168, 96, 0.0))
+    before = dict(cuda_align.LAUNCHES)
+    got_end = cuda_align.local_align(q, t, p)
+    got_score = cuda_align.local_align_scores(q, t, p, has_n=False)
+    torch.cuda.synchronize()
+    for mode in modes:
+        assert cuda_align.LAUNCHES[f"local_sw.{mode}"] == \
+            before[f"local_sw.{mode}"] + 1
+    want = local_align_batch(q, t, p)
+    _assert_equal(got_end[:3], want[:3])
+    _assert_equal([got_score], [want.score])
+
+
+@pytest.mark.parametrize("cells16", [False, True], ids=["default", "opted_in"])
+def test_ends_take_end16_only_under_the_switch(cuda, monkeypatch, cells16):
+    """A launch that fills the card takes END without
+    GENOMICS_TPU_INT16_CELLS=1 and END16 with it; either equals the plain
+    version."""
+    monkeypatch.delenv("GENOMICS_TPU_INT16_CELLS", raising=False)
+    if cells16:
+        monkeypatch.setenv("GENOMICS_TPU_INT16_CELLS", "1")
+    mode = "end16" if cells16 else "end"
+    q, t, _, _ = (x.to(cuda) for x in _batch(12, 65536, 24, 32, 0.02))
+    before = cuda_align.LAUNCHES[f"local_sw.{mode}"]
+    got = cuda_align.local_align(q, t, AlignmentParams())
+    torch.cuda.synchronize()
+    assert cuda_align.LAUNCHES[f"local_sw.{mode}"] == before + 1
+    _assert_equal(got[:3], local_align_batch(q, t, AlignmentParams())[:3])
+
+
+@pytest.mark.parametrize("mode,with_n", [(4, 1), (5, 0), (3, 1), (6, 0)],
+                         ids=["score16_with_n", "end16_without_n", "second",
+                              "unknown"])
+def test_local_sw_launch_refuses_what_it_lacks(cuda, mode, with_n):
+    """local_sw_launch runs SCORE16 (mode 4) without the N compare and
+    END16 (mode 5) with it, through the argument types of the other modes;
+    any other pairing, SECOND (its own entry point) and an unknown mode
+    return cudaErrorInvalidValue, which the wrapper raises."""
+    from genomics_tpu_torch import _build
+
+    q, t, _, _ = (x.to(cuda) for x in _batch(14, 64, 24, 32, 0.0))
+    Q, T = q.T.contiguous(), t.T.contiguous()
+    # SCORE16 reads N-free input: the pads remapped to the 16/17 sentinels
+    Qs, Ts = (cuda_align._pads_to_sentinels(x, c) for x, c in ((Q, 16),
+                                                              (T, 17)))
+    out = cuda_align._outputs("local_sw", "end16", Q, T, True)
+    sig = cuda_align._SIGNATURES["local_sw", "local_sw_launch"]
+    p = AlignmentParams()
+
+    def run(m, n, Qx, Tx):
+        score, qend, tend, _, gH, gE = out
+        _build.launch("local_sw", "local_sw_launch", sig, cuda, m, n, Qx, Tx,
+                      64, 24, 32, p.match, p.mismatch, 0, p.gap_oe,
+                      p.gap_extend, gH, gE, score, qend, tend, None)
+        torch.cuda.synchronize()
+        return score
+
+    want = local_align_batch(q, t, p)
+    _assert_equal([run(4, 0, Qs, Ts).clone(), run(5, 1, Q, T)],
+                  [want.score, want.score])
+    _assert_equal(out[1:3], want[1:3])
+    with pytest.raises(RuntimeError, match="local_sw_launch failed"):
+        run(mode, with_n, Q, T)
 
 
 @pytest.mark.parametrize("with_tb", [False, True], ids=["score", "tb"])
@@ -516,3 +644,47 @@ def test_edit_distance_on_the_card_matches_cpu(cuda):
     want = myers.edit_distance_semiglobal(ps, ts, device="cpu")
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(with_tb=True),
+    dict(params=AlignmentParams(compute_start=True, second_best=True)),
+    dict(algo=AlgoType.SEMI_GLOBAL, with_tb=True, head=SemiGlobalSkip.TARGET,
+         tail=SemiGlobalSkip.TARGET),
+    dict(algo=AlgoType.KSW), dict(algo=AlgoType.BANDED, band_width_tiles=2),
+], ids=["local", "tb", "start_second", "glocal_tb", "ksw", "banded"])
+def test_align_fasta_pairs_on_the_card_matches_cpu(cuda, tmp_path,
+                                                   monkeypatch, kw):
+    """The facade over two FASTA files with all four header ops, in
+    chunks of 50 over its two streams: every field of every job equal to
+    the CPU run; LOCAL ends run END16 under GENOMICS_TPU_INT16_CELLS=1."""
+    from genomics_tpu_torch.models import aligner
+
+    rng = np.random.default_rng(11)
+    comp = str.maketrans("ACGTN", "TGCAN")
+    qf, tf = tmp_path / "q.fasta", tmp_path / "t.fasta"
+    with open(qf, "w") as fq, open(tf, "w") as ft:
+        for k in range(230):
+            tgt = "".join(rng.choice(list("ACGT"), int(rng.integers(60, 97))))
+            read = list(tgt[5:5 + int(rng.integers(40, 55))])
+            for i in range(len(read)):
+                if rng.random() < 0.04:
+                    read[i] = str(rng.choice(list("ACGTN")))
+            op = ">", "<", "/", "+"
+            read = "".join(read).translate(comp) if k % 4 > 1 else "".join(read)
+            fq.write(f"{op[k % 4]}r{k}\n{read[::-1] if k % 2 else read}\n")
+            ft.write(f">t{k}\n{tgt}\n")
+    monkeypatch.setattr(aligner, "CHUNK", 50)
+    monkeypatch.setenv("GENOMICS_TPU_INT16_CELLS", "1")
+    before = cuda_align.LAUNCHES["local_sw.end16"]
+    got = aligner.align_fasta_pairs(str(qf), str(tf), device=cuda, **kw)
+    want = aligner.align_fasta_pairs(str(qf), str(tf), device="cpu", **kw)
+    if not kw:
+        assert cuda_align.LAUNCHES["local_sw.end16"] > before
+    assert len(got) == len(want) == 230
+    for a, b in zip(got, want):
+        assert a == b if a.cigar is None else (
+            a.cigar_string == b.cigar_string and
+            (a.score, a.query_start, a.target_start, a.query_end,
+             a.target_end) == (b.score, b.query_start, b.target_start,
+                               b.query_end, b.target_end))

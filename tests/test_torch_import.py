@@ -23,7 +23,9 @@ def test_imports_with_jax_blocked():
         "from genomics_tpu_torch.ops import cuda_align, scan_align, tb_walk\n"
         "from genomics_tpu_torch.ops import scan_align_full\n"
         "from genomics_tpu_torch.ops import cuda_pairhmm, myers, scan_pairhmm\n"
-        "from genomics_tpu_torch.models import pairhmm\n"
+        "from genomics_tpu_torch.models import aligner, pairhmm\n"
+        "from genomics_tpu_torch.core import batch\n"
+        "from genomics_tpu_torch.utils import fasta\n"
         "from genomics_tpu_torch import __main__\n"
         "from genomics_tpu_torch.runtime import dispatch\n"
         "from genomics_tpu_torch.runtime.dispatch import walk_start\n"
@@ -40,7 +42,8 @@ def test_imports_with_jax_blocked():
 def test_every_module_is_checked_for_jax_imports():
     names = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
     assert {"__main__.py", "device.py", "models/pairhmm.py",
-            "ops/cuda_pairhmm.py", "ops/myers.py", "ops/scan_pairhmm.py"} <= names
+            "ops/cuda_pairhmm.py", "ops/myers.py", "ops/scan_pairhmm.py",
+            "models/aligner.py", "core/batch.py", "utils/fasta.py"} <= names
 
 
 @pytest.mark.parametrize(
@@ -94,6 +97,28 @@ def test_every_entry_point_signature_matches_its_source():
         want = ["void*" in x for x in params]
         got = [t is cuda_align._vp for t in argtypes]
         assert got == want, (sym, params)
+
+
+def test_local_modes_match_the_kernel_source():
+    """`_LOCAL_MODES` gives local_sw_launch the numbers of local_sw.cu's
+    Mode enum (SECOND has its own entry point), and every local_sw mode
+    has a launch count."""
+    import re
+
+    from genomics_tpu_torch import _build
+    from genomics_tpu_torch.ops import cuda_align
+
+    src = (_build.CSRC / "local_sw.cu").read_text()
+    body = re.search(r"enum Mode \{(.*?)\}", src).group(1)
+    enum = {k.lower(): int(v) for k, v in re.findall(r"(\w+) = (\d+)", body)}
+    assert enum.pop("second") == 3
+    assert enum == cuda_align._LOCAL_MODES
+    assert {f"local_sw.{m}" for m in [*enum, "second"]} == {
+        k for k in cuda_align.LAUNCHES if k.startswith("local_sw.")}
+    # local_sw_launch dispatches the two 16-bit modes as the wrappers call
+    # them: SCORE16 without the N compare, END16 with it
+    assert "mode == SCORE16 && !with_n" in src
+    assert "mode == END16 && with_n" in src
 
 
 def test_layouts_give_every_launch_argument():
