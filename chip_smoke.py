@@ -26,7 +26,8 @@ Run from the root of a checkout.  Phases, one line each:
             BOTH/BOTH, the LOCAL, GLOBAL and SEMI_GLOBAL walks,
             local_start fed the END kernel's result, semiglobal_start for
             all 16 HEAD x TAIL fed the semiglobal END kernel's, ksw_extend
-            END/SCORE with seed scores h0 of 0-60, and banded_sw
+            END/SCORE with seed scores h0 of 0-60 (and at Lq 1,000, where
+            the wrapper keeps the rows in the global scratch), and banded_sw
             END/SCORE at bands of 1, 2 and 4 tiles; then both PairHMM
             kernels (bit-equal, both exact modes) at B=4096+37 ragged
             100-150 x 250-350 pairs, the wavefront also at B=1, 7, 64 of
@@ -70,8 +71,11 @@ Run from the root of a checkout.  Phases, one line each:
             version and, on 64, to the plain DP;
 5. timings  each kernel and its plain version on the card at bench.py's
             shape (B=65,536, 152x152; the four score / end modes of local_sw
-            as launches alone, in turns; KSW with h0 = 30, BANDED with a band
-            of 4 tiles, as benchmarks/run_all.py runs them), PairHMM at
+            as launches alone, in turns; global_sw SCORE and TB as launches
+            alone, in turns; KSW with h0 = 30 as launches alone in both row
+            layouts, in turns, each also as a ratio to local_sw SCORE;
+            BANDED with a band of 4 tiles, as benchmarks/run_all.py runs
+            them; ptxas's resources of ksw_extend and global_sw), PairHMM at
             B=16,384 x 128 x 128 and Myers at B=16,384, Lp 96, Lt 152
             (run_all.py's shapes; the launch alone on inputs already in
             the kernel's layout, and the wrapper with its layout passes
@@ -975,6 +979,27 @@ def main() -> int:
         "GENOMICS_TPU_INT16_CELLS=1: 194 -> END16 + SCORE16, 195 -> END16 + "
         "SCORE, 196 -> END + SCORE; 194 without it -> END + SCORE16; 194 "
         "with has_n -> END16 + SCORE (launch counts), each == plain")
+    # KSW past the shared-memory rows: at Lq 1,000 the wrapper takes the
+    # global [B, Lq + 1] scratch (ksw_layout), B = 1,024 + 37 ragged pairs
+    # with Ns, seed scores 0-60, END and SCORE
+    ksw_rng = np.random.default_rng(args.seed + 8)
+    qk, tk, qlk, tlk = (torch.from_numpy(x).to(dev) for x in random_codes(
+        ksw_rng, 1024 + 37, 1000, 1000, 0.01))
+    h0k = torch.from_numpy(ksw_rng.integers(0, 61, 1024 + 37).astype(
+        np.int32)).to(dev)
+    if cuda_align.ksw_layout(1000)[0] != "global":
+        raise AssertionError(f"Lq 1000 takes {cuda_align.ksw_layout(1000)}")
+    plain_k = ksw_align_batch(qk, tk, qlk, tlk, h0k, PK)
+    e_end = max_abs_err(cuda_align.ksw_align(qk, tk, qlk, tlk, h0k, PK),
+                        plain_k[:3])
+    e_score = max_abs_err([cuda_align.ksw_align_scores(qk, tk, qlk, tlk, h0k,
+                                                        PK)],
+                          [plain_k.score])
+    err["ksw.end"] = max(err["ksw.end"], e_end)
+    err["ksw.score"] = max(err["ksw.score"], e_score)
+    log("3 parity", f"KSW at Lq 1000 (layout {cuda_align.ksw_layout(1000)}),"
+        f" B=1061 1000x1000 with Ns: max |kernel - plain| ksw.end {e_end} "
+        f"ksw.score {e_score}")
     if any(err.values()):
         raise AssertionError(f"kernels disagree with their plain versions: {err}")
 
@@ -1544,13 +1569,18 @@ def main() -> int:
                  ("local_sw.end", "local_sw.end16")):
         for k in (a, b, b, a):
             ms[k] += cuda_ms(modes[k], 20) / 2
+    # global_sw's score and TB modes as launches alone, in turns (A, B, B,
+    # A), on the time-major inputs and their allocated outputs
+    g_args = {k: cuda_align.global_launch_args(Q, T, ql, tl, PG,
+                                               k == "global_sw.tb")
+              for k in ("global_sw.score", "global_sw.tb")}
+    for k in ("global_sw.score", "global_sw.tb", "global_sw.tb",
+              "global_sw.score"):
+        ms[k] = ms.get(k, 0.0) + cuda_ms(
+            lambda a=g_args[k]: cuda_align.launch_global(a), 5) / 2
     ms |= {
         "local_sw.tb": cuda_ms(
             lambda: cuda_align.local_align(q, t, P, with_tb=True), 5),
-        "global_sw.score": cuda_ms(
-            lambda: cuda_align.global_align(q, t, ql, tl, PG), 10),
-        "global_sw.tb": cuda_ms(
-            lambda: cuda_align.global_align(q, t, ql, tl, PG, with_tb=True), 5),
         "semiglobal_sw.end": cuda_ms(
             lambda: cuda_align.semiglobal_align(q, t, ql, tl, PS, **sg), 10),
         "semiglobal_sw.tb": cuda_ms(
@@ -1584,12 +1614,36 @@ def main() -> int:
     h0_b = torch.full((BENCH_B,), BENCH_H0, dtype=torch.int32, device=dev)
     ksw_args = (q, t, ql, tl, h0_b, PK)
     band_args = (q, t, ql, tl, PB, BENCH_BAND)
+    # ksw_extend's END and SCORE as launches alone on inputs already laid
+    # out (SCORE's pads remapped), in the layout the wrapper takes at Lq
+    # 152 (shared) and in the global one forced, in turns (A, B, B, A)
+    qs_k, ts_k, _ = cuda_align._no_n_inputs(q, t, False)
+    ksw_in = {"end": (q, t, True), "score": (qs_k, ts_k, False)}
+    ksw_lay = {(m, g): cuda_align.ksw_launch_args(
+        m, *ksw_in[m][:2], ql, tl, h0_b, PK, ksw_in[m][2], force_global=g)
+        for m in ksw_in for g in (False, True)}
+    ksw_ms = dict.fromkeys(ksw_lay, 0.0)
+    for m in ksw_in:
+        for g in (False, True, True, False):
+            ksw_ms[m, g] += cuda_ms(
+                lambda a=ksw_lay[m, g]: cuda_align.launch_ksw(a), 10) / 2
+    ms["ksw.end"], ms["ksw.score"] = ksw_ms["end", False], ksw_ms["score", False]
+    plain_k = ksw_align_batch(*ksw_args)
+    for (m, g), a in ksw_lay.items():
+        out = cuda_align.launch_ksw(a)
+        err[f"ksw.{m}"] = max(err[f"ksw.{m}"], max_abs_err(
+            out[:3] if m == "end" else out[:1],
+            plain_k[:3] if m == "end" else [plain_k.score]))
+    plain_g = global_align_batch(q, t, ql, tl, PG, with_tb=True)
+    for k, a in g_args.items():
+        score_g, tb_g = cuda_align.launch_global(a)
+        err[k] = max(err[k], max_abs_err(
+            [score_g] + ([tb_g] if k == "global_sw.tb" else []),
+            [plain_g.score] + ([plain_g.tb] if k == "global_sw.tb" else [])))
+    del plain_g
+    plain_ms["ksw.end"] = plain_ms["ksw.score"] = cuda_ms(
+        lambda: ksw_align_batch(*ksw_args), 1)
     new_pairs = {   # name: (kernel, plain), each giving a list of tensors
-        "ksw.end": (lambda: cuda_align.ksw_align(*ksw_args)[:3],
-                    lambda: ksw_align_batch(*ksw_args)[:3]),
-        "ksw.score": (
-            lambda: [cuda_align.ksw_align_scores(*ksw_args, has_n=False)],
-            lambda: [ksw_align_batch(*ksw_args).score]),
         "banded_sw.end": (lambda: cuda_align.banded_align(*band_args)[:3],
                           lambda: banded_align_batch(*band_args)[:3]),
         "banded_sw.score": (
@@ -1686,6 +1740,28 @@ def main() -> int:
             f"{plain_ms[k]:.2f} ms, bound {bounds[k][0]:.4f} ms by "
             f"{bounds[k][1]} ({per_cell(k)}, {work[k][1]} bytes), "
             f"B={BENCH_B} {BENCH_L}x{BENCH_L}, on {smi}")
+    # the two kernels redesigned for Hopper beside untouched ones of the
+    # same call: each time also as a ratio to local_sw.score (launches
+    # alone); ptxas's resources of each of their entry points
+    loc = ms["local_sw.score"]
+    threads = cuda_align.ksw_layout(BENCH_L)[1]
+    log("5 timings", "ksw_extend, launches alone in turns at B="
+        f"{BENCH_B} {BENCH_L}x{BENCH_L}, h0 {BENCH_H0}: " + ", ".join(
+            f"{m} {'global, 128 threads' if g else f'shared, {threads} threads'}"
+            f" {v:.4f} ms ({v / loc:.3f}x local_sw.score)"
+            for (m, g), v in ksw_ms.items())
+        + f"; shared rows {9 * (BENCH_L + 1) * threads} bytes a block; on {smi}")
+    log("5 timings", f"global_sw, launches alone in turns: tb "
+        f"{ms['global_sw.tb']:.4f} ms = {ms['global_sw.tb'] / ms['global_sw.score']:.3f}"
+        f"x score {ms['global_sw.score']:.4f} ms; score = "
+        f"{ms['global_sw.score'] / loc:.3f}x local_sw.score {loc:.4f} ms; "
+        f"semiglobal_sw.tb (NONE/BOTH, wrapper) {ms['semiglobal_sw.tb']:.4f} "
+        f"ms; on {smi}")
+    from tools.sass_report import kernel_of, ptxas_lines
+    for name in ("ksw_extend", "global_sw"):
+        log_text = (_build.BUILD_DIR / f"{name}.log").read_text()
+        for fn, line in ptxas_lines(log_text).items():
+            log("5 timings", f"ptxas {name}.cu {kernel_of(fn)}: {line}")
     # the four score / end modes over launch sizes at the engine's 216 x 328
     # bucket (the align CLI's 5,000-pair chunks, test_prog's
     # STREAM_BATCH_SIZE, give it about 4,150 pairs), then at the engine's

@@ -30,10 +30,25 @@
 // cells are computed like any other; the TB cube holds every cell of
 // the bucket, because the walk starts one cell past the end.
 //
-// Bound: integer ALU work per cell (about 10 operations in SCORE, 20 in
-// TB) plus, in TB, the nibble-cube writes (4 bytes per 8 cells).  This
-// first design is the simple one: DPX __vimax3_s32, packed 16-bit cells
-// and shared-memory carries are left to later work.
+// Bound: integer ALU work per cell, about 10 operations in SCORE and 20
+// in TB, counted as one per add, max, compare or select, plus, in TB, the
+// nibble-cube writes (4 bytes per 8 cells).
+//
+// What held the first design at 4.4x SCORE (PERF.md's findings, from
+// tools/sass_report.py and tools/tb_variants.py on an H100) was not the
+// cell: its SASS was as long as semiglobal_sw.cu's TB cell, which took
+// 1.3x its END kernel.  It was (1) the score's cell taken by a compare
+// and select in every cell, and (2) each column's query code and carry
+// loaded at the column's top and used a few instructions later, so each
+// column waited on device memory.  Here the score's cell is taken once,
+// after column jl of strip il / 8, and the next column's loads are
+// issued before this column is computed.  The cell takes Hopper's DPX
+// maxima where the SASS has them: __vimax3_s32 (VIMNMX3) for h and
+// __viaddmax_s32 (VIADDMNMX) for the gap chains, and the extension bits
+// compare the pre-update chains with tmp - gapo (tmp - goe > u - ge is
+// u < tmp - gapo), so no u - ge or e - ge is formed.  Taking the
+// direction bits from __vibmax_s32's predicates made the column longer:
+// on sm_90 it compiles to a compare and a select, so it is not used.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,6 +78,7 @@ global_sw_kernel(const uint8_t* __restrict__ Q,  // [Lq, B]
   const size_t sB = static_cast<size_t>(B);
   const int goe = gapo + ge;
   const int jl = qlen[b] - 1, il = tlen[b] - 1;  // the score's cell
+  const int sl = il >> 3, cl = il & 7;
   int score = 0;
   const int n_strips = Lt >> 3;
   for (int s = 0; s < n_strips; ++s) {
@@ -76,12 +92,20 @@ global_sw_kernel(const uint8_t* __restrict__ Q,  // [Lq, B]
       f[c] = kMinusInf;
     }
     int diag0 = s ? -(gapo + ge * s * 8) : 0;  // diag(strip row 0, col 0)
-    const int cl = (il >> 3) == s ? (il & 7) : -1;
+    // column 0's query code and carry from the strip above; each column
+    // loads the next one's before computing its own
+    int qn = Q[b];
+    int hn = s ? gH[b] : 0;
+    int en = s ? gE[b] : kMinusInf;
     for (int j = 0; j < Lq; ++j) {
       const size_t at = static_cast<size_t>(j) * sB + b;
-      const int qc = Q[at];
-      const int hcol = s ? gH[at] : (j ? -(gapo + ge * j) : 0);
-      int e = s ? gE[at] : kMinusInf;
+      const int qc = qn, hcol = hn;
+      int e = en;
+      if (j + 1 < Lq) {
+        qn = Q[at + sB];
+        hn = s ? gH[at + sB] : -(gapo + ge * (j + 1));
+        en = s ? gE[at + sB] : kMinusInf;
+      }
       int diag = diag0;
       uint32_t word = 0;
 #pragma unroll
@@ -90,20 +114,25 @@ global_sw_kernel(const uint8_t* __restrict__ Q,  // [Lq, B]
         if (N_PENALTY && (qc == kN4 || tc[c] == kN4)) sub = -n_pen;
         const int tmp = diag + sub;
         const int u = f[c];
-        const int h = max(max(tmp, u), e);
-        if (j == jl && c == cl) score = h;
         const int tmpg = tmp - goe;
+        const int h = __vimax3_s32(tmp, u, e);
         if (MODE == TB) {
-          // direction from the pre-update chains (pallas_align.py:1233-1240)
-          const int d = (h == tmp) ? (sub >= 0 ? 0 : 1) : (h == u ? 3 : 2);
-          const int f_ext = tmpg > u - ge ? 0 : 1;
-          const int e_ext = tmpg > e - ge ? 0 : 1;
-          word |= static_cast<uint32_t>(d | (e_ext << 2) | (f_ext << 3)) << (4 * c);
+          // direction from the pre-update chains (pallas_align.py:1233-
+          // 1240); f_ext = !(tmp - goe > u - ge) = (u >= tmp - gapo)
+          const int tg = tmp - gapo;
+          const uint32_t d = (h == tmp) ? static_cast<uint32_t>(sub) >> 31
+                                        : (h == u ? 3u : 2u);
+          word |= (d | (e >= tg ? 4u : 0u) | (u >= tg ? 8u : 0u)) << (4 * c);
         }
-        f[c] = max(tmpg, u - ge);
-        e = max(tmpg, e - ge);
+        f[c] = __viaddmax_s32(u, -ge, tmpg);
+        e = __viaddmax_s32(e, -ge, tmpg);
         diag = hp[c];
         hp[c] = h;
+      }
+      if (j == jl && s == sl) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          if (c == cl) score = hp[c];
       }
       diag0 = hcol;
       gH[at] = hp[7];

@@ -104,10 +104,10 @@ _SIGNATURES = {
     # stream
     ("semiglobal_start", "semiglobal_start_launch"):
         (_ci,) + (_vp,) * 8 + (_ci,) * 8 + (_vp,) * 5,
-    # mode, with_n, Q, T, qlen, tlen, h0, B, Lq, Lt, match, mismatch,
-    # n_score, goe, ge, ehh, ehe, score, qend, tend, stream
+    # mode, with_n, shared, threads, Q, T, qlen, tlen, h0, B, Lq, Lt,
+    # match, mismatch, n_score, goe, ge, eh, score, qend, tend, stream
     ("ksw_extend", "ksw_extend_launch"):
-        (_ci, _ci) + (_vp,) * 5 + (_ci,) * 8 + (_vp,) * 6,
+        (_ci,) * 4 + (_vp,) * 5 + (_ci,) * 8 + (_vp,) * 5,
     # mode, with_n, Q, T, qlen, tlen, B, Lq, Lt, k_band, match, mismatch,
     # n_score, goe, ge, gH, gE, score, qend, tend, stream
     ("banded_sw", "banded_sw_launch"):
@@ -115,6 +115,13 @@ _SIGNATURES = {
 }
 # library of each launch-count key whose name is not the library's
 _LIBRARY = {"ksw": "ksw_extend"}
+# ksw_extend keeps each block's (h, e) rows (int2) and query codes (a
+# byte) of columns 0..Lq in shared memory, 9 bytes a column and thread,
+# wherever 32 threads fit in what a block may have on sm_90
+KSW_SHARED_BYTES = 232_448
+KSW_MAX_THREADS = 256
+KSW_GLOBAL_THREADS = 128
+KSW_SHARED_MAX_LQ = KSW_SHARED_BYTES // (9 * 32) - 1
 
 
 def _check_codes(a: torch.Tensor, b: torch.Tensor, batch_dim: int):
@@ -268,6 +275,31 @@ def local_align(
     return res
 
 
+def global_launch_args(Q: torch.Tensor, T: torch.Tensor, qlen, tlen,
+                       params: AlignmentParams, with_tb: bool) -> tuple:
+    """global_sw_launch's arguments but the stream, for time-major Q
+    [Lq, B], T [Lt, B] uint8: the mode, the inputs, the [Lq, B] carries,
+    the [B] score and the sqb cube [Lt//8, Lq, B] (None without
+    traceback), last."""
+    Q, T = Q.contiguous(), T.contiguous()
+    qlen, tlen = qlen.contiguous(), tlen.contiguous()
+    Lq, B = Q.shape
+    mode = "tb" if with_tb else "score"
+    score, _, _, tb, gH, gE = _outputs("global_sw", mode, Q, T, False)
+    npen = params.n_penalty is not None
+    return (int(with_tb), int(npen), Q, T, qlen, tlen, B, Lq, T.shape[0],
+            params.match, params.mismatch, params.n_penalty if npen else 0,
+            params.gap_open, params.gap_extend, gH, gE, score, tb)
+
+
+def launch_global(args: tuple):
+    """Launch global_sw on `global_launch_args`'s arguments (B > 0) and
+    count it under global_sw.tb / global_sw.score; returns (score, tb)."""
+    _call("global_sw.tb" if args[0] else "global_sw.score", args[2].device,
+          *args)
+    return args[-2:]
+
+
 def global_align(
     q: torch.Tensor,      # [B, Lq] uint8, N4-padded
     t: torch.Tensor,      # [B, Lt] uint8, Lt % 8 == 0 on the card
@@ -283,19 +315,8 @@ def global_align(
     _check_lengths(q, qlen, tlen)
     if on_cpu(q):
         return global_align_batch(q, t, qlen, tlen, params, with_tb=with_tb)
-    mode = "tb" if with_tb else "score"
-    Q, T = q.T.contiguous(), t.T.contiguous()
-    qlen, tlen = qlen.contiguous(), tlen.contiguous()
-    Lq, B = Q.shape
-    score, _, _, tb, gH, gE = _outputs("global_sw", mode, Q, T, False)
-    if B:
-        npen = params.n_penalty is not None
-        _call(f"global_sw.{mode}", Q.device, int(with_tb), int(npen),
-              Q.data_ptr(), T.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
-              B, Lq, T.shape[0], params.match, params.mismatch,
-              params.n_penalty if npen else 0, params.gap_open,
-              params.gap_extend, gH.data_ptr(), gE.data_ptr(),
-              score.data_ptr(), _ptr(tb))
+    args = global_launch_args(q.T, t.T, qlen, tlen, params, with_tb)
+    score, tb = launch_global(args) if args[6] else args[-2:]
     return AlignResult(score, qlen - 1, tlen - 1, tb)
 
 
@@ -476,27 +497,56 @@ def _no_n_inputs(q, t, has_n: bool | None):
     return q, t, with_n
 
 
-def _ksw_launch(mode: str, q, t, qlen, tlen, h0, params: AlignmentParams,
-                with_n: bool):
-    """Run ksw_extend in `mode` on [B, L] uint8 q, t; returns (score,
-    qend, tend), qend/tend None in score mode."""
-    Q, T = q.T.contiguous(), t.T.contiguous()
+def ksw_layout(Lq: int) -> tuple[str, int]:
+    """Where ksw_extend keeps its row state over queries padded to Lq, and
+    its threads per block: ("shared", the most threads, a multiple of 32
+    and at most 256, whose 9 (Lq + 1) bytes each fit KSW_SHARED_BYTES) up
+    to Lq = KSW_SHARED_MAX_LQ (806), else ("global", 128): a [B, Lq + 1]
+    int2 scratch in device memory.  A rule on the shape alone."""
+    threads = min(KSW_MAX_THREADS,
+                  KSW_SHARED_BYTES // (9 * (Lq + 1)) // 32 * 32)
+    return ("shared", threads) if threads else ("global", KSW_GLOBAL_THREADS)
+
+
+def ksw_launch_args(mode: str, q, t, qlen, tlen, h0,
+                    params: AlignmentParams, with_n: bool,
+                    force_global: bool = False) -> tuple:
+    """ksw_extend_launch's arguments but the stream, for checked [B, L]
+    uint8 q, t read as they are: the mode, the layout of `ksw_layout` (or
+    the global one under `force_global`, which only the timings and the
+    card tests ask for), the inputs, the scratch (None in the shared
+    layout) and the [B] outputs (qend, tend None in score mode), last."""
+    q, t = q.contiguous(), t.contiguous()
     qlen, tlen, h0 = qlen.contiguous(), tlen.contiguous(), h0.contiguous()
-    Lq, B = Q.shape
-    # eh[] has a live slot at column end <= qlen: Lq + 1 rows
-    ehh, ehe = (torch.empty((Lq + 1, B), dtype=torch.int32, device=Q.device)
-                for _ in range(2))
-    score, qend, tend = _per_pair(3, Q)
+    B, Lq = q.shape
+    kind, threads = (("global", KSW_GLOBAL_THREADS) if force_global
+                     else ksw_layout(Lq))
+    eh = (torch.empty((B, Lq + 1, 2), dtype=torch.int32, device=q.device)
+          if kind == "global" else None)
+    score, qend, tend = (torch.empty(B, dtype=torch.int32, device=q.device)
+                         for _ in range(3))
     if mode == "score":
         qend = tend = None
-    if B:
-        _call(f"ksw.{mode}", Q.device, int(mode == "end"), int(with_n),
-              Q.data_ptr(), T.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
-              h0.data_ptr(), B, Lq, T.shape[0], params.match,
-              params.mismatch, _n_score(params), params.gap_oe,
-              params.gap_extend, ehh.data_ptr(), ehe.data_ptr(),
-              score.data_ptr(), _ptr(qend), _ptr(tend))
-    return score, qend, tend
+    return (int(mode == "end"), int(with_n), int(kind == "shared"), threads,
+            q, t, qlen, tlen, h0, B, Lq, t.shape[1], params.match,
+            params.mismatch, _n_score(params), params.gap_oe,
+            params.gap_extend, eh, score, qend, tend)
+
+
+def launch_ksw(args: tuple):
+    """Launch ksw_extend on `ksw_launch_args`'s arguments (B > 0) and
+    count it under ksw.end / ksw.score; returns (score, qend, tend)."""
+    _call("ksw.end" if args[0] else "ksw.score", args[4].device, *args)
+    return args[-3:]
+
+
+def _ksw_launch(mode: str, q, t, qlen, tlen, h0, params: AlignmentParams,
+                with_n: bool, force_global: bool = False):
+    """Run ksw_extend in `mode` on [B, L] uint8 q, t; returns (score,
+    qend, tend), qend/tend None in score mode."""
+    args = ksw_launch_args(mode, q, t, qlen, tlen, h0, params, with_n,
+                           force_global)
+    return launch_ksw(args) if args[9] else args[-3:]
 
 
 def ksw_align(

@@ -456,6 +456,98 @@ def test_ksw_kernel_matches_plain(cuda, params):
                   [ksw_align_batch(q, t, ql, tl, h0, params).score])
 
 
+@pytest.mark.parametrize("h0", [0, 30, 200])
+@pytest.mark.parametrize("Lq,Lt,force_global,layout", [
+    (152, 152, False, "shared"), (250, 264, False, "shared"),
+    (152, 152, True, "global"), (1000, 1000, False, "global"),
+], ids=["shared152", "shared250", "global152_forced", "global1000"])
+def test_ksw_layouts_match_plain(cuda, Lq, Lt, force_global, layout, h0):
+    """Both row-state layouts of ksw_extend, END and SCORE, integer-equal
+    to the plain version on a ragged B (the last block part-full) whose
+    even pairs are related and odd ones random, so that the windows of a
+    warp's threads part; Ns with n_penalty set and unset, and SCORE
+    without the N compare on an N-free batch.  Each launch is counted."""
+    B = 2048 + 37
+    assert force_global or cuda_align.ksw_layout(Lq)[0] == layout
+    q, t, ql, tl = [x.to(cuda) for x in _batch(20, B, Lq, Lt, n_rate=0.02)]
+    hv = torch.full((B,), h0, dtype=torch.int32, device=cuda)
+    for params in (AlignmentParams(algo=AlgoType.KSW),
+                   AlignmentParams(algo=AlgoType.KSW, n_penalty=2)):
+        want = ksw_align_batch(q, t, ql, tl, hv, params)
+        before = dict(cuda_align.LAUNCHES)
+        got = cuda_align._ksw_launch("end", q, t, ql, tl, hv, params, True,
+                                     force_global=force_global)
+        got_s = cuda_align._ksw_launch("score", q, t, ql, tl, hv, params,
+                                       True, force_global=force_global)[0]
+        torch.cuda.synchronize()
+        assert cuda_align.LAUNCHES["ksw.end"] == before["ksw.end"] + 1
+        assert cuda_align.LAUNCHES["ksw.score"] == before["ksw.score"] + 1
+        _assert_equal(got, want)
+        _assert_equal([got_s], [want.score])
+    q, t, ql, tl = [x.to(cuda) for x in _batch(21, B, Lq, Lt, n_rate=0.0)]
+    want = ksw_align_batch(q, t, ql, tl, hv, params).score
+    q, t, with_n = cuda_align._no_n_inputs(q, t, False)
+    _assert_equal([cuda_align._ksw_launch("score", q, t, ql, tl, hv, params,
+                                          with_n,
+                                          force_global=force_global)[0]],
+                  [want])
+
+
+def test_ksw_launch_refuses_what_it_lacks(cuda):
+    """The launcher takes the shared layout only at a multiple of 32
+    threads whose rows fit, and the global one only with its scratch."""
+    q, t, ql, tl = [x.to(cuda) for x in _batch(22, 64, 40, 48, n_rate=0.0)]
+    p = AlignmentParams(algo=AlgoType.KSW)
+    args = cuda_align.ksw_launch_args("end", q, t, ql, tl, ql, p, True)
+    for bad in ((1, 48), (1, 512), (0, 128)):   # shared / threads
+        with pytest.raises(RuntimeError, match="ksw_extend_launch failed"):
+            cuda_align.launch_ksw((*args[:2], *bad, *args[4:]))
+
+
+def _two_letters(seed, B, L, n_rate):
+    """_batch over a 2-letter alphabet (G as A, T as C, so related pairs
+    stay related): at unit scores most cells tie."""
+    q, t, ql, tl = _batch(seed, B, L, L, n_rate)
+    for x in (q, t):
+        x[x == int(ACGT[2])] = int(ACGT[0])
+        x[x == int(ACGT[3])] = int(ACGT[1])
+    return q, t, ql, tl
+
+
+@pytest.mark.parametrize("n_penalty", [None, 1], ids=["no_npen", "npen"])
+def test_global_tb_cube_at_ties_matches_plain(cuda, n_penalty):
+    """Every word of the TB cube equal to the plain version's where match
+    = mismatch = gap_extend = 1 (gap_open 0) over two letters, so that
+    the maxima and the extension compares tie everywhere; the score mode
+    too."""
+    p = AlignmentParams(algo=AlgoType.GLOBAL, match=1, mismatch=1,
+                        gap_open=0, gap_extend=1, n_penalty=n_penalty)
+    args = [x.to(cuda) for x in _two_letters(23, 1024 + 37, 64, 0.03)]
+    want = global_align_batch(*args, p, with_tb=True)
+    got = cuda_align.global_align(*args, p, with_tb=True)
+    got_s = cuda_align.global_align(*args, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got.tb, want.tb)
+    _assert_equal(got, want)
+    _assert_equal(got_s[:3], want[:3])
+
+
+@pytest.mark.parametrize("gap_open", [0, 6])
+def test_global_engine_cigars_at_ties_match_cpu(cuda, gap_open):
+    """GLOBAL with traceback through AlignEngine on the card: every CIGAR
+    byte-equal to the CPU engine's, at unit scores over two letters."""
+    rng = np.random.default_rng(24)
+    ts = ["".join(rng.choice(list("AC"), rng.integers(60, 200)))
+          for _ in range(300)]
+    qs = [s[10:10 + int(rng.integers(20, 50))] for s in ts]
+    p = AlignmentParams(algo=AlgoType.GLOBAL, match=1, mismatch=1,
+                        gap_open=gap_open, gap_extend=1)
+    got = AlignEngine(p, with_tb=True, device=cuda).align(qs, ts)
+    want = AlignEngine(p, with_tb=True, device="cpu").align(qs, ts)
+    assert [(a.score, a.cigar_string) for a in got] == [
+        (b.score, b.cigar_string) for b in want]
+
+
 @pytest.mark.parametrize("band", [1, 2, 4, 9])
 @pytest.mark.parametrize("params", [
     AlignmentParams(algo=AlgoType.BANDED),
