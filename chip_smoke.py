@@ -70,12 +70,16 @@ Run from the root of a checkout.  Phases, one line each:
             ops.myers.edit_distance_semiglobal (W=5), held to the plain
             version and, on 64, to the plain DP;
 5. timings  each kernel and its plain version on the card at bench.py's
-            shape (B=65,536, 152x152; the four score / end modes of local_sw
-            as launches alone, in turns; global_sw SCORE and TB as launches
-            alone, in turns; KSW with h0 = 30 as launches alone in both row
-            layouts, in turns, each also as a ratio to local_sw SCORE;
-            BANDED with a band of 4 tiles, as benchmarks/run_all.py runs
-            them; ptxas's resources of ksw_extend and global_sw), PairHMM at
+            shape (B=65,536, 152x152; the four score / end modes and TB
+            of local_sw as launches alone, in turns, TB held to the plain
+            cube word for word; global_sw SCORE and TB as launches
+            alone, in turns; semiglobal_start as a launch alone, held to
+            its plain version under all 16 HEAD x TAIL flags; the lanes'
+            share of the two start passes' work; KSW with h0 = 30 as
+            launches alone in both row layouts, in turns, each also as a
+            ratio to local_sw SCORE; BANDED with a band of 4 tiles, as
+            benchmarks/run_all.py runs them; ptxas's resources of
+            ksw_extend, global_sw, local_sw and semiglobal_start), PairHMM at
             B=16,384 x 128 x 128 and Myers at B=16,384, Lp 96, Lt 152
             (run_all.py's shapes; the launch alone on inputs already in
             the kernel's layout, and the wrapper with its layout passes
@@ -604,6 +608,19 @@ def edit_distance_dp(p: str, t: str) -> tuple[int, int, int]:
     best = int(min(scores.min(), len(pc)))
     end = int(np.argmax(scores == best)) if best < len(pc) else -1
     return best, end, int(scores[-1])
+
+
+def lane_share(work: torch.Tensor, warp: int = 32) -> float:
+    """The lanes' share of a one-thread-per-pair kernel's work: the work
+    each pair needs (launch order, [B]) over what its warps run, each of
+    their lanes as long as the warp's slowest (the last warp's lanes
+    only)."""
+    w = work.to(torch.float64)
+    pad = (-w.numel()) % warp
+    most = torch.nn.functional.pad(w, (0, pad)).view(-1, warp).amax(1)
+    lanes = torch.full_like(most, warp)
+    lanes[-1] -= pad
+    return float(w.sum() / (most * lanes).sum())
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1544,9 +1561,6 @@ def main() -> int:
                             (q, t, ql, tl, P), {}),
         "local_start": (cuda_align.local_start,
                         scan_align_full._local_start_core, st_local, {}),
-        "semiglobal_start": (cuda_align.semiglobal_start,
-                             scan_align_full._semiglobal_start_core,
-                             st_semi, st_flags),
     }
     walks = {
         "tb_walk": (tb_res.tb, tb_res.score, tb_res.query_end,
@@ -1555,20 +1569,27 @@ def main() -> int:
         "tb_walk.semiglobal": (s_res.tb, s_res.score, sj0, si0, PS,
                                "semiglobal"),
     }
-    # local_sw's score and end modes as launches alone (the score modes on
-    # the inputs with the pads already remapped), int32 and 16-bit in
-    # turns: A, B, B, A, each the mean of its two readings
+    # local_sw's score, end and TB modes as launches alone on their
+    # allocated outputs (the score modes on the inputs with the pads
+    # already remapped), int32 and 16-bit in turns: A, B, B, A (TB: A, B,
+    # C, C, B, A with END and END16), each the mean of its two readings
     Qs, Ts = cuda_align._pads_to_sentinels(Q, 16), cuda_align._pads_to_sentinels(T, 17)
-    modes = {"local_sw.score": lambda: cuda_align._launch("score", Qs, Ts, P, False),
-             "local_sw.score16": lambda: cuda_align._launch("score16", Qs, Ts, P,
-                                                            False),
-             "local_sw.end": lambda: cuda_align._launch("end", Q, T, P, True),
-             "local_sw.end16": lambda: cuda_align._launch("end16", Q, T, P, True)}
+    l_args = {f"local_sw.{m}": cuda_align.local_launch_args(
+        m, *((Qs, Ts, P, False) if "score" in m else (Q, T, P, True)))
+        for m in ("score", "score16", "end", "end16", "tb")}
+    modes = {k: lambda a=a: cuda_align.launch_local(a)
+             for k, a in l_args.items()}
     ms = {k: 0.0 for k in modes}
-    for a, b in (("local_sw.score", "local_sw.score16"),
-                 ("local_sw.end", "local_sw.end16")):
-        for k in (a, b, b, a):
-            ms[k] += cuda_ms(modes[k], 20) / 2
+    for group in (("local_sw.score", "local_sw.score16"),
+                  ("local_sw.end", "local_sw.end16", "local_sw.tb")):
+        for k in group + group[::-1]:
+            ms[k] += cuda_ms(modes[k], 5 if k == "local_sw.tb" else 20) / 2
+    # semiglobal_start as a launch alone on its laid-out inputs, its
+    # ordering by row_count (the argsort, gathers and scatter) included
+    sgs_args = cuda_align.semiglobal_start_launch_args(
+        st_semi[0].T, st_semi[1].T, *st_semi[2:], **st_flags)
+    ms["semiglobal_start"] = cuda_ms(
+        lambda: cuda_align.launch_semiglobal_start(sgs_args), 10)
     # global_sw's score and TB modes as launches alone, in turns (A, B, B,
     # A), on the time-major inputs and their allocated outputs
     g_args = {k: cuda_align.global_launch_args(Q, T, ql, tl, PG,
@@ -1579,8 +1600,6 @@ def main() -> int:
         ms[k] = ms.get(k, 0.0) + cuda_ms(
             lambda a=g_args[k]: cuda_align.launch_global(a), 5) / 2
     ms |= {
-        "local_sw.tb": cuda_ms(
-            lambda: cuda_align.local_align(q, t, P, with_tb=True), 5),
         "semiglobal_sw.end": cuda_ms(
             lambda: cuda_align.semiglobal_align(q, t, ql, tl, PS, **sg), 10),
         "semiglobal_sw.tb": cuda_ms(
@@ -1669,8 +1688,27 @@ def main() -> int:
         err[k] = max(err[k], max_abs_err(kern(*a, **kw), plain(*a, **kw)))
     plain16 = local_align_batch16(q, t, P)
     for k in modes:
-        want = plain16[:1] if "score" in k else plain16[:3]
+        if k == "local_sw.tb":   # the cube word for word
+            want = local_align_batch(q, t, P, with_tb=True)
+        else:
+            want = plain16[:1] if "score" in k else plain16[:3]
         err[k] = max(err[k], max_abs_err(modes[k]()[:len(want)], want))
+    del want
+    # semiglobal_start's launch alone under all 16 HEAD x TAIL flags, fed
+    # the semiglobal END kernel's forward result
+    plain_ms["semiglobal_start"] = cuda_ms(
+        lambda: scan_align_full._semiglobal_start_core(*st_semi, **st_flags),
+        1)
+    for head in SKIPS:
+        for tail in SKIPS:
+            fwd = cuda_align.semiglobal_align(q, t, ql, tl, PS, head=head,
+                                              tail=tail)
+            a_, fl = semiglobal_start_args(q, t, ql, tl, fwd, head, tail)
+            got = cuda_align.launch_semiglobal_start(
+                cuda_align.semiglobal_start_launch_args(a_[0].T, a_[1].T,
+                                                        *a_[2:], **fl))
+            err["semiglobal_start"] = max(err["semiglobal_start"], max_abs_err(
+                got, scan_align_full._semiglobal_start_core(*a_, **fl)))
     if any(err.values()):
         raise AssertionError(f"kernels disagree with their plain versions "
                              f"at the timing shape: {err}")
@@ -1683,7 +1721,8 @@ def main() -> int:
         "banded": band_cells(qln, tln, BENCH_BAND),
     }
     col, strip, _ = cuda_align.local_start(*st_local)
-    start_cells = int(((strip.long() * BENCH_L + col + 1) * 8).sum())
+    start_cols = strip.long() * BENCH_L + col + 1
+    start_cells = int(start_cols.sum()) * 8
     semi_strips = scan_align_full._semiglobal_start_core(
         *st_semi, **st_flags, count_strips=True)[2]
     semi_cells = int(semi_strips.long().sum()) * 8 * BENCH_L
@@ -1757,8 +1796,22 @@ def main() -> int:
         f"{ms['global_sw.score'] / loc:.3f}x local_sw.score {loc:.4f} ms; "
         f"semiglobal_sw.tb (NONE/BOTH, wrapper) {ms['semiglobal_sw.tb']:.4f} "
         f"ms; on {smi}")
+    log("5 timings", f"local_sw, launches alone in turns: tb "
+        f"{ms['local_sw.tb']:.4f} ms = {ms['local_sw.tb'] / ms['local_sw.end']:.3f}"
+        f"x end {ms['local_sw.end']:.4f} ms; on {smi}")
+    # the lanes' share of the start passes' work: each pair's strips
+    # (semiglobal_start, from the plain version) or columns (local_start,
+    # from the kernel's stop) over what its warp runs, in the order the
+    # pairs come in and, for semiglobal_start, in the order it launches
+    # them (by row_count)
+    log("5 timings", f"lanes' share of the work: semiglobal_start "
+        f"{lane_share(semi_strips):.4f} in the pairs' order, "
+        f"{lane_share(semi_strips[torch.argsort(st_semi[5])]):.4f} as "
+        f"launched ({int(semi_strips.sum())} strips); local_start "
+        f"{lane_share(start_cols):.4f} ({int(start_cols.sum())} columns); "
+        f"B={BENCH_B} {BENCH_L}x{BENCH_L}")
     from tools.sass_report import kernel_of, ptxas_lines
-    for name in ("ksw_extend", "global_sw"):
+    for name in ("ksw_extend", "global_sw", "local_sw", "semiglobal_start"):
         log_text = (_build.BUILD_DIR / f"{name}.log").read_text()
         for fn, line in ptxas_lines(log_text).items():
             log("5 timings", f"ptxas {name}.cu {kernel_of(fn)}: {line}")

@@ -44,8 +44,24 @@
 // Bound: integer ALU work per cell (about 12 operations in SCORE, 15 in
 // END, 25 in TB, 20 in SECOND) plus, in TB, the nibble-cube writes (4
 // bytes per 8 cells, the only device-memory traffic that grows with the
-// cell count besides the gH/gE carry).  This first design is the simple
-// one: DPX __vimax3_s32 and shared-memory carries are left to later work.
+// cell count besides the gH/gE carry).
+//
+// What held the first design's TB mode at 4.9x its END mode, for 1.7x the
+// work (PERF.md's findings, from tools/sass_report.py and
+// tools/kernel_variants.py on an H100), was not the cell: it was each
+// column's query code and carry, loaded at the column's top and used a
+// few instructions later, as in global_sw.cu's first design.  With the
+// loads there, a mode's time depended on how nvcc scheduled its column:
+// SCORE took 2.3 ms or, with only its maxima written differently (nvcc
+// then unrolled the column loop by two), 10.6.  Here every mode loads
+// the next column's code and carry before computing its own (the
+// boundary values where s == 0); that alone took TB from 11.0 to 2.4 ms.
+// The cell takes Hopper's DPX maxima: __vimax3_s32_relu
+// (VIMNMX3) for h and __viaddmax_s32 (VIADDMNMX) for the gap chains, and
+// TB's extension bits compare the pre-update chains with tmp - gapo, so
+// no u - ge or e - ge is formed.  The best tracking (strict '>', the
+// earliest cell in visit order) is LOCAL's own work and stays in every
+// cell.
 //
 // SCORE16 / END16 (local_sw16_kernel) run one thread per two adjacent
 // pairs (2k, 2k+1): H, E, f, diag and best of both pairs sit packed as
@@ -105,6 +121,7 @@ local_sw_kernel(const uint8_t* __restrict__ Q,  // [Lq, B]
     qr8 = (qlen[b] + 7) / 8 * 8;
     tr8 = (tlen[b] + 7) / 8 * 8;
   }
+  const int gapo = goe - ge;
   const int n_strips = Lt >> 3;
   for (int s = 0; s < n_strips; ++s) {
     int tc[8];
@@ -117,11 +134,20 @@ local_sw_kernel(const uint8_t* __restrict__ Q,  // [Lq, B]
       f[c] = 0;
     }
     int diag0 = 0;  // H(strip row -1, j-1): the previous column's carry
+    // column 0's query code and carry from the strip above; each column
+    // loads the next one's before computing its own
+    int qn = Q[b];
+    int hn = s ? gH[b] : 0;
+    int en = s ? gE[b] : 0;
     for (int j = 0; j < Lq; ++j) {
       const size_t at = static_cast<size_t>(j) * sB + b;
-      const int qc = Q[at];
-      const int hcol = s ? gH[at] : 0;
-      int e = s ? gE[at] : 0;
+      const int qc = qn, hcol = hn;
+      int e = en;
+      if (j + 1 < Lq) {
+        qn = Q[at + sB];
+        hn = s ? gH[at + sB] : 0;
+        en = s ? gE[at + sB] : 0;
+      }
       int diag = diag0;
       uint32_t word = 0;
 #pragma unroll
@@ -130,7 +156,8 @@ local_sw_kernel(const uint8_t* __restrict__ Q,  // [Lq, B]
         if (WITH_N && (qc == kN4 || tc[c] == kN4)) sub = n_score;
         const int tmp = diag + sub;
         const int u = f[c];
-        const int h = max(max(tmp, u), max(e, 0));
+        const int tmpg = tmp - goe;
+        const int h = __vimax3_s32_relu(tmp, u, e);
         if (MODE == SCORE) {
           best = max(best, h);
         } else if (h > best) {
@@ -142,16 +169,16 @@ local_sw_kernel(const uint8_t* __restrict__ Q,  // [Lq, B]
           best2 = h;
           tend2 = s * 8 + c;
         }
-        const int tmpg = tmp - goe;
         if (MODE == TB) {
-          // direction from the pre-update chains (pallas_align.py:776-787)
-          const int d = (h == tmp) ? (sub >= 0 ? 0 : 1) : (h == u ? 3 : 2);
-          const int f_ext = tmpg > u - ge ? 0 : 1;
-          const int e_ext = tmpg > e - ge ? 0 : 1;
-          word |= static_cast<uint32_t>(d | (e_ext << 2) | (f_ext << 3)) << (4 * c);
+          // direction from the pre-update chains (pallas_align.py:776-
+          // 787); f_ext = !(tmp - goe > u - ge) = (u >= tmp - gapo)
+          const int tg = tmp - gapo;
+          const uint32_t d = (h == tmp) ? static_cast<uint32_t>(sub) >> 31
+                                        : (h == u ? 3u : 2u);
+          word |= (d | (e >= tg ? 4u : 0u) | (u >= tg ? 8u : 0u)) << (4 * c);
         }
-        f[c] = max(tmpg, u - ge);
-        e = max(tmpg, e - ge);
+        f[c] = __viaddmax_s32(u, -ge, tmpg);
+        e = __viaddmax_s32(e, -ge, tmpg);
         diag = hp[c];
         hp[c] = h;
       }

@@ -29,8 +29,22 @@
 // Output: tstart = tlen-1 - row, qstart = qlen-1 - x.
 //
 // Bound: integer ALU work per cell (about 14 operations, as END) over the
-// strips up to the one that reaches the score.  The simple design of
-// semiglobal_sw.cu; DPX and packed 16-bit cells are left to later work.
+// strips up to the one that reaches the score.
+//
+// The first design (semiglobal_sw.cu's column loop) ran at 30% of that
+// bound, and most of what it lost was idle lanes: a warp runs as many
+// strips as its longest pair, and at bench.py's shape its lanes did 0.585
+// of the strips the warps ran.  The wrapper (cuda_align.by_row_count)
+// therefore launches the pairs ordered by row_count, which bounds each
+// pair's strips (0.967 there).  In the kernel, TAIL_T's capture, which
+// the first design tested in every cell though only column qlen-1 can
+// take it, is one pass over the column's eight rows after that column,
+// in row order; and the next column's query code and carry are loaded
+// before this column is computed (the init boundary where s == 0, which
+// is where no strip has run), with no branch on whether a strip ran.
+// nvcc already forms the DPX maxima (VIADDMNMX) from these max()
+// expressions; writing them as __viaddmax_s32 / __vimax3_s32 made the
+// kernel slower (PERF.md section 6, tools/kernel_variants.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,18 +97,22 @@ __global__ void __launch_bounds__(kThreads) semiglobal_start_kernel(const Args a
       p[c] = (HEAD_T || r == 0) ? 0 : -(gapo + ge * r);
       f[c] = kMinusInf;
     }
+    // column 0's query code and carry (the boundary where no strip ran:
+    // carried is s > 0 inside this loop); each column loads the next
+    // one's before computing its own
+    int qn = a.Q[b];
+    int hn = s ? a.gH[b] : 0;
+    int en = s ? a.gE[b] : kMinusInf;
     for (int j = 0; j < Lq; ++j) {
       const size_t at = static_cast<size_t>(j) * sB + b;
-      const int qc = a.Q[at];
-      int hup, e;
-      if (carried) {
-        hup = a.gH[at];
-        e = a.gE[at];
-      } else {
-        hup = (HEAD_Q || j == 0) ? 0 : -(gapo + ge * j);
-        e = kMinusInf;
+      const int qc = qn, hup = hn;
+      int e = en;
+      if (j + 1 < Lq) {
+        qn = a.Q[at + sB];
+        hn = s ? a.gH[at + sB] : (HEAD_Q ? 0 : -(gapo + ge * (j + 1)));
+        en = s ? a.gE[at + sB] : kMinusInf;
       }
-      const int hup0 = hup, e0 = e;
+      const int e0 = e;
       int phd = hup - goe;
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
@@ -104,17 +122,23 @@ __global__ void __launch_bounds__(kThreads) semiglobal_start_kernel(const Args a
         const int tmp = p[c] + sub;
         e = max(phd, e - ge);
         const int h = max(max(tmp, fc), e);
-        const int r = s * 8 + c;
-        if (TAIL_T && j == jl && r < rcnt && r + roff < tl && h > best) {
-          best = h;
-          row = r + roff;
-        }
         f[c] = fc;
         p[c] = phd + goe;
         phd = h - goe;
         hl[c] = h;
       }
-      a.gH[at] = keep ? hl[7] : hup0;
+      // TAIL_T's column, once: its rows in order, as the cells were visited
+      if (TAIL_T && j == jl) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int r = s * 8 + c;
+          if (r < rcnt && r + roff < tl && hl[c] > best) {
+            best = hl[c];
+            row = r + roff;
+          }
+        }
+      }
+      a.gH[at] = keep ? hl[7] : hup;
       a.gE[at] = keep ? e : e0;
     }
     carried = true;

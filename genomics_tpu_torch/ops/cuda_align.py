@@ -72,6 +72,7 @@ LAUNCHES = {"local_sw.score": 0, "local_sw.end": 0, "local_sw.tb": 0,
             "semiglobal_start": 0, "ksw.end": 0, "ksw.score": 0,
             "banded_sw.end": 0, "banded_sw.score": 0}
 _LOCAL_MODES = {"score": 0, "end": 1, "tb": 2, "score16": 4, "end16": 5}
+_LOCAL_NAMES = {v: k for k, v in _LOCAL_MODES.items()}
 # The JAX package's range checks on the best score, match x Lq < limit:
 # the ends' (pallas_align.py:904) and the scores' (:1098).
 END16_LIMIT = (1 << 15) - 1
@@ -231,23 +232,36 @@ def local_mode(ends: bool, Lq: int, params: AlignmentParams,
             else "score")
 
 
-def _launch(mode: str, Q: torch.Tensor, T: torch.Tensor,
-            params: AlignmentParams, with_n: bool):
-    """Run local_sw in `mode` on time-major Q [Lq, B], T [Lt, B] uint8.
-    Returns (score, qend, tend, tb); qend/tend are None in the score modes
+def local_launch_args(mode: str, Q: torch.Tensor, T: torch.Tensor,
+                      params: AlignmentParams, with_n: bool) -> tuple:
+    """local_sw_launch's arguments but the stream, for time-major Q
+    [Lq, B], T [Lt, B] uint8 in `mode` (a key of _LOCAL_MODES): the
+    mode's number, with_n, the inputs, the carries and the outputs
+    (score, qend, tend, tb), last; qend/tend are None in the score modes
     and tb is the sqb cube [Lt//8, Lq, B] in tb mode."""
     Q, T = Q.contiguous(), T.contiguous()
     Lq, B = Q.shape
     score, qend, tend, tb, gH, gE = _outputs(
         "local_sw", mode, Q, T, not mode.startswith("score"))
-    if B:
-        _call(f"local_sw.{mode}", Q.device, _LOCAL_MODES[mode], int(with_n),
-              Q.data_ptr(), T.data_ptr(), B, Lq, T.shape[0], params.match,
-              params.mismatch, _n_score(params), params.gap_oe,
-              params.gap_extend,
-              gH.data_ptr(), gE.data_ptr(), score.data_ptr(), _ptr(qend),
-              _ptr(tend), _ptr(tb))
-    return score, qend, tend, tb
+    return (_LOCAL_MODES[mode], int(with_n), Q, T, B, Lq, T.shape[0],
+            params.match, params.mismatch, _n_score(params), params.gap_oe,
+            params.gap_extend, gH, gE, score, qend, tend, tb)
+
+
+def launch_local(args: tuple):
+    """Launch local_sw on `local_launch_args`'s arguments (B > 0) and
+    count it under local_sw.<mode>; returns (score, qend, tend, tb)."""
+    _call(f"local_sw.{_LOCAL_NAMES[args[0]]}", args[2].device, *args)
+    return args[-4:]
+
+
+def _launch(mode: str, Q: torch.Tensor, T: torch.Tensor,
+            params: AlignmentParams, with_n: bool):
+    """Run local_sw in `mode` on time-major Q [Lq, B], T [Lt, B] uint8.
+    Returns (score, qend, tend, tb); qend/tend are None in the score modes
+    and tb is the sqb cube [Lt//8, Lq, B] in tb mode."""
+    args = local_launch_args(mode, Q, T, params, with_n)
+    return launch_local(args) if args[4] else args[-4:]
 
 
 def local_align(
@@ -435,19 +449,54 @@ def semiglobal_start(
     if on_cpu(rev_q):
         return scan_align_full._semiglobal_start_core(
             rev_q, rev_t, *per_pair, params, **flags)
-    Q, T = rev_q.T.contiguous(), rev_t.T.contiguous()
-    per_pair = [x.contiguous() for x in per_pair]
+    args = semiglobal_start_launch_args(rev_q.T, rev_t.T, *per_pair, params,
+                                        **flags)
+    return launch_semiglobal_start(args) if args[9] else args[-2:]
+
+
+def semiglobal_start_launch_args(Q: torch.Tensor, T: torch.Tensor, qlen,
+                                 tlen, row_off, row_count, fwd_score,
+                                 fwd_qend, params: AlignmentParams, *,
+                                 head_q: bool, head_t: bool, tail_q: bool,
+                                 tail_t: bool) -> tuple:
+    """semiglobal_start_launch's arguments but the stream, for time-major
+    reversed Q [Lq, B], T [Lt, B] uint8 and the [B] int32 per-pair inputs
+    of `semiglobal_start`: the skip flags, the inputs, the [Lq, B]
+    carries and the [B] tstart, qstart, last."""
+    Q, T = Q.contiguous(), T.contiguous()
+    per_pair = [x.contiguous() for x in (qlen, tlen, row_off, row_count,
+                                         fwd_score, fwd_qend)]
     Lq, B = Q.shape
     gH, gE = _carry("semiglobal_start", Q, T)
     tstart, qstart = _per_pair(2, Q)
-    if B:
-        _call("semiglobal_start", Q.device, _skip_flags(**flags),
-              Q.data_ptr(), T.data_ptr(), *(x.data_ptr() for x in per_pair),
-              B, Lq, T.shape[0], params.match, params.mismatch,
-              _n_score(params), params.gap_open, params.gap_extend,
-              gH.data_ptr(), gE.data_ptr(), tstart.data_ptr(),
-              qstart.data_ptr())
-    return tstart, qstart
+    return (_skip_flags(head_q, head_t, tail_q, tail_t), Q, T, *per_pair, B,
+            Lq, T.shape[0], params.match, params.mismatch, _n_score(params),
+            params.gap_open, params.gap_extend, gH, gE, tstart, qstart)
+
+
+def by_row_count(args: tuple):
+    """`semiglobal_start_launch_args`'s arguments with the pairs ordered
+    by row_count (the inputs gathered, fresh [B] starts), and the order.
+    One thread runs one pair, a warp as many strips as its longest pair,
+    and row_count bounds a pair's strips: at bench.py's shape the lanes
+    did 0.585 of the strips their warps ran in the launch's order and
+    0.967 in this one (PERF.md section 6)."""
+    order = torch.argsort(args[6])
+    return (args[0], args[1].index_select(1, order),
+            args[2].index_select(1, order),
+            *(x.index_select(0, order) for x in args[3:9]), *args[9:-2],
+            torch.empty_like(args[-2]), torch.empty_like(args[-1])), order
+
+
+def launch_semiglobal_start(args: tuple):
+    """Launch semiglobal_start on `semiglobal_start_launch_args`'s
+    arguments (B > 0), its pairs ordered by row_count (`by_row_count`),
+    and count it; returns (tstart, qstart) in the arguments' order."""
+    ordered, order = by_row_count(args)
+    _call("semiglobal_start", args[1].device, *ordered)
+    for out, got in zip(args[-2:], ordered[-2:]):
+        out.index_copy_(0, order, got)
+    return args[-2:]
 
 
 def _pads_to_sentinels(a: torch.Tensor, code: int) -> torch.Tensor:

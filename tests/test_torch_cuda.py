@@ -548,6 +548,114 @@ def test_global_engine_cigars_at_ties_match_cpu(cuda, gap_open):
         (b.score, b.cigar_string) for b in want]
 
 
+@pytest.mark.parametrize("n_penalty", [None, 1], ids=["no_npen", "npen"])
+def test_local_tb_cube_at_ties_matches_plain(cuda, n_penalty):
+    """Every word of the LOCAL TB cube equal to the plain version's where
+    match = mismatch = gap_extend = 1 (gap_open 0) over two letters, so
+    that the maxima, the extension compares and the best tracking tie
+    everywhere; END and SECOND too."""
+    p = AlignmentParams(match=1, mismatch=1, gap_open=0, gap_extend=1,
+                        n_penalty=n_penalty)
+    q, t, ql, tl = [x.to(cuda) for x in _two_letters(25, 1024 + 37, 64, 0.03)]
+    want = local_align_batch(q, t, p, with_tb=True)
+    got = cuda_align.local_align(q, t, p, with_tb=True)
+    got_e = cuda_align._launch("end", q.T, t.T, p, True)
+    got_2 = cuda_align.local_align_second(q, t, ql, tl, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got.tb, want.tb)
+    _assert_equal(got, want)
+    _assert_equal(got_e[:3], want[:3])
+    _assert_equal(got_2, scan_align_full.local_align_second_batch(q, t, ql,
+                                                                  tl, p))
+
+
+@pytest.mark.parametrize("B", [1, 129])
+@pytest.mark.parametrize("Lq", [1, 9])
+def test_local_modes_at_the_edges_match_plain(cuda, B, Lq):
+    """SCORE (with and without the N compare), END, TB and SECOND on one
+    strip (Lt = 8) at Lq 1 (no column loaded ahead) and 9, on one pair
+    and on a block of 128 plus one with a single live thread."""
+    p = AlignmentParams(n_penalty=2)
+    q, t, ql, tl = [x.to(cuda) for x in _batch(26 + B + Lq, B, Lq, 8, 0.05)]
+    want = local_align_batch(q, t, p, with_tb=True)
+    counts = dict(cuda_align.LAUNCHES)
+    Qs, Ts = (cuda_align._pads_to_sentinels(x.T, c) for x, c in ((q, 16),
+                                                                 (t, 17)))
+    free = local_align_batch(Qs.T, Ts.T, p).score
+    got = {m: cuda_align._launch(m, q.T, t.T, p, True)
+           for m in ("score", "end", "tb")}
+    got_free = cuda_align._launch("score", Qs, Ts, p, False)[0]
+    got_2 = cuda_align.local_align_second(q, t, ql, tl, p)
+    torch.cuda.synchronize()
+    for key, n in (("local_sw.score", 2), ("local_sw.end", 1),
+                   ("local_sw.tb", 1), ("local_sw.second", 1)):
+        assert cuda_align.LAUNCHES[key] == counts[key] + n
+    _assert_equal(got["score"][:1], want[:1])
+    _assert_equal(got["end"][:3], want[:3])
+    _assert_equal(got["tb"], want)
+    _assert_equal([got_free], [free])
+    _assert_equal(got_2, scan_align_full.local_align_second_batch(q, t, ql,
+                                                                  tl, p))
+
+
+@pytest.mark.parametrize("head,tail", list(itertools.product(SKIPS, SKIPS)),
+                         ids=lambda s: s.name)
+def test_semiglobal_start_at_the_edges_matches_plain(cuda, head, tail):
+    """Lq = 1 (no column loaded ahead), suffixes of 0 and 8 rows, and
+    forward scores that no strip reaches (the loop runs to row_count)
+    beside reachable ones, B = 129."""
+    rng = np.random.default_rng(27)
+    B, Lt = 129, 16
+    rev_q = torch.from_numpy(ACGT[rng.integers(0, 4, (B, 1))])
+    rev_t = torch.from_numpy(ACGT[rng.integers(0, 4, (B, Lt))])
+    row_off = torch.from_numpy(8 * rng.integers(0, 2, B).astype(np.int32))
+    row_count = torch.from_numpy(8 * rng.integers(0, 2, B).astype(np.int32))
+    tlen = torch.from_numpy(rng.integers(1, Lt + 9, B).astype(np.int32))
+    fwd = rng.integers(-12, 4, B).astype(np.int32)
+    fwd[rng.random(B) < 0.5] = 1 << 20
+    per_pair = [x.to(cuda) for x in (
+        torch.ones(B, dtype=torch.int32), tlen, row_off, row_count,
+        torch.from_numpy(fwd), torch.zeros(B, dtype=torch.int32))]
+    p = AlignmentParams(algo=AlgoType.SEMI_GLOBAL)
+    flags = scan_align_full.skip_flags(head, tail)
+    args = (rev_q.to(cuda), rev_t.to(cuda), *per_pair, p)
+    want = scan_align_full._semiglobal_start_core(*args, **flags)
+    before = cuda_align.LAUNCHES["semiglobal_start"]
+    got = cuda_align.semiglobal_start(*args, **flags)
+    torch.cuda.synchronize()
+    assert cuda_align.LAUNCHES["semiglobal_start"] == before + 1
+    _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["local_sw.tb", "semiglobal_start"])
+def test_align_launch_alone_matches_the_wrapper(cuda, kernel):
+    """The launch on laid-out inputs (what chip_smoke.py times) gives the
+    wrapper's result and counts one launch."""
+    q, t, ql, tl = [x.to(cuda) for x in _batch(28, 1024 + 37, 40, 48, 0.03)]
+    if kernel == "local_sw.tb":
+        p = AlignmentParams()
+        want = cuda_align.local_align(q, t, p, with_tb=True)
+        args = cuda_align.local_launch_args("tb", q.T, t.T, p, True)
+        before = cuda_align.LAUNCHES[kernel]
+        got = cuda_align.launch_local(args)
+    else:
+        p = AlignmentParams(algo=AlgoType.SEMI_GLOBAL)
+        sg = dict(head=SemiGlobalSkip.NONE, tail=SemiGlobalSkip.BOTH)
+        fwd = cuda_align.semiglobal_align(q, t, ql, tl, p, **sg)
+        rev = scan_align_full.semiglobal_start_inputs(q, t, ql, tl,
+                                                      fwd.target_end)
+        per_pair = (ql, tl, *rev[2:], fwd.score, fwd.query_end)
+        flags = scan_align_full.skip_flags(**sg)
+        want = cuda_align.semiglobal_start(*rev[:2], *per_pair, p, **flags)
+        args = cuda_align.semiglobal_start_launch_args(
+            rev[0].T, rev[1].T, *per_pair, p, **flags)
+        before = cuda_align.LAUNCHES[kernel]
+        got = cuda_align.launch_semiglobal_start(args)
+    torch.cuda.synchronize()
+    assert cuda_align.LAUNCHES[kernel] == before + 1
+    _assert_equal(got, want)
+
+
 @pytest.mark.parametrize("band", [1, 2, 4, 9])
 @pytest.mark.parametrize("params", [
     AlignmentParams(algo=AlgoType.BANDED),

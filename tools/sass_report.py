@@ -5,7 +5,8 @@ of every loop, counted per cell.
     python3 tools/sass_report.py [--out DIR] [--src CSRC] [KERNEL ...]
 
 Builds `csrc/<KERNEL>.cu` (default: global_sw, semiglobal_sw, local_sw,
-ksw_extend) with the port's own nvcc flags into DIR (default
+ksw_extend, semiglobal_start) with the port's own nvcc flags, one nvcc
+per source, all started together, into DIR (default
 chiprun_out/sass), disassembles each library with cuobjdump and, for
 every kernel function, prints its ptxas line (registers, stack frame,
 spills, shared memory) and every loop (a backward branch to a label):
@@ -106,20 +107,23 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("kernels", nargs="*",
                     default=["global_sw", "semiglobal_sw", "local_sw",
-                             "ksw_extend"])
+                             "ksw_extend", "semiglobal_start"])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "sass"))
     ap.add_argument("--src", default=str(_build.CSRC))
     args = ap.parse_args()
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     tool = Path(_build.nvcc()).with_name("cuobjdump")
-    for name in args.kernels:
+    builds = {name: subprocess.Popen(
+        [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"),
+         str(Path(args.src) / f"{name}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name in args.kernels}
+    for name, proc in builds.items():
         lib = out / f"lib{name}.so"
-        proc = subprocess.run(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-             str(Path(args.src) / f"{name}.cu")],
-            capture_output=True, text=True, check=True)
-        res = ptxas_lines(proc.stderr)
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {name}:\n{err}")
+        res = ptxas_lines(err)
         sass = subprocess.run([str(tool), "-sass", str(lib)],
                               capture_output=True, text=True,
                               check=True).stdout

@@ -138,17 +138,11 @@ def variants(parent: Path) -> dict[str, str]:
             "this": this}
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", required=True)
-    ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "tb_variants"))
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("tb_variants: no CUDA device", file=sys.stderr)
-        return 2
-    out = Path(args.out)
+def build_variants(srcs: dict[str, str], out: Path):
+    """Write each variant's source to out/<name>.cu and build it into
+    out/<name>.so with the port's nvcc flags, one nvcc per source, all
+    started together."""
     out.mkdir(parents=True, exist_ok=True)
-    srcs = variants(Path(args.parent))
     jobs = {}
     for name, text in srcs.items():
         cu = out / f"{name}.cu"
@@ -161,6 +155,19 @@ def main() -> int:
         _, err = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{err}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True)
+    ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "tb_variants"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("tb_variants: no CUDA device", file=sys.stderr)
+        return 2
+    out = Path(args.out)
+    srcs = variants(Path(args.parent))
+    build_variants(srcs, out)
 
     dev = torch.device("cuda", 0)
     qn, tn, qln, tln = random_codes(np.random.default_rng(0), BENCH_B,
