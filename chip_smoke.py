@@ -75,11 +75,17 @@ Run from the root of a checkout.  Phases, one line each:
             cube word for word; global_sw SCORE and TB as launches
             alone, in turns; semiglobal_start as a launch alone, held to
             its plain version under all 16 HEAD x TAIL flags; the lanes'
-            share of the two start passes' work; KSW with h0 = 30 as
-            launches alone in both row layouts, in turns, each also as a
-            ratio to local_sw SCORE; BANDED with a band of 4 tiles, as
-            benchmarks/run_all.py runs them; ptxas's resources of
-            ksw_extend, global_sw, local_sw and semiglobal_start), PairHMM at
+            share of the start passes' and BANDED's work in the pairs'
+            order and as launched, local_start's cells counted at qr8
+            columns a strip and at 152; local_start fed the END kernel's
+            result and ordered by qr8 x tr8 as a launch alone; KSW with
+            h0 = 30 as launches alone in both row layouts, in turns, each
+            also as a ratio to local_sw SCORE; BANDED with a band of 4
+            tiles, as benchmarks/run_all.py runs them, END and SCORE as
+            launches alone in turns; local_start and BANDED also at the
+            engine's own launches (phase 4's pairs in its buckets);
+            ptxas's resources of ksw_extend, global_sw, local_sw,
+            semiglobal_start, local_start and banded_sw), PairHMM at
             B=16,384 x 128 x 128 and Myers at B=16,384, Lp 96, Lt 152
             (run_all.py's shapes; the launch alone on inputs already in
             the kernel's layout, and the wrapper with its layout passes
@@ -235,18 +241,23 @@ def bound(ops: float, nbytes: float, peak: float) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def band_cells(qlen: np.ndarray, tlen: np.ndarray, band: int) -> int:
-    """Cells of banded.h's band over a batch: in strip ib < tr, the query
-    tiles [max(0, ib - k_other + 1), min(band + ib, qr)), 64 cells each."""
-    qr = (qlen.astype(np.int64) + 7) // 8
-    tr = (tlen.astype(np.int64) + 7) // 8
+def band_windows(qlen: np.ndarray, tlen: np.ndarray, band: int) -> np.ndarray:
+    """[B, strips] int64: the query tiles of banded.h's band in each strip
+    ib of each pair, [max(0, ib - k_other + 1), min(band + ib, qr)) for
+    ib < tr and none past it.  A row's sum is the pair's work (64 cells a
+    tile), the max the widest window of live columns."""
+    qr = (np.asarray(qlen, np.int64) + 7) // 8
+    tr = (np.asarray(tlen, np.int64) + 7) // 8
     k_other = tr - (qr - band)
-    total = 0
-    for ib in range(int(tr.max())):
-        lo = np.maximum(0, ib - k_other + 1)
-        hi = np.minimum(band + ib, qr)
-        total += int((np.maximum(hi - lo, 0) * (ib < tr)).sum())
-    return total * 64
+    ib = np.arange(int(tr.max()) if tr.size else 0)[None, :]
+    lo = np.maximum(0, ib - k_other[:, None] + 1)
+    hi = np.minimum(band + ib, qr[:, None])
+    return np.where(ib < tr[:, None], np.maximum(hi - lo, 0), 0)
+
+
+def band_cells(qlen: np.ndarray, tlen: np.ndarray, band: int) -> int:
+    """Cells of banded.h's band over a batch, 64 to a tile."""
+    return int(band_windows(qlen, tlen, band).sum()) * 64
 
 
 def max_abs_err(got, want) -> int:
@@ -356,6 +367,31 @@ COMPLEMENT = bytes.maketrans(b"ACGTN", b"TGCAN")
 HEADER_OPS = ">", "<", "/", "+"
 
 
+def engine_batches(qs, ts) -> dict:
+    """{(Lq, Lt): (q, t, qlen, tlen)} as numpy: the pairs of each bucket
+    of the engine (runtime.dispatch's buckets, without traceback one
+    launch each), N4-padded 4-bit codes as the engine lays them out."""
+    from genomics_tpu_torch.core.encoding import encode4
+    from genomics_tpu_torch.runtime.dispatch import _bucket_of, default_buckets
+
+    edges = default_buckets()
+    groups = {}
+    for a, b in zip(qs, ts):
+        ea, eb = encode4(a), encode4(b)
+        key = _bucket_of(len(ea), edges), _bucket_of(len(eb), edges)
+        groups.setdefault(key, []).append((ea, eb))
+    out = {}
+    for (lq, lt), pairs in sorted(groups.items()):
+        q = np.full((len(pairs), lq), 14, np.uint8)
+        t = np.full((len(pairs), lt), 14, np.uint8)
+        for k, (ea, eb) in enumerate(pairs):
+            q[k, :len(ea)] = ea
+            t[k, :len(eb)] = eb
+        out[lq, lt] = (q, t, np.array([len(a) for a, _ in pairs], np.int32),
+                       np.array([len(b) for _, b in pairs], np.int32))
+    return out
+
+
 def write_pair_fastas(dirname: str, qs, ts) -> tuple[str, str]:
     """Write the pairs to q.fasta and t.fasta under dirname, pair k's read
     under header op HEADER_OPS[k % 4] and its target under
@@ -453,7 +489,8 @@ def profile_paths(paths, smi: str):
             us = ev.self_device_time_total
             busy += us
             for name in KERNEL_SOURCES:   # global_sw is in semiglobal_sw
-                if re.search(rf"(?<![A-Za-z]){name}(16)?_kernel", ev.key):
+                if re.search(rf"(?<![A-Za-z]){name}(16|_split)?_kernel",
+                             ev.key):
                     kern[name] = kern.get(name, 0.0) + us
         pr = cProfile.Profile()
         pr.enable()
@@ -610,11 +647,20 @@ def edit_distance_dp(p: str, t: str) -> tuple[int, int, int]:
     return best, end, int(scores[-1])
 
 
+def has_ns(q, t, qlen, tlen) -> bool:
+    """Whether a batch of [B, L] codes holds an N inside a sequence (not
+    in its padding): the engine's has_n for a launch."""
+    def inside(x, n):
+        cols = torch.arange(x.shape[1], device=x.device)[None, :]
+        return (x == 14) & (cols < n[:, None])
+    return bool(inside(q, qlen).any() or inside(t, tlen).any())
+
+
 def lane_share(work: torch.Tensor, warp: int = 32) -> float:
-    """The lanes' share of a one-thread-per-pair kernel's work: the work
-    each pair needs (launch order, [B]) over what its warps run, each of
-    their lanes as long as the warp's slowest (the last warp's lanes
-    only)."""
+    """The lanes' share of a kernel's work where each warp runs `warp`
+    pairs: the work each pair needs (launch order, [B]) over what the
+    warps run, each pair as long as its warp's slowest (the last warp's
+    pairs only)."""
     w = work.to(torch.float64)
     pad = (-w.numel()) % warp
     most = torch.nn.functional.pad(w, (0, pad)).view(-1, warp).amax(1)
@@ -789,9 +835,11 @@ def main() -> int:
                           "banded_sw.end", "banded_sw.score")}
 
     def local_start_args(q, t, ql, tl, fwd):
-        rq, rt, _, _ = scan_align_full.local_start_inputs(
+        """(rev_q, rev_t, score, P, qr8, tr8) of the start pass fed the
+        forward result fwd: the plain version takes the first four."""
+        rq, rt, qr8, tr8 = scan_align_full.local_start_inputs(
             q, t, ql, tl, fwd.query_end, fwd.target_end)
-        return rq, rt, fwd.score, P
+        return rq, rt, fwd.score, P, qr8, tr8
 
     def semiglobal_start_args(q, t, ql, tl, fwd, head, tail):
         """(args, flags) of the start pass fed the forward result fwd."""
@@ -869,7 +917,7 @@ def main() -> int:
         st_args = local_start_args(q, t, ql, tl, got_end)
         e["local_start"] = max_abs_err(
             cuda_align.local_start(*st_args),
-            scan_align_full._local_start_core(*st_args))
+            scan_align_full._local_start_core(*st_args[:4]))
         # GLOBAL
         plain_g = global_align_batch(q, t, ql, tl, PG, with_tb=True)
         got_g = cuda_align.global_align(q, t, ql, tl, PG, with_tb=True)
@@ -1559,8 +1607,6 @@ def main() -> int:
         "local_sw.second": (cuda_align.local_align_second,
                             scan_align_full.local_align_second_batch,
                             (q, t, ql, tl, P), {}),
-        "local_start": (cuda_align.local_start,
-                        scan_align_full._local_start_core, st_local, {}),
     }
     walks = {
         "tb_walk": (tb_res.tb, tb_res.score, tb_res.query_end,
@@ -1590,6 +1636,12 @@ def main() -> int:
         st_semi[0].T, st_semi[1].T, *st_semi[2:], **st_flags)
     ms["semiglobal_start"] = cuda_ms(
         lambda: cuda_align.launch_semiglobal_start(sgs_args), 10)
+    # local_start the same way: its walk to the extents qr8 / tr8, its
+    # ordering by qr8 x tr8 (the key, the argsort, the gathers) included
+    ls_args = cuda_align.local_start_launch_args(
+        st_local[0].T, st_local[1].T, st_local[2], P, *st_local[4:])
+    ms["local_start"] = cuda_ms(
+        lambda: cuda_align.launch_local_start(ls_args), 10)
     # global_sw's score and TB modes as launches alone, in turns (A, B, B,
     # A), on the time-major inputs and their allocated outputs
     g_args = {k: cuda_align.global_launch_args(Q, T, ql, tl, PG,
@@ -1662,17 +1714,23 @@ def main() -> int:
     del plain_g
     plain_ms["ksw.end"] = plain_ms["ksw.score"] = cuda_ms(
         lambda: ksw_align_batch(*ksw_args), 1)
-    new_pairs = {   # name: (kernel, plain), each giving a list of tensors
-        "banded_sw.end": (lambda: cuda_align.banded_align(*band_args)[:3],
-                          lambda: banded_align_batch(*band_args)[:3]),
-        "banded_sw.score": (
-            lambda: [cuda_align.banded_align_scores(*band_args, has_n=False)],
-            lambda: [banded_align_batch(*band_args).score]),
-    }
-    for k, (kern, plain) in new_pairs.items():
-        ms[k] = cuda_ms(kern, 10)
-        plain_ms[k] = cuda_ms(plain, 1)
-        err[k] = max(err[k], max_abs_err(kern(), plain()))
+    # banded_sw's END and SCORE as launches alone on inputs already laid
+    # out (SCORE's pads remapped), in turns (A, B, B, A)
+    b_args = {"banded_sw.end": cuda_align.banded_launch_args(
+        "end", q, t, ql, tl, PB, BENCH_BAND, True),
+        "banded_sw.score": cuda_align.banded_launch_args(
+        "score", qs_k, ts_k, ql, tl, PB, BENCH_BAND, False)}
+    for k in ("banded_sw.end", "banded_sw.score", "banded_sw.score",
+              "banded_sw.end"):
+        ms[k] = ms.get(k, 0.0) + cuda_ms(
+            lambda a=b_args[k]: cuda_align.launch_banded(a), 10) / 2
+    plain_b = banded_align_batch(*band_args)
+    for k, a in b_args.items():
+        plain_ms[k] = cuda_ms(lambda: banded_align_batch(*band_args), 1)
+        got = cuda_align.launch_banded(a)
+        err[k] = max(err[k], max_abs_err(
+            got[:3] if k == "banded_sw.end" else got[:1],
+            plain_b[:3] if k == "banded_sw.end" else plain_b[:1]))
     steps, words = {}, {}
     for k, a in walks.items():
         plain_ms[k] = cuda_ms(lambda a=a: tb_walk.tb_walk_plain(*a), 1)
@@ -1720,8 +1778,17 @@ def main() -> int:
         "ksw": int(ksw_align_batch(*ksw_args, window_cells=True)[1].sum()),
         "banded": band_cells(qln, tln, BENCH_BAND),
     }
-    col, strip, _ = cuda_align.local_start(*st_local)
-    start_cols = strip.long() * BENCH_L + col + 1
+    plain_ms["local_start"] = cuda_ms(
+        lambda: scan_align_full._local_start_core(*st_local[:4]), 1)
+    col, strip, row = cuda_align.launch_local_start(ls_args)
+    err["local_start"] = max(err["local_start"], max_abs_err(
+        (col, strip, row), scan_align_full._local_start_core(*st_local[:4])))
+    # the columns each pair's walk runs to its stop (its recorded cell
+    # lies in the stop's column segment): qr8 a strip, what the inputs
+    # need and the kernel runs, and BENCH_L a strip, the full walk
+    qr8, tr8 = st_local[4:]
+    start_cols = strip.long() * qr8 + col + 1
+    start_cols_full = strip.long() * BENCH_L + col + 1
     start_cells = int(start_cols.sum()) * 8
     semi_strips = scan_align_full._semiglobal_start_core(
         *st_semi, **st_flags, count_strips=True)[2]
@@ -1740,7 +1807,7 @@ def main() -> int:
         "semiglobal_sw.end": (cells, seqs + 5 * pp),
         "semiglobal_sw.tb": (cells, seqs + 5 * pp + cube),
         "local_sw.second": (cells, seqs + 8 * pp),
-        "local_start": (start_cells, seqs + 4 * pp),
+        "local_start": (start_cells, seqs + 6 * pp),
         "semiglobal_start": (semi_cells, seqs + 8 * pp),
         "ksw.end": (covered["ksw"], seqs + 6 * pp),
         "ksw.score": (covered["ksw"], seqs + 4 * pp),
@@ -1799,19 +1866,39 @@ def main() -> int:
     log("5 timings", f"local_sw, launches alone in turns: tb "
         f"{ms['local_sw.tb']:.4f} ms = {ms['local_sw.tb'] / ms['local_sw.end']:.3f}"
         f"x end {ms['local_sw.end']:.4f} ms; on {smi}")
-    # the lanes' share of the start passes' work: each pair's strips
-    # (semiglobal_start, from the plain version) or columns (local_start,
-    # from the kernel's stop) over what its warp runs, in the order the
-    # pairs come in and, for semiglobal_start, in the order it launches
-    # them (by row_count)
+    # the lanes' share of each kernel's work over what its warps run, in
+    # the order the pairs come in and in the order the wrapper launches
+    # them: semiglobal_start's strips (from the plain version; by
+    # row_count), local_start's columns to the stop (from the kernel's
+    # stop; by qr8 x tr8, the candidate keys beside it; G threads a pair,
+    # so 32 / G pairs a warp) and banded_sw's band tiles (launched in the
+    # pairs' order; ordered by band tiles beside it)
+    by = lambda key: torch.argsort(key, descending=True)
+    wp = 32 // cuda_align.local_start_group(BENCH_B, sms)
+    ls_share = lambda key: lane_share(
+        start_cols if key is None else start_cols[by(key)], wp)
+    b_tiles = torch.from_numpy(band_windows(qln, tln, BENCH_BAND).sum(1))
     log("5 timings", f"lanes' share of the work: semiglobal_start "
         f"{lane_share(semi_strips):.4f} in the pairs' order, "
         f"{lane_share(semi_strips[torch.argsort(st_semi[5])]):.4f} as "
-        f"launched ({int(semi_strips.sum())} strips); local_start "
-        f"{lane_share(start_cols):.4f} ({int(start_cols.sum())} columns); "
-        f"B={BENCH_B} {BENCH_L}x{BENCH_L}")
+        f"launched ({int(semi_strips.sum())} strips); local_start, "
+        f"{wp} pairs a warp, {ls_share(None):.4f} in the pairs' order, "
+        f"{ls_share(qr8 * tr8):.4f} as launched (by qr8 x tr8; by tr8 "
+        f"{ls_share(tr8):.4f}, by the forward score "
+        f"{ls_share(st_local[2]):.4f}, by the true stop "
+        f"{ls_share(start_cols):.4f}; at 32 pairs a warp "
+        f"{lane_share(start_cols):.4f} and "
+        f"{lane_share(start_cols[by(qr8 * tr8)]):.4f}; "
+        f"{int(start_cols.sum())} columns to the stop at qr8 a strip, "
+        f"{int(start_cols_full.sum())} at {BENCH_L} a strip, the first "
+        f"design's walk); banded_sw {lane_share(b_tiles):.4f} in the "
+        f"pairs' order, as launched ({lane_share(b_tiles[by(b_tiles)]):.4f} "
+        f"were they ordered by band tiles; {int(b_tiles.sum())} band "
+        f"tiles); B={BENCH_B} "
+        f"{BENCH_L}x{BENCH_L}")
     from tools.sass_report import kernel_of, ptxas_lines
-    for name in ("ksw_extend", "global_sw", "local_sw", "semiglobal_start"):
+    for name in ("ksw_extend", "global_sw", "local_sw", "semiglobal_start",
+                 "local_start", "banded_sw"):
         log_text = (_build.BUILD_DIR / f"{name}.log").read_text()
         for fn, line in ptxas_lines(log_text).items():
             log("5 timings", f"ptxas {name}.cu {kernel_of(fn)}: {line}")
@@ -1852,6 +1939,53 @@ def main() -> int:
         f"SCORE16 slower at {slower or 'no size'}; END16 faster than END "
         f"from B={faster16[0] if faster16 else None} of the sweep on, on "
         f"{smi}")
+    # local_start and banded_sw at the engine's own launches: each bucket
+    # of phase 4's 20,000 pairs as one launch holds them, fed (local_start)
+    # the END kernel's forward result; launches alone (local_start's
+    # ordering included), held to the plain versions, beside their bounds
+    # and lanes' shares
+    for (lq, lt), arrays in engine_batches(qs, ts).items():
+        eq, et, eql, etl = (torch.from_numpy(x).to(dev) for x in arrays)
+        n_b = eq.shape[0]
+        ea = local_start_args(eq, et, eql, etl, cuda_align.local_align(eq, et, P))
+        e_args = cuda_align.local_start_launch_args(ea[0].T, ea[1].T, ea[2], P,
+                                                    *ea[4:])
+        e_ms = cuda_ms(lambda: cuda_align.launch_local_start(e_args), 20)
+        got = cuda_align.launch_local_start(e_args)
+        err["local_start"] = max(err["local_start"], max_abs_err(
+            got, scan_align_full._local_start_core(*ea[:4])))
+        cols = got[1].long() * ea[4] + got[0] + 1
+        wp_e = 32 // cuda_align.local_start_group(n_b, sms)
+        e_bound = bound(OPS_PER_CELL["local_start"] * 8 * int(cols.sum()),
+                        n_b * (lq + lt + 6 * 4), peak)
+        log("5 timings", f"local_start at an engine launch, B={n_b} "
+            f"{lq}x{lt}: kernel {e_ms:.4f} ms (ordering included), bound "
+            f"{e_bound[0]:.4f} ms by {e_bound[1]}, lanes' share at {wp_e} "
+            f"pairs a warp {lane_share(cols, wp_e):.4f} in the pairs' order, "
+            f"{lane_share(cols[by(ea[4] * ea[5])], wp_e):.4f} as launched; "
+            f"on {smi}")
+        # SCORE drops the N compare only where the launch holds no N
+        eqs, ets, e_n = cuda_align._no_n_inputs(eq, et,
+                                                has_ns(eq, et, eql, etl))
+        plain_e = banded_align_batch(eq, et, eql, etl, PB, BENCH_BAND)
+        tiles_e = torch.from_numpy(band_windows(*arrays[2:], BENCH_BAND)
+                                   .sum(1))
+        for k, a in (("banded_sw.end", cuda_align.banded_launch_args(
+                "end", eq, et, eql, etl, PB, BENCH_BAND, True)),
+                ("banded_sw.score", cuda_align.banded_launch_args(
+                    "score", eqs, ets, eql, etl, PB, BENCH_BAND, e_n))):
+            b_ms = cuda_ms(lambda a=a: cuda_align.launch_banded(a), 20)
+            got = cuda_align.launch_banded(a)
+            n_out = 3 if k == "banded_sw.end" else 1
+            err[k] = max(err[k], max_abs_err(got[:n_out], plain_e[:n_out]))
+            b_bound = bound(OPS_PER_CELL[k] * 64 * int(tiles_e.sum()),
+                            n_b * (lq + lt + 4 * (2 + n_out)), peak)
+            log("5 timings", f"{k} at an engine launch, B={n_b} {lq}x{lt}, "
+                f"band {BENCH_BAND}: kernel {b_ms:.4f} ms (the launch "
+                f"alone), bound {b_bound[0]:.4f} ms by {b_bound[1]}, "
+                f"lanes' share {lane_share(tiles_e):.4f} in the pairs' "
+                f"order, as launched ({lane_share(tiles_e[by(tiles_e)]):.4f}"
+                f" were they ordered by band tiles); on {smi}")
     log("5 timings", "engine, " + "; ".join(
         f"{k} {v:.3f} s ({n / v:.0f} pairs/s)" for k, v in secs.items())
         + f", {n} pairs, host clock, on {smi}")

@@ -9,8 +9,9 @@ Every function takes the plain version (`ops.scan_align`,
 hand-written kernel for tensors on a CUDA device; any other device
 raises.  There is no fallback from the kernel to the plain version.
 
-One kernel (one thread per alignment) covers every batch size, so the
-TPU's lanes / inter-task split has no counterpart here.  The modes
+One kernel (one thread per alignment; four or eight in local_start)
+covers every batch size, so the TPU's lanes / inter-task split has no
+counterpart here.  The modes
 replace these Pallas kernels:
 
   local_sw.score       `_local_kernel_intertask_score` (pallas_align.py:482)
@@ -43,6 +44,7 @@ failed launch raises like any other.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
@@ -89,9 +91,9 @@ _SIGNATURES = {
     # gE, score, qend, tend, score2, qend2, tend2, stream
     ("local_sw", "local_sw_second_launch"):
         (_vp,) * 4 + (_ci,) * 8 + (_vp,) * 9,
-    # Q, T, fwd, B, Lq, Lt, match, mismatch, n_score, goe, ge, gH, gE,
-    # col, strip, row, stream
-    ("local_start", "local_start_launch"): (_vp,) * 3 + (_ci,) * 8 + (_vp,) * 6,
+    # Q, T, fwd, qext, text, order, B, Lq, Lt, match, mismatch, n_score,
+    # goe, ge, group, gH, gE, col, strip, row, stream
+    ("local_start", "local_start_launch"): (_vp,) * 6 + (_ci,) * 9 + (_vp,) * 6,
     # mode, with_n_penalty, Q, T, qlen, tlen, B, Lq, Lt, match, mismatch,
     # n_penalty, gapo, ge, gH, gE, score, tb, stream
     ("global_sw", "global_sw_launch"):
@@ -109,10 +111,10 @@ _SIGNATURES = {
     # match, mismatch, n_score, goe, ge, eh, score, qend, tend, stream
     ("ksw_extend", "ksw_extend_launch"):
         (_ci,) * 4 + (_vp,) * 5 + (_ci,) * 8 + (_vp,) * 5,
-    # mode, with_n, Q, T, qlen, tlen, B, Lq, Lt, k_band, match, mismatch,
-    # n_score, goe, ge, gH, gE, score, qend, tend, stream
+    # mode, with_n, shared, Q, T, qlen, tlen, B, Lq, Lt, k_band, match,
+    # mismatch, n_score, goe, ge, ring, eh, score, qend, tend, stream
     ("banded_sw", "banded_sw_launch"):
-        (_ci, _ci) + (_vp,) * 4 + (_ci,) * 9 + (_vp,) * 6,
+        (_ci,) * 3 + (_vp,) * 4 + (_ci,) * 10 + (_vp,) * 5,
 }
 # library of each launch-count key whose name is not the library's
 _LIBRARY = {"ksw": "ksw_extend"}
@@ -123,6 +125,11 @@ KSW_SHARED_BYTES = 232_448
 KSW_MAX_THREADS = 256
 KSW_GLOBAL_THREADS = 128
 KSW_SHARED_MAX_LQ = KSW_SHARED_BYTES // (9 * 32) - 1
+# banded_sw keeps each 32-thread block's (h, e) carry rings (int2, `ring`
+# columns a thread) in shared memory wherever they fit a block, else in a
+# global scratch at 128 threads a block
+BANDED_SHARED_THREADS = 32
+BANDED_SHARED_MAX_RING = KSW_SHARED_BYTES // (8 * BANDED_SHARED_THREADS)
 
 
 def _check_codes(a: torch.Tensor, b: torch.Tensor, batch_dim: int):
@@ -404,27 +411,86 @@ def local_start(
     rev_t: torch.Tensor,      # [B, Lt] uint8, Lt % 8 == 0
     fwd_score: torch.Tensor,  # [B] int32, the forward score
     params: AlignmentParams,
+    qr8: torch.Tensor | None = None,  # [B] int32, the prefixes' extents
+    tr8: torch.Tensor | None = None,
 ):
     """The LOCAL reverse pass: (cprime, sstrip, r0), [B] int32 each, as
-    `pallas_align.local_start_tpu` returns them; build the inputs with
-    `scan_align_full.local_start_inputs`."""
+    `pallas_align.local_start_tpu` returns them; build the inputs (and
+    qr8 / tr8) with `scan_align_full.local_start_inputs`.  Given the
+    extents, the kernel's walk ends at them and its pairs are launched
+    ordered by qr8 x tr8 (`local_start_order`); the result is the same."""
     _check_codes(rev_q, rev_t, 0)
-    _check_lengths(rev_q, fwd_score)
+    _check_lengths(rev_q, fwd_score, *(x for x in (qr8, tr8) if x is not None))
+    if (qr8 is None) != (tr8 is None):
+        raise ValueError("pass both extents, qr8 and tr8, or neither")
     if on_cpu(rev_q):
         return scan_align_full._local_start_core(rev_q, rev_t, fwd_score,
                                                  params)
-    Q, T = rev_q.T.contiguous(), rev_t.T.contiguous()
-    fwd = fwd_score.contiguous()
+    args = local_start_launch_args(rev_q.T, rev_t.T, fwd_score, params, qr8,
+                                   tr8)
+    return launch_local_start(args) if args[6] else args[-3:]
+
+
+def local_start_group(B: int, sms: int) -> int:
+    """Threads per pair of a local_start launch of B pairs on a card with
+    `sms` SMs: 4, or 8 where 4 B threads would leave an SM without one of
+    the kernel's 128-thread blocks (4 B < 128 sms).  Four threads that
+    share a pair's strips cut its serial walk to a quarter and give an
+    SM more warps to hide the column's latency with; on an H100 they were
+    the fastest of 1, 2, 4 and 8 at bench.py's launch and at the engine's
+    larger one, and 8 at its smaller one, where 4 leave SMs without a
+    block (PERF.md section 6, tools/kernel_variants.py)."""
+    return 4 if 4 * B >= 128 * sms else 8
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def local_start_launch_args(Q: torch.Tensor, T: torch.Tensor, fwd_score,
+                            params: AlignmentParams, qr8=None, tr8=None,
+                            group: int | None = None) -> tuple:
+    """local_start_launch's arguments but the stream, for time-major
+    reversed Q [Lq, B], T [Lt, B] uint8, the [B] int32 forward scores and,
+    optionally, the extents qr8 / tr8 (None: the full Lq x Lt walk): the
+    inputs, no order, the sizes and scores, the threads per pair
+    (`group`, default `local_start_group`'s on Q's card), the [Lq, B]
+    carries and the [B] cprime, sstrip, r0, last."""
+    Q, T = Q.contiguous(), T.contiguous()
+    qr8, tr8 = (None if x is None else x.contiguous() for x in (qr8, tr8))
     Lq, B = Q.shape
+    if group is None:
+        group = local_start_group(B, _sm_count(Q.device.index or 0))
     gH, gE = _carry("local_start", Q, T)
     col, strip, row = _per_pair(3, Q)
-    if B:
-        _call("local_start", Q.device, Q.data_ptr(), T.data_ptr(),
-              fwd.data_ptr(), B, Lq, T.shape[0], params.match,
-              params.mismatch, _n_score(params), params.gap_oe,
-              params.gap_extend, gH.data_ptr(), gE.data_ptr(),
-              col.data_ptr(), strip.data_ptr(), row.data_ptr())
-    return col, strip, row
+    return (Q, T, fwd_score.contiguous(), qr8, tr8, None, B, Lq, T.shape[0],
+            params.match, params.mismatch, _n_score(params), params.gap_oe,
+            params.gap_extend, group, gH, gE, col, strip, row)
+
+
+def local_start_order(args: tuple) -> tuple:
+    """`local_start_launch_args`'s arguments (with extents) with the pairs
+    ordered by qr8 x tr8, largest first: Q's and T's columns gathered in
+    that order and the order (int32) passed on, through which the kernel
+    reads each pair's forward score and extents and writes its outputs in
+    place.  A warp runs as long as its slowest pair, and qr8 x tr8
+    bounds the cells a pair's walk visits before it stops: at bench.py's
+    shape the lanes do 0.296 of the columns their warps run in the
+    launch's order and 0.934 in this one (PERF.md section 6)."""
+    order = torch.argsort(args[3] * args[4], descending=True)
+    return (args[0].index_select(1, order), args[1].index_select(1, order),
+            *args[2:5], order.int(), *args[6:])
+
+
+def launch_local_start(args: tuple):
+    """Launch local_start on `local_start_launch_args`'s arguments (B >
+    0), with extents its pairs ordered by `local_start_order`, and count
+    it; returns (cprime, sstrip, r0) in the arguments' order."""
+    if args[3] is not None:
+        args = local_start_order(args)
+    _call("local_start", args[0].device, *args)
+    return args[-3:]
 
 
 def semiglobal_start(
@@ -629,25 +695,69 @@ def ksw_align_scores(q, t, qlen, tlen, h0, params: AlignmentParams,
     return _ksw_launch("score", q, t, qlen, tlen, h0, params, with_n)[0]
 
 
+def banded_ring(Lq: int, Lt: int, band_width_tiles: int) -> int:
+    """The columns of banded_sw's carry ring over queries padded to Lq and
+    targets padded to Lt (multiples of 8): a pair's band window is at most
+    min(qr, (2 band - 1 + tr) // 2) tiles wide (qr, tr its tiles), so
+    8 min(Lq // 8, (2 band - 1 + Lt // 8) // 2), at least 8.  A rule on
+    the shape and the band: 104 of 152 columns at bench.py's shape
+    (chip_smoke.band_windows counts the windows themselves)."""
+    tiles = min(Lq // 8, (2 * band_width_tiles - 1 + Lt // 8) // 2)
+    return 8 * max(1, tiles)
+
+
+def banded_layout(ring: int) -> str:
+    """Where banded_sw keeps its carry rings of `ring` columns: "shared"
+    (32 threads a block, 8 ring bytes each) up to BANDED_SHARED_MAX_RING
+    (908) columns, else "global" (a [B, ring] int2 scratch)."""
+    return "shared" if ring <= BANDED_SHARED_MAX_RING else "global"
+
+
+def banded_launch_args(mode: str, q, t, qlen, tlen, params: AlignmentParams,
+                       band_width_tiles: int, with_n: bool,
+                       force_global: bool = False,
+                       ring: int | None = None) -> tuple:
+    """banded_sw_launch's arguments but the stream, for checked [B, L]
+    uint8 q, t read as they are (L % 8 == 0): the mode, the layout of
+    `banded_layout` (or the global one under `force_global`), the inputs,
+    the band, the carry's ring (default `banded_ring`'s; the
+    timings and the card tests also ask for other rings and the global
+    layout), the scratch (None in the shared layout) and the [B] outputs
+    (qend, tend None in score mode), last."""
+    q, t = q.contiguous(), t.contiguous()
+    qlen, tlen = qlen.contiguous(), tlen.contiguous()
+    B, Lq = q.shape
+    if ring is None:
+        ring = banded_ring(Lq, t.shape[1], band_width_tiles)
+    shared = not force_global and banded_layout(ring) == "shared"
+    eh = (None if shared else
+          torch.empty((B, ring, 2), dtype=torch.int32, device=q.device))
+    score, qend, tend = (torch.empty(B, dtype=torch.int32, device=q.device)
+                         for _ in range(3))
+    if mode == "score":
+        qend = tend = None
+    return (int(mode == "end"), int(with_n), int(shared), q, t, qlen, tlen,
+            B, Lq, t.shape[1], band_width_tiles, params.match,
+            params.mismatch, _n_score(params), params.gap_oe,
+            params.gap_extend, ring, eh, score, qend, tend)
+
+
+def launch_banded(args: tuple):
+    """Launch banded_sw on `banded_launch_args`'s arguments (B > 0) and
+    count it under banded_sw.end / banded_sw.score; returns (score, qend,
+    tend) (qend, tend None in score mode)."""
+    _call("banded_sw.end" if args[0] else "banded_sw.score", args[3].device,
+          *args)
+    return args[-3:]
+
+
 def _banded_launch(mode: str, q, t, qlen, tlen, params: AlignmentParams,
                    band_width_tiles: int, with_n: bool):
     """Run banded_sw in `mode` on [B, L] uint8 q, t; returns (score, qend,
     tend), qend/tend None in score mode."""
-    Q, T = q.T.contiguous(), t.T.contiguous()
-    qlen, tlen = qlen.contiguous(), tlen.contiguous()
-    Lq, B = Q.shape
-    gH, gE = _carry("banded_sw", Q, T)
-    score, qend, tend = _per_pair(3, Q)
-    if mode == "score":
-        qend = tend = None
-    if B:
-        _call(f"banded_sw.{mode}", Q.device, int(mode == "end"), int(with_n),
-              Q.data_ptr(), T.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
-              B, Lq, T.shape[0], band_width_tiles, params.match,
-              params.mismatch, _n_score(params), params.gap_oe,
-              params.gap_extend, gH.data_ptr(), gE.data_ptr(),
-              score.data_ptr(), _ptr(qend), _ptr(tend))
-    return score, qend, tend
+    args = banded_launch_args(mode, q, t, qlen, tlen, params,
+                              band_width_tiles, with_n)
+    return launch_banded(args) if args[7] else args[-3:]
 
 
 def _check_banded(q, t, qlen, tlen):

@@ -263,7 +263,8 @@ def local_starts(q, t, qlen, tlen, score, qend, tend,
     from genomics_tpu_torch.ops import cuda_align
 
     rev_q, rev_t, qr8, tr8 = local_start_inputs(q, t, qlen, tlen, qend, tend)
-    cprime, sstrip, r0 = cuda_align.local_start(rev_q, rev_t, score, params)
+    cprime, sstrip, r0 = cuda_align.local_start(rev_q, rev_t, score, params,
+                                                qr8, tr8)
     z = score == 0
     qstart = torch.where(z, 0, qr8 - 1 - cprime)
     # reference skew: maxXY_y = (gend_reg*8 - 1 - 8*s) + r0

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import band_windows
+
 from genomics_tpu_torch import AlgoType, AlignEngine, AlignmentParams
 from genomics_tpu_torch.core import golds
 from genomics_tpu_torch.core.scoring import SemiGlobalSkip
@@ -346,6 +348,84 @@ def test_local_start_kernel_matches_plain(cuda):
     _assert_equal(got, want)
 
 
+def _local_start_inputs(q, t, ql, tl, p):
+    """The reverse pass's inputs and extents from the END kernel's
+    forward result, and its forward scores."""
+    fwd = cuda_align.local_align(q, t, p)
+    rq, rt, qr8, tr8 = scan_align_full.local_start_inputs(
+        q, t, ql, tl, fwd.query_end, fwd.target_end)
+    return rq, rt, fwd.score, qr8, tr8
+
+
+def _every_group_matches(rq, rt, score, qr8, tr8, p):
+    """The kernel with the extents at both threads-per-pair the launcher
+    takes (4 and 8, what local_start_group picks), and the wrapper with
+    and without them, each integer-equal to the plain version and
+    counted once."""
+    want = scan_align_full._local_start_core(rq, rt, score, p)
+    for group in (4, 8):
+        args = cuda_align.local_start_launch_args(rq.T, rt.T, score, p, qr8,
+                                                  tr8, group=group)
+        before = cuda_align.LAUNCHES["local_start"]
+        got = cuda_align.launch_local_start(args)
+        torch.cuda.synchronize()
+        assert cuda_align.LAUNCHES["local_start"] == before + 1
+        _assert_equal(got, want)
+    _assert_equal(cuda_align.local_start(rq, rt, score, p), want)
+    _assert_equal(cuda_align.local_start(rq, rt, score, p, qr8, tr8), want)
+
+
+def test_local_start_launch_refuses_other_groups(cuda):
+    """The launcher takes 4 or 8 threads a pair and nothing else."""
+    p = AlignmentParams()
+    q, t, ql, tl = [x.to(cuda) for x in _batch(43, 64, 16, 16, 0.0)]
+    rq, rt, score, qr8, tr8 = _local_start_inputs(q, t, ql, tl, p)
+    for group in (1, 2, 3, 16):
+        args = cuda_align.local_start_launch_args(rq.T, rt.T, score, p, qr8,
+                                                  tr8, group=group)
+        with pytest.raises(RuntimeError, match="local_start_launch failed"):
+            cuda_align.launch_local_start(args)
+
+
+@pytest.mark.parametrize("B", [1, 129])
+@pytest.mark.parametrize("Lq", [1, 9])
+@pytest.mark.parametrize("scores", ["forward", "zero_unreachable"])
+def test_local_start_at_the_edges_matches_plain(cuda, B, Lq, scores):
+    """Lq 1 (no column loaded ahead) and 9 (qr8 16 past Lq), two strips,
+    one pair and a block of 128 plus one; forward scores as the END
+    kernel gives them, or a third each 0 (the first segment stops),
+    unreachable (the walk runs to the extents) and as given."""
+    p = AlignmentParams(n_penalty=2)
+    q, t, ql, tl = [x.to(cuda) for x in _batch(40 + B + Lq, B, Lq, 16, 0.05)]
+    rq, rt, score, qr8, tr8 = _local_start_inputs(q, t, ql, tl, p)
+    if scores != "forward":
+        score = score.clone()
+        score[0::3] = 0
+        score[1::3] = 1 << 20
+    _every_group_matches(rq, rt, score, qr8, tr8, p)
+
+
+@pytest.mark.parametrize("n_penalty", [None, 1], ids=["no_npen", "npen"])
+def test_local_start_at_ties_matches_plain(cuda, n_penalty):
+    """match = mismatch = gap_extend = 1 (gap_open 0) over two letters:
+    the running max ties everywhere, so the first attainment in
+    strip-major order and the stop after the segment decide the cell."""
+    p = AlignmentParams(match=1, mismatch=1, gap_open=0, gap_extend=1,
+                        n_penalty=n_penalty)
+    q, t, ql, tl = [x.to(cuda) for x in _two_letters(41, 1024 + 37, 64, 0.03)]
+    _every_group_matches(*_local_start_inputs(q, t, ql, tl, p), p)
+
+
+@pytest.mark.parametrize("B,Lq,Lt", [(65536, 152, 152), (10000, 216, 328)],
+                         ids=["bench", "engine"])
+def test_local_start_at_launch_sizes_matches_plain(cuda, B, Lq, Lt):
+    """bench.py's launch and an engine start launch (one bucket of the
+    20,000 GASAL2-shaped pairs: under one wave of 128-thread blocks)."""
+    p = AlignmentParams()
+    q, t, ql, tl = [x.to(cuda) for x in _batch(42, B, Lq, Lt, 0.01)]
+    _every_group_matches(*_local_start_inputs(q, t, ql, tl, p), p)
+
+
 @pytest.mark.parametrize("head,tail", list(itertools.product(SKIPS, SKIPS)),
                          ids=lambda s: s.name)
 def test_semiglobal_start_kernel_matches_plain(cuda, head, tail):
@@ -627,12 +707,29 @@ def test_semiglobal_start_at_the_edges_matches_plain(cuda, head, tail):
     _assert_equal(got, want)
 
 
-@pytest.mark.parametrize("kernel", ["local_sw.tb", "semiglobal_start"])
+@pytest.mark.parametrize("kernel", ["local_sw.tb", "semiglobal_start",
+                                    "local_start", "banded_sw.end",
+                                    "banded_sw.score"])
 def test_align_launch_alone_matches_the_wrapper(cuda, kernel):
     """The launch on laid-out inputs (what chip_smoke.py times) gives the
     wrapper's result and counts one launch."""
     q, t, ql, tl = [x.to(cuda) for x in _batch(28, 1024 + 37, 40, 48, 0.03)]
-    if kernel == "local_sw.tb":
+    if kernel == "local_start":
+        p = AlignmentParams()
+        rq, rt, score, qr8, tr8 = _local_start_inputs(q, t, ql, tl, p)
+        want = cuda_align.local_start(rq, rt, score, p, qr8, tr8)
+        args = cuda_align.local_start_launch_args(rq.T, rt.T, score, p, qr8,
+                                                  tr8)
+        before = cuda_align.LAUNCHES[kernel]
+        got = cuda_align.launch_local_start(args)
+    elif kernel.startswith("banded_sw"):
+        p = AlignmentParams(algo=AlgoType.BANDED)
+        mode = kernel.split(".")[1]
+        want = cuda_align._banded_launch(mode, q, t, ql, tl, p, 4, True)
+        args = cuda_align.banded_launch_args(mode, q, t, ql, tl, p, 4, True)
+        before = cuda_align.LAUNCHES[kernel]
+        got = cuda_align.launch_banded(args)
+    elif kernel == "local_sw.tb":
         p = AlignmentParams()
         want = cuda_align.local_align(q, t, p, with_tb=True)
         args = cuda_align.local_launch_args("tb", q.T, t.T, p, True)
@@ -680,6 +777,88 @@ def test_banded_kernel_matches_plain(cuda, params, band):
     _assert_equal([cuda_align.banded_align_scores(q, t, ql, tl, params, band,
                                                   has_n=False)],
                   [banded_align_batch(q, t, ql, tl, params, band).score])
+
+
+def _banded_geometry(seed, B, Lq, Lt, qrange, trange, n_rate):
+    """_batch with its lengths drawn from qrange / trange (inclusive),
+    not multiples of 8, pair 0 at the largest."""
+    q, t, _, _ = _batch(seed, B, Lq, Lt, n_rate)
+    rng = np.random.default_rng(seed + 1)
+    ql = rng.integers(qrange[0], qrange[1] + 1, B).astype(np.int32)
+    tl = rng.integers(trange[0], trange[1] + 1, B).astype(np.int32)
+    ql[0], tl[0] = qrange[1], trange[1]
+    q[torch.arange(Lq)[None, :] >= torch.from_numpy(ql)[:, None]] = N4
+    t[torch.arange(Lt)[None, :] >= torch.from_numpy(tl)[:, None]] = N4
+    return q, t, torch.from_numpy(ql), torch.from_numpy(tl)
+
+
+BANDED_GEOMETRIES = {   # B, Lq, Lt, qlen range, tlen range, bands
+    # k_other = tr - (qr - band) <= 0: the band starts past the diagonal;
+    # at band 1 every strip's band is empty (score 0)
+    "k_other_le_0": (1024 + 37, 96, 16, (70, 96), (1, 16), (1, 2, 4)),
+    "tr_gg_qr": (1024 + 37, 16, 160, (1, 16), (90, 160), (1, 4)),
+    "ragged": (2048 + 37, 40, 48, (1, 40), (1, 48), (1, 2, 4, 9)),
+    # past the shared limit: a ring of 912 / 952 columns, the global
+    # layout by the rule
+    "past_shared": (128 + 37, 912, 1776, (800, 912), (1500, 1776), (4, 9)),
+}
+
+
+@pytest.mark.parametrize("geometry", list(BANDED_GEOMETRIES))
+@pytest.mark.parametrize("layout", ["rule", "ring", "global"])
+def test_banded_geometries_match_plain(cuda, geometry, layout):
+    """END and SCORE (with the N compare, and without it on an N-free
+    batch) integer-equal to the plain version on bands that start past
+    the diagonal or hold no tile, targets far longer than the query and
+    ragged lengths: with the ring and layout the rules take (shared up to
+    908 columns), with the ring cut to the launch's widest window, and
+    with the global layout forced; every launch counted."""
+    B, Lq, Lt, qrange, trange, bands = BANDED_GEOMETRIES[geometry]
+    for band in bands:
+        kind = cuda_align.banded_layout(cuda_align.banded_ring(Lq, Lt, band))
+        assert kind == ("global" if geometry == "past_shared" else "shared")
+        for n_rate, params in ((0.03, AlignmentParams(algo=AlgoType.BANDED)),
+                               (0.03, AlignmentParams(algo=AlgoType.BANDED,
+                                                      n_penalty=2, match=2)),
+                               (0.0, AlignmentParams(algo=AlgoType.BANDED))):
+            q, t, ql, tl = [x.to(cuda) for x in _banded_geometry(
+                50 + band, B, Lq, Lt, qrange, trange, n_rate)]
+            want = banded_align_batch(q, t, ql, tl, params, band)
+            ring = None
+            if layout == "ring":
+                widest = int(band_windows(ql.cpu().numpy(), tl.cpu().numpy(),
+                                          band).max())
+                ring = max(8, 8 * widest)
+            with_n = n_rate > 0
+            if not with_n:
+                q, t, _ = cuda_align._no_n_inputs(q, t, False)
+            for mode in ("end", "score") if with_n else ("score",):
+                args = cuda_align.banded_launch_args(
+                    mode, q, t, ql, tl, params, band, with_n,
+                    force_global=layout == "global", ring=ring)
+                assert args[2] == (layout != "global" and cuda_align
+                                   .banded_layout(args[16]) == "shared")
+                key = f"banded_sw.{mode}"
+                before = cuda_align.LAUNCHES[key]
+                got = cuda_align.launch_banded(args)
+                torch.cuda.synchronize()
+                assert cuda_align.LAUNCHES[key] == before + 1
+                _assert_equal(got[:1] if mode == "score" else got, want)
+
+
+def test_banded_launch_refuses_what_it_lacks(cuda):
+    """The launcher takes the shared layout only where 32 threads' rings
+    fit, the global one only with its scratch, and a ring that is a
+    positive multiple of 8."""
+    q, t, ql, tl = [x.to(cuda) for x in _batch(22, 64, 40, 48, n_rate=0.0)]
+    p = AlignmentParams(algo=AlgoType.BANDED)
+    args = cuda_align.banded_launch_args("end", q, t, ql, tl, p, 4, True)
+    assert args[2] == 1 and args[17] is None
+    bad = [(*args[:16], 912, *args[17:]), (*args[:2], 0, *args[3:]),
+           (*args[:16], 12, *args[17:]), (*args[:16], 0, *args[17:])]
+    for a in bad:
+        with pytest.raises(RuntimeError, match="banded_sw_launch failed"):
+            cuda_align.launch_banded(a)
 
 
 @pytest.mark.parametrize("algo", [AlgoType.KSW, AlgoType.BANDED],

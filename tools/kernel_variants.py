@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""What the LOCAL traceback kernel's and the SEMI_GLOBAL start pass's time
-is made of: variants of csrc/local_sw.cu and csrc/semiglobal_start.cu
-timed side by side on one card.
+"""What the redesigned kernels' times are made of: one-change variants of
+csrc/local_sw.cu, csrc/semiglobal_start.cu, csrc/local_start.cu and
+csrc/banded_sw.cu timed side by side on one card.
 
-    python3 tools/kernel_variants.py --parent DIR [--out DIR]
+    python3 tools/kernel_variants.py --parent DIR [--kernels K,...]
+                                     [--rounds N] [--out DIR]
 
 DIR is an unpacked checkout of the commit before the kernels' redesign
 (`git archive <commit> | tar -x -C DIR`, into a directory .gitignore
-lists).  The script builds, with the port's nvcc flags:
+lists): for local_sw and semiglobal_start the parent of their redesign
+(299c71f), for local_start and banded_sw the parent of theirs (7e5a43d).
+--kernels picks the families (default local_start,banded_sw).  The
+script builds, with the port's nvcc flags:
 
   local_sw-parent          DIR's local_sw.cu, the first design
   local_sw-parent-ahead    that, with the next column's query code and
@@ -29,23 +33,56 @@ lists).  The script builds, with the port's nvcc flags:
   semiglobal_start-this-dpx      this tree's with the DPX maxima
   semiglobal_start-this    this tree's semiglobal_start.cu
   semiglobal_start-this-64 the same with 64 threads a block
+  local_start-parent       DIR's local_start.cu, the first design
+  local_start-parent-ahead that, with the next column's query code and
+                           carry loaded one column ahead
+  local_start-this-g1      this tree's local_start.cu with a kernel of
+                           one thread a pair beside it (group 1): its
+                           walk to the extents, its loads one column
+                           ahead, the first design's thread layout
+  local_start-this-g1-top  that, with the loads back at each column's top
+  local_start-this-g2      this tree's local_start.cu taking 2 threads a
+                           pair too
+  banded_sw-parent         DIR's banded_sw.cu, the first design ([Lq, B]
+                           carry scratch, zeroed per pair)
+  banded_sw-this-top       this tree's banded_sw.cu with each tile's
+                           carries and query codes loaded at its top
+  banded_sw-this-128       this tree's with 128 threads a shared-layout
+                           block instead of one warp
 
 and launches them with CUDA events, the launches alone, in turns (every
-variant forward, then backward), at bench.py's shape (65,536 pairs of
-152 x 152, half related): local_sw in SCORE (pads remapped, no N
-compare), END, TB and SECOND; semiglobal_start at NONE/BOTH (the fullest
-tracking), fed the semiglobal_sw END kernel's forward result, in the
-launch's order and with the pairs ordered by row_count as the port
-launches them (cuda_align.by_row_count: the argsort, the gathers and the
-inverse scatter counted; this tree's kernel also on inputs sorted
-beforehand), and the parent and the two block sizes also at 10,000
-pairs of 216 x 328 (an engine start launch).  Every reading is the mean
-of a few launches; --rounds passes (default 2) give each variant
-2 x rounds readings, their mean and their spread.  Every variant's
-scores, ends and cube (LOCAL) and its starts under all 16 HEAD x TAIL
-flags (SEMI_GLOBAL) are compared word for word with the plain versions';
-the script exits 1 if any disagrees.  It also prints the lanes' share of semiglobal_start's
-work (chip_smoke.lane_share) in the launch's order and sorted.  The
+variant forward, then backward).  local_sw and semiglobal_start run at
+bench.py's shape (65,536 pairs of 152 x 152, half related): local_sw in
+SCORE (pads remapped, no N compare), END, TB and SECOND; semiglobal_start
+at NONE/BOTH (the fullest tracking), fed the semiglobal_sw END kernel's
+forward result, in the launch's order and with the pairs ordered by
+row_count as the port launches them (cuda_align.by_row_count: the
+argsort, the gathers and the inverse scatter counted; this tree's kernel
+also on inputs sorted beforehand), and the parent and the two block sizes
+also at 10,000 pairs of 216 x 328.  local_start (fed the local_sw END
+kernel's forward result) and banded_sw (band 4, END and SCORE without the
+N compare) run at bench.py's shape and at the engine's own launches (the
+20,000 GASAL2-shaped pairs of chip_smoke.gasal_pairs in the engine's
+buckets), each variant with one change against the next: the first
+design in the launch's order and ordered (local_start by qr8 x tr8,
+banded_sw by band tiles; the ordering counted), its loads one column
+ahead, this tree's walk at one thread a pair over the full Lq x Lt and
+to the extents in the launch's order, ordered, with its loads at the
+top, and at 2, 4 and 8 threads a pair (4 also in the launch's order;
+the port takes 4 or 8 by cuda_align.local_start_group); banded_sw's
+shared carry in the launch's
+order (the port's launch), ordered by band tiles or by tlen (the key,
+the argsort, the gathers and the scatter counted) and on inputs sorted
+beforehand, as a ring of the full Lq instead of banded_ring's, with each
+tile's loads at its top, with 128-thread blocks, and with the global
+layout forced.  Every
+reading is the mean of a few launches; --rounds passes (default 2) give
+each variant 2 x rounds readings, their mean and their spread.  Every
+variant's output is compared word for word with the plain version's
+(LOCAL: scores, ends, cube; SEMI_GLOBAL starts under all 16 HEAD x TAIL
+flags; the start cells; BANDED scores and ends); the script exits 1 if
+any disagrees.  It also prints the lanes' share of the work
+(chip_smoke.lane_share) in the launch's order and under each key.  The
 variant sources go to --out (default chiprun_out/kernel_variants), for
 tools/sass_report.py --src.
 """
@@ -66,8 +103,14 @@ import torch  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
     BENCH_B,
+    BENCH_BAND,
+    band_windows,
     BENCH_L,
+    PAIRS,
     cuda_ms,
+    engine_batches,
+    gasal_pairs,
+    has_ns,
     lane_share,
     nvidia_smi,
     random_codes,
@@ -79,7 +122,10 @@ from genomics_tpu_torch.core.scoring import (  # noqa: E402
     SemiGlobalSkip,
 )
 from genomics_tpu_torch.ops import cuda_align, scan_align_full  # noqa: E402
-from genomics_tpu_torch.ops.scan_align import local_align_batch  # noqa: E402
+from genomics_tpu_torch.ops.scan_align import (  # noqa: E402
+    banded_align_batch,
+    local_align_batch,
+)
 from tools.tb_variants import build_variants, edit  # noqa: E402
 
 # local_sw.cu: the first design's column loads, at the column's top
@@ -187,6 +233,149 @@ SEMI_MAX = [("        const int fc = max(hl[c] - goe, f[c] - ge);\n",
             ("        e = max(phd, e - ge);\n        const int h = max(max(tmp, fc), e);\n",
              "        e = __viaddmax_s32(e, -ge, phd);\n"
              "        const int h = __vimax3_s32(tmp, fc, e);\n")]
+# local_start.cu: the first design's column loads, at the column's top
+START_TOP = """    for (int j = 0; j < Lq; ++j) {
+      const size_t at = static_cast<size_t>(j) * sB + b;
+      const int qc = Q[at];
+      const int hcol = s ? gH[at] : 0;
+      int e = s ? gE[at] : 0;
+"""
+START_AHEAD = """    int qn = Q[b];
+    int hn = s ? gH[b] : 0;
+    int en = s ? gE[b] : 0;
+    for (int j = 0; j < Lq; ++j) {
+      const size_t at = static_cast<size_t>(j) * sB + b;
+      const int qc = qn, hcol = hn;
+      int e = en;
+      if (j + 1 < Lq) {
+        qn = Q[at + sB];
+        hn = s ? gH[at + sB] : 0;
+        en = s ? gE[at + sB] : 0;
+      }
+"""
+# local_start.cu: one thread a pair (group 1; the kernel below, this
+# tree's walk and loads in the first design's thread layout), and two
+START_ONE_THREAD = """__global__ void __launch_bounds__(kThreads) local_start_kernel(const Args a) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= a.B) return;
+  const int p = a.order ? a.order[b] : b;
+  const size_t sB = static_cast<size_t>(a.B);
+  const int target = a.fwd[p];
+  const int ncol = columns_of(a, p), nstrip = ncol ? strips_of(a, p) : 0;
+  int best = -1, bcol = 0, bstrip = 0, brow = 0;  // h >= 0: cell 0 is taken
+  for (int s = 0; s < nstrip; ++s) {
+    int tc[8], hp[8], f[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      tc[c] = a.T[static_cast<size_t>(s * 8 + c) * sB + b];
+      hp[c] = 0;
+      f[c] = 0;
+    }
+    // column 0's query code and carry; each column loads the next one's
+    // before computing its own
+    int qn = a.Q[b];
+    int hn = s ? a.gH[b] : 0;
+    int en = s ? a.gE[b] : 0;
+    int diag0 = 0;
+    for (int j = 0; j < ncol; ++j) {
+      const size_t at = static_cast<size_t>(j) * sB + b;
+      const int qc = qn, hcol = hn, e0 = en;
+      if (j + 1 < ncol) {
+        qn = a.Q[at + sB];
+        hn = s ? a.gH[at + sB] : 0;
+        en = s ? a.gE[at + sB] : 0;
+      }
+      const int top = best;
+      const int e = column(a, tc, hp, f, qc, diag0, e0, best, brow);
+      if (best > top) {
+        bcol = j;
+        bstrip = s;
+      }
+      diag0 = hcol;
+      a.gH[at] = hp[7];
+      a.gE[at] = e;
+      if (best >= target) goto done;  // the column segment reached it
+    }
+  }
+done:
+  put(a, p, bcol, bstrip, brow);
+}
+
+"""
+START_SPLIT = "template <int G>\n__global__ void __launch_bounds__(kThreads) local_start_split_kernel"
+START_CASE4 = "    case 4: local_start_split_kernel<4><<<grid, kThreads, 0, st>>>(a); break;\n"
+START_CASE1 = "    case 1: local_start_kernel<<<grid, kThreads, 0, st>>>(a); break;\n"
+START_CASE2 = "    case 2: local_start_split_kernel<2><<<grid, kThreads, 0, st>>>(a); break;\n"
+START_THIS_AHEAD = """    int qn = a.Q[b];
+    int hn = s ? a.gH[b] : 0;
+    int en = s ? a.gE[b] : 0;
+    int diag0 = 0;
+    for (int j = 0; j < ncol; ++j) {
+      const size_t at = static_cast<size_t>(j) * sB + b;
+      const int qc = qn, hcol = hn, e0 = en;
+      if (j + 1 < ncol) {
+        qn = a.Q[at + sB];
+        hn = s ? a.gH[at + sB] : 0;
+        en = s ? a.gE[at + sB] : 0;
+      }
+"""
+START_THIS_TOP = """    int diag0 = 0;
+    for (int j = 0; j < ncol; ++j) {
+      const size_t at = static_cast<size_t>(j) * sB + b;
+      const int qc = a.Q[at];
+      const int hcol = s ? a.gH[at] : 0;
+      const int e0 = s ? a.gE[at] : 0;
+"""
+# banded_sw.cu: the next tile's carries and query codes loaded ahead, or
+# each tile's at its top
+BAND_TOP = """    int slot = (lo * 8) % ring;
+    for (int k = lo; k < hi; ++k) {
+      // the tile's 8 carries (zero where no earlier strip reached it) and
+      // query codes, loaded together at its top
+      int2 cc[8];
+#pragma unroll
+      for (int x = 0; x < 8; ++x)
+        cc[x] = k < seen ? eh[(slot + x) * es] : make_int2(0, 0);
+      const uint2 qw = qt[k];
+      const int here = slot;
+      slot = slot + 8 == ring ? 0 : slot + 8;
+"""
+BAND_AHEAD = """    int slot = (lo * 8) % ring;
+    int2 cn[8];
+    uint2 qn = make_uint2(0, 0);
+    if (lo < hi) {
+      qn = qt[lo];
+#pragma unroll
+      for (int x = 0; x < 8; ++x)
+        cn[x] = lo < seen ? eh[(slot + x) * es] : make_int2(0, 0);
+    }
+    for (int k = lo; k < hi; ++k) {
+      int2 cc[8];
+#pragma unroll
+      for (int x = 0; x < 8; ++x) cc[x] = cn[x];
+      const uint2 qw = qn;
+      const int here = slot;
+      slot = slot + 8 == ring ? 0 : slot + 8;
+      if (k + 1 < hi) {
+        qn = qt[k + 1];
+#pragma unroll
+        for (int x = 0; x < 8; ++x)
+          cn[x] = k + 1 < seen ? eh[(slot + x) * es] : make_int2(0, 0);
+      }
+"""
+# 128 threads a shared-layout block instead of 32
+BAND_WARP_BLOCKS = "constexpr int kSharedThreads = 32;\n"
+
+# the first designs' entry points: local_start_launch(Q, T, fwd, B, Lq,
+# Lt, match, mismatch, n_score, goe, ge, gH, gE, col, strip, row, stream)
+# and banded_sw_launch(mode, with_n, Q, T, qlen, tlen, B, Lq, Lt, k_band,
+# match, mismatch, n_score, goe, ge, gH, gE, score, qend, tend, stream),
+# time-major [L, B] inputs
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+PARENT_SIGNATURES = {
+    "local_start": (_vp,) * 3 + (_ci,) * 8 + (_vp,) * 6,
+    "banded_sw": (_ci, _ci) + (_vp,) * 4 + (_ci,) * 9 + (_vp,) * 6,
+}
 THREADS = "constexpr int kThreads = 128;\n"
 ENGINE_START_B = 10_000   # about one engine start launch (216 x 328)
 
@@ -197,8 +386,9 @@ def edits(src: str, pairs) -> str:
     return src
 
 
-def variants(parent: Path) -> dict[str, str]:
-    """{"<kernel>-<variant>": source} of every variant."""
+def pr9_variants(parent: Path) -> dict[str, str]:
+    """{"<kernel>-<variant>": source} of local_sw's and
+    semiglobal_start's variants."""
     csrc = parent / "genomics_tpu_torch" / "csrc"
     lp = (csrc / "local_sw.cu").read_text()
     sp = (csrc / "semiglobal_start.cu").read_text()
@@ -224,9 +414,34 @@ def variants(parent: Path) -> dict[str, str]:
     }
 
 
-def entry(lib: ctypes.CDLL, key: tuple):
+def start_band_variants(parent: Path) -> dict[str, str]:
+    """{"<kernel>-<variant>": source} of local_start's and banded_sw's
+    variants that need a source of their own."""
+    csrc = parent / "genomics_tpu_torch" / "csrc"
+    lp = (csrc / "local_start.cu").read_text()
+    bp = (csrc / "banded_sw.cu").read_text()
+    lt = (_build.CSRC / "local_start.cu").read_text()
+    bt = (_build.CSRC / "banded_sw.cu").read_text()
+    one_thread = edits(lt, [(START_SPLIT, START_ONE_THREAD + START_SPLIT),
+                            (START_CASE4, START_CASE1 + START_CASE4)])
+    return {
+        "local_start-parent": lp,
+        "local_start-parent-ahead": edit(lp, START_TOP, START_AHEAD),
+        "local_start-this-g1": one_thread,
+        "local_start-this-g1-top": edit(one_thread, START_THIS_AHEAD,
+                                        START_THIS_TOP),
+        "local_start-this-g2": edit(lt, START_CASE4, START_CASE2 + START_CASE4),
+        "banded_sw-parent": bp,
+        "banded_sw-this-top": edit(bt, BAND_AHEAD, BAND_TOP),
+        "banded_sw-this-128": edit(bt, BAND_WARP_BLOCKS,
+                                   BAND_WARP_BLOCKS.replace("32", "128")),
+    }
+
+
+def entry(lib: ctypes.CDLL, key: tuple, sig: tuple | None = None):
     fn = getattr(lib, key[1])
-    fn.argtypes, fn.restype = list(cuda_align._SIGNATURES[key]), ctypes.c_int
+    fn.argtypes = list(sig or cuda_align._SIGNATURES[key])
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -284,40 +499,33 @@ def report(ms: dict, ref: str, what: str, smi: str):
               f"on {smi}", flush=True)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", required=True)
-    ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
-                                         "kernel_variants"))
-    ap.add_argument("--rounds", type=int, default=2,
-                    help="forward-and-backward passes over the variants")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("kernel_variants: no CUDA device", file=sys.stderr)
-        return 2
-    out = Path(args.out)
-    srcs = variants(Path(args.parent))
-    build_variants(srcs, out)
-    libs = {name: ctypes.CDLL(str(out / f"{name}.so")) for name in srcs}
-    smi = nvidia_smi()
-    dev = torch.device("cuda", 0)
+class Checks:
+    """Word-for-word comparisons of each variant's output with the plain
+    version's; `bad` lists the ones that differ."""
+
+    def __init__(self):
+        self.bad = []
+
+    def __call__(self, name, got, want):
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            self.bad.append(name)
+
+
+def bench_batch(dev):
+    """bench.py's shape as chip_smoke.py phase 5 makes it: (q, t, qlen,
+    tlen) on dev."""
     qn, tn, qln, tln = random_codes(np.random.default_rng(0), BENCH_B,
                                     BENCH_L, BENCH_L, 0.0)
-    q, t = torch.from_numpy(qn).to(dev), torch.from_numpy(tn).to(dev)
-    ql, tl = torch.from_numpy(qln).to(dev), torch.from_numpy(tln).to(dev)
+    return [torch.from_numpy(x).to(dev) for x in (qn, tn, qln, tln)]
+
+
+def time_local_sw(libs, srcs, dev, smi, rounds, check):
+    """local_sw: every mode of every variant against the plain version,
+    timed in SCORE, END, TB and SECOND."""
+    q, t, ql, tl = bench_batch(dev)
     Q, T = q.T.contiguous(), t.T.contiguous()
     Qs, Ts = (cuda_align._pads_to_sentinels(x, c) for x, c in ((Q, 16), (T, 17)))
     P = AlignmentParams()
-    PS = AlignmentParams(algo=AlgoType.SEMI_GLOBAL)
-    same, bad = {}, []
-
-    def check(name, got, want):
-        ok = all(torch.equal(g, w) for g, w in zip(got, want))
-        same[name] = ok
-        if not ok:
-            bad.append(name)
-
-    # local_sw: every mode of every variant against the plain version
     plain = local_align_batch(q, t, P, with_tb=True)
     plain2 = scan_align_full.local_align_second_batch(q, t, ql, tl, P)
     local = {}
@@ -337,10 +545,16 @@ def main() -> int:
         check(f"{name} second", local[f"{name} second"]()[-6:], plain2)
     torch.cuda.synchronize()
     del plain, plain2
-    report(in_turns(local, 5, args.rounds), "local_sw-parent end",
+    report(in_turns(local, 5, rounds), "local_sw-parent end",
            f"B={BENCH_B} {BENCH_L}x{BENCH_L}", smi)
 
-    # semiglobal_start: all 16 flags, each fed the forward END result
+
+def time_semiglobal_start(libs, srcs, dev, smi, rounds, check):
+    """semiglobal_start: all 16 flags, each fed the forward END result,
+    timed at NONE/BOTH in the launch's order and sorted; the parent and
+    both block sizes at an engine start launch's size."""
+    q, t, ql, tl = bench_batch(dev)
+    PS = AlignmentParams(algo=AlgoType.SEMI_GLOBAL)
     skips = [SemiGlobalSkip.NONE, SemiGlobalSkip.QUERY,
              SemiGlobalSkip.TARGET, SemiGlobalSkip.BOTH]
     semi = [n for n in srcs if n.startswith("semiglobal_start")]
@@ -378,7 +592,7 @@ def main() -> int:
                           f"row_count; {int(strips.sum())} strips",
                           flush=True)
     torch.cuda.synchronize()
-    report(in_turns(timed, 10, args.rounds), "semiglobal_start-parent",
+    report(in_turns(timed, 10, rounds), "semiglobal_start-parent",
            f"NONE/BOTH, B={BENCH_B} {BENCH_L}x{BENCH_L}", smi)
 
     # the block size at an engine start launch's size
@@ -403,11 +617,249 @@ def main() -> int:
         check(f"{name} B={ENGINE_START_B}", small[name]()[-2:], want)
         check(f"{name} sorted B={ENGINE_START_B}", small[f"{name} sorted"](),
               want)
-    report(in_turns(small, 20, args.rounds), "semiglobal_start-parent",
+    report(in_turns(small, 20, rounds), "semiglobal_start-parent",
            f"NONE/BOTH, B={ENGINE_START_B} 216x328", smi)
-    print(json.dumps({"all equal to the plain versions": not bad,
-                      "disagree": bad}), flush=True)
-    return 1 if bad else 0
+
+
+def start_work(strip, col, qr8, Lq=None):
+    """Columns each pair's start walk runs up to its stop (the recorded
+    cell lies in the stop's column segment when the forward score is
+    reached): strip x qr8 (or Lq, the full walk) + col + 1."""
+    return strip.long() * (qr8.long() if Lq is None else Lq) + col + 1
+
+
+def parent_start_ordered(fn, args, qr8, tr8, dev):
+    """The first design's local_start on `args` (its entry point's
+    order) with the pairs ordered by qr8 x tr8, as the port orders them:
+    the argsort, the gathers and the scatter back inside the call."""
+    def run():
+        order = torch.argsort(qr8 * tr8, descending=True)
+        outs = [torch.empty_like(x) for x in args[-3:]]
+        runner(fn, (args[0].index_select(1, order),
+                    args[1].index_select(1, order), args[2][order],
+                    *args[3:-3], *outs), dev)()
+        return [torch.empty_like(x).index_copy_(0, order, x) for x in outs]
+    return run
+
+
+def local_start_family(libs, dev, batch, smi, rounds, check, what, reps):
+    """local_start's variants on one batch (q, t, qlen, tlen) fed the
+    local_sw END kernel's forward result, timed in turns."""
+    P = AlignmentParams()
+    q, t, ql, tl = batch
+    fwd = cuda_align.local_align(q, t, P)
+    rq, rt, qr8, tr8 = scan_align_full.local_start_inputs(
+        q, t, ql, tl, fwd.query_end, fwd.target_end)
+    score = fwd.score
+    want = scan_align_full._local_start_core(rq, rt, score, P)
+    Q, T = rq.T.contiguous(), rt.T.contiguous()
+    lib = lambda name: entry(libs[name], ("local_start", "local_start_launch"))
+    full = cuda_align.local_start_launch_args(Q, T, score, P, group=1)
+    ext = {g: cuda_align.local_start_launch_args(Q, T, score, P, qr8, tr8,
+                                                 group=g) for g in (1, 2, 4, 8)}
+    old = (Q, T, score, *full[6:14], *full[15:])   # the first design's order
+    runs = {}
+    for name in ("local_start-parent", "local_start-parent-ahead"):
+        fn = entry(libs[name], ("local_start", "local_start_launch"),
+                   PARENT_SIGNATURES["local_start"])
+        runs[name] = runner(fn, old, dev)
+        runs[f"{name} ordered"] = parent_start_ordered(fn, old, qr8, tr8, dev)
+    one = lib("local_start-this-g1")
+    runs["local_start-this-g1 full"] = runner(one, full, dev)
+    runs["local_start-this-g1 unordered"] = runner(one, ext[1], dev)
+    for name in ("local_start-this-g1", "local_start-this-g1-top"):
+        runs[name] = (lambda fn=lib(name): runner(
+            fn, cuda_align.local_start_order(ext[1]), dev)())
+    runs["local_start-this-g2"] = lambda: runner(
+        lib("local_start-this-g2"), cuda_align.local_start_order(ext[2]), dev)()
+    for g in (4, 8):
+        runs[f"local_start-this-g{g}"] = (
+            lambda a=ext[g]: cuda_align.launch_local_start(a))
+    this = entry(_build.library("local_start"),
+                 ("local_start", "local_start_launch"))
+    runs["local_start-this-g4 unordered"] = runner(this, ext[4], dev)
+    for name, run in runs.items():
+        check(f"{name} {what}", list(run())[-3:], want)
+    torch.cuda.synchronize()
+    # the lanes' share of the work under each ordering key, at the pairs a
+    # warp of the port's threads a pair
+    work = start_work(want[1], want[0], qr8)
+    wp = 32 // cuda_align.local_start_group(Q.shape[1], cuda_align._sm_count(0))
+    keys = {"launch order": None, "qr8 x tr8 (launched)": qr8 * tr8,
+            "tr8": tr8, "the forward score": score, "the true stop": work}
+    print(f"local_start {what}: lanes' share of the columns to the stop at "
+          f"{wp} pairs a warp: "
+          + ", ".join(f"{k} {lane_share(work if v is None else work[torch.argsort(v, descending=True)], wp):.4f}"
+                      for k, v in keys.items())
+          + f"; {int(work.sum())} columns to the extents, "
+          f"{int(start_work(want[1], want[0], qr8, Q.shape[0]).sum())} "
+          f"over the full Lq; the wrapper's threads a pair {32 // wp}",
+          flush=True)
+    report(in_turns(runs, reps, rounds), "local_start-parent", what, smi)
+
+
+def parent_banded_ordered(fn, args, key, dev):
+    """The first design's banded_sw on `args` (its entry point's order,
+    time-major inputs) with the pairs ordered by key(), most first: the
+    key, the argsort, the gathers and the scatter back inside the call."""
+    def run():
+        order = torch.argsort(key(), descending=True)
+        outs = [torch.empty_like(x) for x in args[-3:]]
+        runner(fn, (*args[:2], args[2].index_select(1, order),
+                    args[3].index_select(1, order), args[4][order],
+                    args[5][order], *args[6:-3], *outs), dev)()
+        return [torch.empty_like(x).index_copy_(0, order, x) for x in outs]
+    return run
+
+
+def banded_ordered(fn, args, key, dev):
+    """banded_sw on `banded_launch_args`'s arguments with the pairs
+    ordered by key(), most first: the gathers of the [B, L] rows and the
+    lengths and the scatter back inside the call (the key too, unless it
+    is a tensor: then the inputs are gathered beforehand and only the
+    scatter is timed)."""
+    def gathered(order):
+        return (*args[:3], *(x.index_select(0, order) for x in args[3:7]),
+                *args[7:-3], *(None if x is None else torch.empty_like(x)
+                               for x in args[-3:]))
+
+    pre = None
+    if isinstance(key, torch.Tensor):
+        order = torch.argsort(key, descending=True)
+        pre = gathered(order)
+
+    def run():
+        if pre is None:
+            o = torch.argsort(key(), descending=True)
+            a = gathered(o)
+        else:
+            o, a = order, pre
+        runner(fn, a, dev)()
+        return [None if x is None else torch.empty_like(x).index_copy_(0, o, x)
+                for x in a[-3:]]
+    return run
+
+
+def banded_family(libs, dev, batch, smi, rounds, check, what, reps):
+    """banded_sw's variants on one batch at a band of BENCH_BAND tiles,
+    END and SCORE (without the N compare where the batch holds no N),
+    timed in turns."""
+    PB = AlignmentParams(algo=AlgoType.BANDED)
+    q, t, ql, tl = batch
+    B, Lq = q.shape
+    Lt = t.shape[1]
+    want = banded_align_batch(q, t, ql, tl, PB, BENCH_BAND)
+    # SCORE drops the N compare only on a batch without Ns, as the engine
+    qs, ts, score_n = cuda_align._no_n_inputs(q, t, has_ns(q, t, ql, tl))
+    windows = band_windows(ql.cpu().numpy(), tl.cpu().numpy(), BENCH_BAND)
+    work = torch.from_numpy(windows.sum(1)).to(dev)
+    ring = cuda_align.banded_ring(Lq, Lt, BENCH_BAND)
+    print(f"banded_sw {what}: lanes' share of the band tiles "
+          f"{lane_share(work):.4f} in the launch's order, "
+          f"{lane_share(work[torch.argsort(work, descending=True)]):.4f} "
+          f"ordered by band tiles; {int(work.sum())} tiles; widest window "
+          f"{8 * int(windows.max())} of {Lq} columns, the ring {ring}",
+          flush=True)
+    this = entry(_build.library("banded_sw"), ("banded_sw", "banded_sw_launch"))
+
+    def tiles():   # the band tiles on the device, as the key costs there
+        qr, tr = (ql + 7) // 8, (tl + 7) // 8
+        ib = torch.arange(Lt // 8, device=dev)[None, :]
+        lo = (ib - (tr - qr + BENCH_BAND)[:, None] + 1).clamp_min(0)
+        hi = torch.minimum(ib + BENCH_BAND, qr[:, None])
+        return torch.where(ib < tr[:, None], (hi - lo).clamp_min(0), 0).sum(1)
+    runs = {}
+    for mode in ("end", "score"):
+        a, b, with_n = (q, t, True) if mode == "end" else (qs, ts, score_n)
+        exp = want[:3] if mode == "end" else want[:1]
+        # the first design: time-major inputs, [Lq, B] carries
+        Qt, Tt = a.T.contiguous(), b.T.contiguous()
+        gH, gE = cuda_align._carry("banded_sw", Qt, Tt)
+        outs = [torch.empty(B, dtype=torch.int32, device=dev)
+                for _ in range(3)]
+        old = (int(mode == "end"), int(with_n), Qt, Tt, ql, tl, B, Lq, Lt,
+               BENCH_BAND, PB.match, PB.mismatch, 0, PB.gap_oe,
+               PB.gap_extend, gH, gE, *outs)
+        fn = entry(libs["banded_sw-parent"], ("banded_sw", "banded_sw_launch"),
+                   PARENT_SIGNATURES["banded_sw"])
+        runs[f"banded_sw-parent {mode}"] = runner(fn, old, dev)
+        runs[f"banded_sw-parent {mode} by tiles"] = parent_banded_ordered(
+            fn, old, tiles, dev)
+        args = cuda_align.banded_launch_args(mode, a, b, ql, tl, PB,
+                                             BENCH_BAND, with_n)
+        runs[f"banded_sw-this {mode}"] = (
+            lambda x=args: cuda_align.launch_banded(x))
+        runs[f"banded_sw-this {mode} by tiles"] = banded_ordered(
+            this, args, tiles, dev)
+        runs[f"banded_sw-this {mode} by tlen"] = banded_ordered(
+            this, args, lambda: tl, dev)
+        runs[f"banded_sw-this {mode} on sorted inputs"] = banded_ordered(
+            this, args, work, dev)
+        for variant, kw in (("ring Lq", dict(ring=Lq)),
+                            ("global", dict(force_global=True))):
+            va = cuda_align.banded_launch_args(mode, a, b, ql, tl, PB,
+                                               BENCH_BAND, with_n, **kw)
+            runs[f"banded_sw-this {mode} {variant}"] = (
+                lambda x=va: cuda_align.launch_banded(x))
+        for name in ("banded_sw-this-top", "banded_sw-this-128"):
+            runs[f"{name} {mode}"] = runner(
+                entry(libs[name], ("banded_sw", "banded_sw_launch")), args,
+                dev)
+        for name, run in runs.items():
+            if f" {mode}" in name:
+                check(f"{name} {what}", list(run())[-3:][:len(exp)], exp)
+    torch.cuda.synchronize()
+    report(in_turns(runs, reps, rounds), "banded_sw-parent end", what, smi)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True)
+    ap.add_argument("--kernels", default="local_start,banded_sw",
+                    help="comma-separated families: local_sw, "
+                         "semiglobal_start, local_start, banded_sw")
+    ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
+                                         "kernel_variants"))
+    ap.add_argument("--rounds", type=int, default=2,
+                    help="forward-and-backward passes over the variants")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device", file=sys.stderr)
+        return 2
+    kernels = args.kernels.split(",")
+    srcs = {}
+    if {"local_sw", "semiglobal_start"} & set(kernels):
+        srcs |= pr9_variants(Path(args.parent))
+    if {"local_start", "banded_sw"} & set(kernels):
+        srcs |= start_band_variants(Path(args.parent))
+    srcs = {k: v for k, v in srcs.items() if k.split("-")[0] in kernels}
+    out = Path(args.out)
+    build_variants(srcs, out)
+    libs = {name: ctypes.CDLL(str(out / f"{name}.so")) for name in srcs}
+    smi = nvidia_smi()
+    dev = torch.device("cuda", 0)
+    check = Checks()
+    if "local_sw" in kernels:
+        time_local_sw(libs, srcs, dev, smi, args.rounds, check)
+    if "semiglobal_start" in kernels:
+        time_semiglobal_start(libs, srcs, dev, smi, args.rounds, check)
+    batches = {f"B={BENCH_B} {BENCH_L}x{BENCH_L}": bench_batch(dev)}
+    if {"local_start", "banded_sw"} & set(kernels):
+        qs, ts = gasal_pairs(np.random.default_rng(0), PAIRS)
+        for (lq, lt), arrays in engine_batches(qs, ts).items():
+            batches[f"B={len(arrays[0])} {lq}x{lt} (an engine launch)"] = [
+                torch.from_numpy(x).to(dev) for x in arrays]
+    for what, batch in batches.items():
+        reps = 10 if what.startswith(f"B={BENCH_B}") else 20
+        if "local_start" in kernels:
+            local_start_family(libs, dev, batch, smi, args.rounds, check,
+                               what, reps)
+        if "banded_sw" in kernels:
+            banded_family(libs, dev, batch, smi, args.rounds, check, what,
+                          reps)
+    print(json.dumps({"all equal to the plain versions": not check.bad,
+                      "disagree": check.bad}), flush=True)
+    return 1 if check.bad else 0
 
 
 if __name__ == "__main__":

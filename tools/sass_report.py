@@ -5,8 +5,8 @@ of every loop, counted per cell.
     python3 tools/sass_report.py [--out DIR] [--src CSRC] [KERNEL ...]
 
 Builds `csrc/<KERNEL>.cu` (default: global_sw, semiglobal_sw, local_sw,
-ksw_extend, semiglobal_start) with the port's own nvcc flags, one nvcc
-per source, all started together, into DIR (default
+ksw_extend, semiglobal_start, local_start, banded_sw) with the port's
+own nvcc flags, one nvcc per source, all started together, into DIR (default
 chiprun_out/sass), disassembles each library with cuobjdump and, for
 every kernel function, prints its ptxas line (registers, stack frame,
 spills, shared memory) and every loop (a backward branch to a label):
@@ -107,7 +107,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("kernels", nargs="*",
                     default=["global_sw", "semiglobal_sw", "local_sw",
-                             "ksw_extend", "semiglobal_start"])
+                             "ksw_extend", "semiglobal_start", "local_start",
+                             "banded_sw"])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "sass"))
     ap.add_argument("--src", default=str(_build.CSRC))
     args = ap.parse_args()
