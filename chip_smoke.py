@@ -23,7 +23,10 @@ Run from the root of a checkout.  Phases, one line each:
             SCORE16 only on N-free batches),
             global_sw SCORE/TB, semiglobal_sw END for all 16 HEAD x TAIL
             and TB for NONE/NONE, TARGET/TARGET, QUERY/QUERY and
-            BOTH/BOTH, the LOCAL, GLOBAL and SEMI_GLOBAL walks,
+            BOTH/BOTH (END and TB also under each HEAD with TAIL BOTH at
+            1, 2, 4 and 8 threads a pair, and END16 / SCORE16 at 1, 2, 4
+            and 8 threads per two pairs, besides the rule's),
+            the LOCAL, GLOBAL and SEMI_GLOBAL walks,
             local_start fed the END kernel's result, semiglobal_start for
             all 16 HEAD x TAIL fed the semiglobal END kernel's, ksw_extend
             END/SCORE with seed scores h0 of 0-60 (and at Lq 1,000, where
@@ -73,7 +76,11 @@ Run from the root of a checkout.  Phases, one line each:
             shape (B=65,536, 152x152; the four score / end modes and TB
             of local_sw as launches alone, in turns, TB held to the plain
             cube word for word; global_sw SCORE and TB as launches
-            alone, in turns; semiglobal_start as a launch alone, held to
+            alone, in turns; semiglobal_sw END and TB (NONE/BOTH) as
+            launches alone, in turns, TB's cube word for word and END
+            under all 16 HEAD x TAIL held to the plain version, END's
+            bound and lanes' share counted at the pairs' extents;
+            semiglobal_start as a launch alone, held to
             its plain version under all 16 HEAD x TAIL flags; the lanes'
             share of the start passes' and BANDED's work in the pairs'
             order and as launched, local_start's cells counted at qr8
@@ -82,18 +89,22 @@ Run from the root of a checkout.  Phases, one line each:
             h0 = 30 as launches alone in both row layouts, in turns, each
             also as a ratio to local_sw SCORE; BANDED with a band of 4
             tiles, as benchmarks/run_all.py runs them, END and SCORE as
-            launches alone in turns; local_start and BANDED also at the
-            engine's own launches (phase 4's pairs in its buckets);
+            launches alone in turns; local_start, BANDED, semiglobal_sw
+            END / TB (glocal's TARGET/TARGET) and local_sw SCORE16 /
+            END16 beside SCORE / END also at the engine's own launches
+            (phase 4's pairs in its buckets), held to the plain versions;
             ptxas's resources of ksw_extend, global_sw, local_sw,
-            semiglobal_start, local_start and banded_sw), PairHMM at
+            semiglobal_sw, semiglobal_start, local_start and banded_sw),
+            PairHMM at
             B=16,384 x 128 x 128 and Myers at B=16,384, Lp 96, Lt 152
             (run_all.py's shapes; the launch alone on inputs already in
             the kernel's layout, and the wrapper with its layout passes
             beside it), the least time the card could take for
             the same work (the bound; see `bound` and OPS_PER_CELL), the
             four score / end modes again at the engine's 216 x 328 bucket
-            over launches of 1,024 to 65,536 pairs (the sweep that decides
-            whether SCORE16 may be the default), and the engine's pairs/s.
+            over launches of 830 (the align CLI's) to 65,536 pairs (the
+            sweep that decides whether SCORE16 may be the default), and
+            the engine's pairs/s.
 
 Then one JSON line with the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  With --profile, phases 3-5 give way to
@@ -102,7 +113,8 @@ their N-free copies with SCORE16 and with SCORE forced), the `align` CLI
 over them with and without GENOMICS_TPU_INT16_CELLS=1, the PairHMM regions and the `ed` reads: wall, device busy time
 and per-kernel device time (torch.profiler), and the host functions with
 the most self time (cProfile).  Any failure exits non-zero before the
-last line.  Needs one CUDA card and nvcc; imports no JAX.
+last line, and so does a child process (nvcc, nvidia-smi, the PairHMM
+gold's workers) still running before the JSON lines.  Needs one CUDA card and nvcc; imports no JAX.
 """
 from __future__ import annotations
 
@@ -112,6 +124,7 @@ import functools
 import io
 import json
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -169,10 +182,14 @@ OPS_PER_CELL = {
     "banded_sw.end": 19, "banded_sw.score": 13,
 }
 # local_sw's score / end modes at the engine's 216 x 328 bucket, from the
-# align CLI's launches (5,000-pair chunks: ~4,150 pairs here) to the
-# engine's largest; 16,384 pairs are 128 of SCORE's 128-thread blocks
-# (64 of SCORE16's: one thread per two pairs), 16,896 fill the 132 SMs
-SWEEP_B = (1024, 2048, 4096, 8192, 16384, 16896, 24576, 32768, 49152, 65536)
+# align CLI's launches (5,000-pair chunks: about 830 pairs in the 216 x
+# 216 bucket and 4,150 in this one) to the engine's largest; 16,384 pairs
+# are 128 of SCORE's 128-thread blocks, 16,896 fill the 132 SMs
+# threads per pair of local_start and semiglobal_sw, per two pairs of
+# SCORE16 / END16 (what cuda_align.split_group takes)
+SPLIT_GROUPS = (4, 8)
+SWEEP_B = (830, 1024, 2048, 4096, 4150, 8192, 16384, 16896, 24576, 32768,
+           49152, 65536)
 
 
 def log(phase: str, msg: str):
@@ -568,21 +585,69 @@ def regions_batch(rng, n, reads_per, haps_per, RL, HL):
     return regions
 
 
+GOLD_WORKER = """
+import pickle, sys
+from genomics_tpu_torch.core import golds
+with open(sys.argv[1], "rb") as f:
+    recs = pickle.load(f)
+keys = ("read", "hap", "base_quals", "ins_quals", "del_quals")
+pickle.dump([float(golds.pairhmm_forward(*(r[k] for k in keys)))
+             for r in recs], sys.stdout.buffer)
+"""
+
+
 def gold_likelihoods(records) -> np.ndarray:
-    """golds.pairhmm_forward over records, in worker processes (about 0.6
-    s a record at 150 x 300 in one)."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+    """golds.pairhmm_forward over records (about 0.6 s a record at 150 x
+    300), split over up to 8 child interpreters started together.  Plain
+    subprocesses, not a multiprocessing pool, whose spawn start method
+    leaves its resource tracker running past the call: every child is
+    waited for (or killed and waited for) before this returns."""
+    n = max(1, min(8, os.cpu_count() or 1, len(records)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for w in range(n):
+                path = os.path.join(tmp, f"gold{w}.pkl")
+                with open(path, "wb") as f:
+                    pickle.dump(records[w::n], f)
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", GOLD_WORKER, path], cwd=root,
+                    stdout=subprocess.PIPE))
+            parts = []
+            for p in procs:
+                out, _ = p.communicate()
+                if p.returncode:
+                    raise RuntimeError(
+                        f"gold worker failed: rc {p.returncode}")
+                parts.append(pickle.loads(out))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+    got = np.empty(len(records), np.float32)
+    for w, part in enumerate(parts):
+        got[w::n] = part
+    return got
 
-    from genomics_tpu_torch.core import golds
 
-    cols = [[r[k] for r in records] for k in
-            ("read", "hap", "base_quals", "ins_quals", "del_quals")]
-    with ProcessPoolExecutor(min(8, os.cpu_count() or 1),
-                             mp_context=multiprocessing.get_context("spawn")
-                             ) as pool:
-        return np.array(list(pool.map(golds.pairhmm_forward, *cols)),
-                        np.float32)
+def child_pids() -> list[int]:
+    """Live children of this process (Linux /proc)."""
+    me, kids = os.getpid(), []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # after the ')' that closes the command: state, ppid, ...
+        fields = stat[stat.rindex(")") + 2:].split()
+        if int(fields[1]) == me and fields[0] != "Z":
+            kids.append(int(d))
+    return kids
 
 
 def ed_pairs(rng, n, RL=150, WL=200):
@@ -872,6 +937,11 @@ def main() -> int:
         e["local_sw.end16"] = max(
             max_abs_err(got_end16, plain_tb[:3]),
             max_abs_err(got_end16, local_align_batch16(q, t, P)[:3]))
+        for g in SPLIT_GROUPS:   # every group, not only the rule's
+            got_g = cuda_align.launch_local(cuda_align.local_launch_args(
+                "end16", q.T, t.T, P, True, group=g))[:3]
+            e["local_sw.end16"] = max(e["local_sw.end16"],
+                                      max_abs_err(got_g, plain_tb[:3]))
         e["local_sw.tb"] = max_abs_err(got_tb, plain_tb)
         e["local_sw.score"] = max_abs_err(
             [cuda_align.local_align_scores(q, t, P, has_n=True)],
@@ -888,8 +958,11 @@ def main() -> int:
                 [cuda_align.local_align_scores(q, t, P, has_n=False),
                  cuda_align.local_align_scores_tm(
                      q.T.contiguous(), t.T.contiguous(), P, has_n=False),
-                 local_align_batch16(qs16.T, ts16.T, P, ends=False).score],
-                [plain_tb.score] * 3)
+                 local_align_batch16(qs16.T, ts16.T, P, ends=False).score]
+                + [cuda_align.launch_local(cuda_align.local_launch_args(
+                    "score16", qs16, ts16, P, False, group=g))[0]
+                   for g in SPLIT_GROUPS],
+                [plain_tb.score] * (3 + len(SPLIT_GROUPS)))
             # the top of the int16 range: match=200 at Lq 152
             P200 = AlignmentParams(match=200)
             plain200 = local_align_batch(q, t, P200)
@@ -947,6 +1020,17 @@ def main() -> int:
             e["semiglobal_sw.tb"] = max(e["semiglobal_sw.tb"], max_abs_err(
                 got_s, semiglobal_align_batch(q, t, ql, tl, PS, head=head,
                                               tail=head, with_tb=True)))
+            for g in SPLIT_GROUPS:   # every group, not only the rule's
+                for tb_ in (False, True):
+                    got_g = cuda_align.launch_semiglobal(
+                        cuda_align.semiglobal_launch_args(
+                            q.T, t.T, ql, tl, PS, head, SemiGlobalSkip.BOTH,
+                            tb_, group=g))
+                    key = "semiglobal_sw.tb" if tb_ else "semiglobal_sw.end"
+                    e[key] = max(e[key], max_abs_err(
+                        got_g if tb_ else got_g[:3], semiglobal_align_batch(
+                            q, t, ql, tl, PS, head=head,
+                            tail=SemiGlobalSkip.BOTH, with_tb=tb_)[:4 if tb_ else 3]))
             i0, j0 = walk_start(AlgoType.SEMI_GLOBAL, head, got_s, ql, tl)
             walk_args = (got_s.tb, got_s.score, j0, i0, PS, "semiglobal")
             e["tb_walk.semiglobal"] = max(e["tb_walk.semiglobal"], max_abs_err(
@@ -1651,13 +1735,16 @@ def main() -> int:
               "global_sw.score"):
         ms[k] = ms.get(k, 0.0) + cuda_ms(
             lambda a=g_args[k]: cuda_align.launch_global(a), 5) / 2
-    ms |= {
-        "semiglobal_sw.end": cuda_ms(
-            lambda: cuda_align.semiglobal_align(q, t, ql, tl, PS, **sg), 10),
-        "semiglobal_sw.tb": cuda_ms(
-            lambda: cuda_align.semiglobal_align(q, t, ql, tl, PS,
-                                                with_tb=True, **sg), 5),
-    }
+    # semiglobal_sw's END and TB modes as launches alone, in turns (A, B,
+    # B, A), on the time-major inputs and their allocated outputs, at the
+    # rule's threads a pair (cuda_align.split_group)
+    s_args = {k: cuda_align.semiglobal_launch_args(
+        Q, T, ql, tl, PS, with_tb=k == "semiglobal_sw.tb", **sg)
+        for k in ("semiglobal_sw.end", "semiglobal_sw.tb")}
+    for k in ("semiglobal_sw.end", "semiglobal_sw.tb", "semiglobal_sw.tb",
+              "semiglobal_sw.end"):
+        ms[k] = ms.get(k, 0.0) + cuda_ms(
+            lambda a=s_args[k]: cuda_align.launch_semiglobal(a), 10) / 2
     for k, a in walks.items():
         ms[k] = cuda_ms(lambda a=a: tb_walk.tb_walk(*a), 10)
     for k, (kern, _, a, kw) in plains.items():
@@ -1712,6 +1799,20 @@ def main() -> int:
             [score_g] + ([tb_g] if k == "global_sw.tb" else []),
             [plain_g.score] + ([plain_g.tb] if k == "global_sw.tb" else [])))
     del plain_g
+    # semiglobal_sw's launches alone: TB's cube word for word, END under
+    # all 16 HEAD x TAIL flags, at the timing shape
+    plain_s = semiglobal_align_batch(q, t, ql, tl, PS, with_tb=True, **sg)
+    err["semiglobal_sw.tb"] = max(err["semiglobal_sw.tb"], max_abs_err(
+        cuda_align.launch_semiglobal(s_args["semiglobal_sw.tb"]), plain_s))
+    del plain_s
+    for head in SKIPS:
+        for tail in SKIPS:
+            a_ = cuda_align.semiglobal_launch_args(Q, T, ql, tl, PS, head,
+                                                   tail)
+            err["semiglobal_sw.end"] = max(err["semiglobal_sw.end"], max_abs_err(
+                cuda_align.launch_semiglobal(a_)[:3],
+                semiglobal_align_batch(q, t, ql, tl, PS, head=head,
+                                       tail=tail)[:3]))
     plain_ms["ksw.end"] = plain_ms["ksw.score"] = cuda_ms(
         lambda: ksw_align_batch(*ksw_args), 1)
     # banded_sw's END and SCORE as launches alone on inputs already laid
@@ -1793,6 +1894,11 @@ def main() -> int:
     semi_strips = scan_align_full._semiglobal_start_core(
         *st_semi, **st_flags, count_strips=True)[2]
     semi_cells = int(semi_strips.long().sum()) * 8 * BENCH_L
+    # semiglobal_sw END's cells to each pair's extents (columns < qlen,
+    # strips to ceil(tlen/8)): all its outputs read (sg has a TAIL)
+    sg_cols = torch.from_numpy(qln.astype(np.int64))
+    sg_strips = torch.from_numpy((tln.astype(np.int64) + 7) // 8)
+    sg_cells = int((sg_cols * sg_strips).sum()) * 8
     seqs = BENCH_B * 2 * BENCH_L          # Q and T, one byte a base
     pp = 4 * BENCH_B                      # one int32 per pair
     cube = (BENCH_L // 8) * BENCH_L * BENCH_B * 4
@@ -1804,7 +1910,7 @@ def main() -> int:
         "local_sw.tb": (cells, seqs + 3 * pp + cube),
         "global_sw.score": (cells, seqs + 3 * pp),
         "global_sw.tb": (cells, seqs + 3 * pp + cube),
-        "semiglobal_sw.end": (cells, seqs + 5 * pp),
+        "semiglobal_sw.end": (sg_cells, seqs + 5 * pp),
         "semiglobal_sw.tb": (cells, seqs + 5 * pp + cube),
         "local_sw.second": (cells, seqs + 8 * pp),
         "local_start": (start_cells, seqs + 6 * pp),
@@ -1874,14 +1980,18 @@ def main() -> int:
     # so 32 / G pairs a warp) and banded_sw's band tiles (launched in the
     # pairs' order; ordered by band tiles beside it)
     by = lambda key: torch.argsort(key, descending=True)
-    wp = 32 // cuda_align.local_start_group(BENCH_B, sms)
+    wp = sg_wp = 32 // cuda_align.split_group(BENCH_B, sms)
     ls_share = lambda key: lane_share(
         start_cols if key is None else start_cols[by(key)], wp)
     b_tiles = torch.from_numpy(band_windows(qln, tln, BENCH_BAND).sum(1))
     log("5 timings", f"lanes' share of the work: semiglobal_start "
         f"{lane_share(semi_strips):.4f} in the pairs' order, "
         f"{lane_share(semi_strips[torch.argsort(st_semi[5])]):.4f} as "
-        f"launched ({int(semi_strips.sum())} strips); local_start, "
+        f"launched ({int(semi_strips.sum())} strips); semiglobal_sw END's "
+        f"column-strips to the extents at {sg_wp} pairs a warp "
+        f"{lane_share(sg_cols * sg_strips, sg_wp):.4f} in the pairs' order, "
+        f"as launched ({sg_cells} cells of {cells}: "
+        f"{sg_cells / cells:.4f}); local_start, "
         f"{wp} pairs a warp, {ls_share(None):.4f} in the pairs' order, "
         f"{ls_share(qr8 * tr8):.4f} as launched (by qr8 x tr8; by tr8 "
         f"{ls_share(tr8):.4f}, by the forward score "
@@ -1897,8 +2007,8 @@ def main() -> int:
         f"tiles); B={BENCH_B} "
         f"{BENCH_L}x{BENCH_L}")
     from tools.sass_report import kernel_of, ptxas_lines
-    for name in ("ksw_extend", "global_sw", "local_sw", "semiglobal_start",
-                 "local_start", "banded_sw"):
+    for name in ("ksw_extend", "global_sw", "local_sw", "semiglobal_sw",
+                 "semiglobal_start", "local_start", "banded_sw"):
         log_text = (_build.BUILD_DIR / f"{name}.log").read_text()
         for fn, line in ptxas_lines(log_text).items():
             log("5 timings", f"ptxas {name}.cu {kernel_of(fn)}: {line}")
@@ -1955,7 +2065,7 @@ def main() -> int:
         err["local_start"] = max(err["local_start"], max_abs_err(
             got, scan_align_full._local_start_core(*ea[:4])))
         cols = got[1].long() * ea[4] + got[0] + 1
-        wp_e = 32 // cuda_align.local_start_group(n_b, sms)
+        wp_e = 32 // cuda_align.split_group(n_b, sms)
         e_bound = bound(OPS_PER_CELL["local_start"] * 8 * int(cols.sum()),
                         n_b * (lq + lt + 6 * 4), peak)
         log("5 timings", f"local_start at an engine launch, B={n_b} "
@@ -1986,6 +2096,75 @@ def main() -> int:
                 f"lanes' share {lane_share(tiles_e):.4f} in the pairs' "
                 f"order, as launched ({lane_share(tiles_e[by(tiles_e)]):.4f}"
                 f" were they ordered by band tiles); on {smi}")
+        # semiglobal_sw END and TB under glocal's skips (TARGET/TARGET)
+        # at the rule's threads a pair, launches alone in turns (A, B, B,
+        # A), held to the plain version (TB's cube word for word); END's
+        # bound counted at the pairs' extents, TB's over every cell
+        gl = dict(head=SemiGlobalSkip.TARGET, tail=SemiGlobalSkip.TARGET)
+        eQ, eT = eq.T.contiguous(), et.T.contiguous()
+        g_s = cuda_align.split_group(n_b, sms)
+        ext_e = eql.long().cpu() * ((etl.long().cpu() + 7) // 8)
+        s_e = {k: cuda_align.semiglobal_launch_args(
+            eQ, eT, eql, etl, PS, with_tb=k == "semiglobal_sw.tb", **gl)
+            for k in ("semiglobal_sw.end", "semiglobal_sw.tb")}
+        s_ms = dict.fromkeys(s_e, 0.0)
+        for k in (*s_e, *reversed(s_e)):
+            s_ms[k] += cuda_ms(lambda a=s_e[k]: cuda_align.launch_semiglobal(a),
+                               20) / 2
+        want_s = semiglobal_align_batch(eq, et, eql, etl, PS, with_tb=True,
+                                        **gl)
+        for k, a in s_e.items():
+            n_out = 4 if k == "semiglobal_sw.tb" else 3
+            err[k] = max(err[k], max_abs_err(
+                cuda_align.launch_semiglobal(a)[:n_out], want_s[:n_out]))
+        del want_s
+        cube_e = 4 * (lt // 8) * lq * n_b
+        s_b = {"semiglobal_sw.end": bound(
+            OPS_PER_CELL["semiglobal_sw.end"] * 8 * int(ext_e.sum()),
+            n_b * (lq + lt + 5 * 4), peak),
+            "semiglobal_sw.tb": bound(
+            OPS_PER_CELL["semiglobal_sw.tb"] * n_b * lq * lt,
+            n_b * (lq + lt + 5 * 4) + cube_e, peak)}
+        log("5 timings", f"semiglobal_sw at an engine launch, B={n_b} "
+            f"{lq}x{lt}, TARGET/TARGET, {g_s} threads a pair (launches "
+            "alone, in turns): " + ", ".join(
+                f"{k.split('.')[1].upper()} {s_ms[k]:.4f} ms (bound "
+                f"{s_b[k][0]:.4f} ms by {s_b[k][1]})" for k in s_e)
+            + f"; END's lanes' share of the column-strips to the extents "
+            f"{lane_share(ext_e, 32 // g_s):.4f} in the pairs' order "
+            f"({int(ext_e.sum())} of {n_b * lq * (lt // 8)}); on {smi}")
+        # local_sw's SCORE16 / END16 beside the int32 SCORE / END on the
+        # same launch (SCORE's pads remapped, no N compare), in turns (A,
+        # B, B, A), each held to the plain int16 version
+        eQs, eTs = (cuda_align._pads_to_sentinels(x, c) for x, c in ((eQ, 16),
+                                                                   (eT, 17)))
+        l_e = {m: cuda_align.local_launch_args(
+            m, *((eQs, eTs, P, False) if "score" in m else (eQ, eT, P, True)))
+            for m in ("score", "score16", "end", "end16")}
+        l_ms = dict.fromkeys(l_e, 0.0)
+        for m in ("score", "score16", "score16", "score", "end", "end16",
+                  "end16", "end"):
+            l_ms[m] += cuda_ms(lambda a=l_e[m]: cuda_align.launch_local(a),
+                               20) / 2
+        want_l = {"score": local_align_batch16(eQs.T, eTs.T, P,
+                                               ends=False)[:1],
+                  "end": local_align_batch16(eq, et, P)[:3]}
+        for m, a in l_e.items():
+            if m.endswith("16"):
+                key = f"local_sw.{m}"
+                want = want_l[m[:-2]]
+                err[key] = max(err[key], max_abs_err(
+                    cuda_align.launch_local(a)[:len(want)], want))
+        l_b = {m: bound(OPS_PER_CELL[f"local_sw.{m}"] * n_b * lq * lt,
+                        n_b * (lq + lt + 4 * (1 if "score" in m else 3)),
+                        peak)[0] for m in ("score16", "end16")}
+        log("5 timings", f"local_sw at an engine launch, B={n_b} {lq}x{lt}, "
+            f"{cuda_align.split_group((n_b + 1) // 2, sms)} "
+            "threads per two pairs (launches alone, in turns): " + ", ".join(
+                f"{m} {v:.4f} ms" for m, v in l_ms.items())
+            + f"; SCORE16 / SCORE {l_ms['score16'] / l_ms['score']:.3f}, "
+            f"END16 / END {l_ms['end16'] / l_ms['end']:.3f}; bounds SCORE16 "
+            f"{l_b['score16']:.4f} ms, END16 {l_b['end16']:.4f} ms; on {smi}")
     log("5 timings", "engine, " + "; ".join(
         f"{k} {v:.3f} s ({n / v:.0f} pairs/s)" for k, v in secs.items())
         + f", {n} pairs, host clock, on {smi}")
@@ -2115,6 +2294,9 @@ def main() -> int:
          "genomics_tpu/ops/pallas_pairhmm.py:140"),
         ("myers", "myers.cu", "genomics_tpu/ops/myers.py:161"),
     ]
+    left = child_pids()
+    if left:
+        raise AssertionError(f"child processes still running: {left}")
     # no single PyTorch call computes these recurrences: library_ms null
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + f,

@@ -46,8 +46,9 @@
 // writes in place; 0.934 of the columns there); each column's query code
 // and carry are loaded one column ahead, as local_sw.cu does; and G
 // threads share a pair's strips (local_start_split_kernel<G>, G = 4, or 8
-// where 4 B threads would leave an SM without a block:
-// cuda_align.local_start_group, a rule on the card's SM count).
+// where 4 B threads would give an SM too few warps: cuda_align.split_group,
+// the rule on B and the card's SM count that semiglobal_sw.cu and
+// local_sw.cu's 16-bit modes share).
 //
 // The strip split: G consecutive lanes of a warp run one pair.  Thread g
 // takes strips g, g + G, g + 2G, ... in rounds of G strips, one column

@@ -63,14 +63,15 @@
 // earliest cell in visit order) is LOCAL's own work and stays in every
 // cell.
 //
-// SCORE16 / END16 (local_sw16_kernel) run one thread per two adjacent
+// SCORE16 / END16 (local_sw16_kernel) run G threads per two adjacent
 // pairs (2k, 2k+1): H, E, f, diag and best of both pairs sit packed as
 // s16x2 in one 32-bit register, so each SIMD or DPX instruction does two
-// cells' work, and the gH/gE carry is a [Lq, ceil(B/2)] packed scratch,
-// half the int32 modes' bytes.  Bound: the work of SCORE and END, 12 and
-// 15 operations per cell, at two cells to a packed lane-operation: 6 per
-// cell in SCORE16; in END16 13 packed (all but the qend and tend selects)
-// and those two in int32 per pair, 8.5.  The substitution takes 4
+// cells' work, and the gH/gE carry between a thread group's rounds is a
+// [Lq, ceil(B/2)] packed scratch, half the int32 modes' bytes.  Bound:
+// the work of SCORE and END, 12 and 15 operations per cell, at two cells
+// to a packed lane-operation: 6 per cell in SCORE16; in END16 13 packed
+// (all but the qend and tend selects) and those two in int32 per pair,
+// 8.5.  The substitution takes 4
 // instructions here (xor, min.u16x2 to 0 / 1 per half, one multiply,
 // add.s16x2), since __vcmpeq2 is a sequence on sm_90.  END16 replaces the
 // best only where h is strictly greater (__vibmax_s16x2's predicates), so
@@ -81,8 +82,19 @@
 // the int32 modes' bit for bit: h >= 0 and tmp >= -mismatch (or the N
 // score), so f and e floor at -(mismatch + goe + ge).  An odd B's last
 // thread pairs its pair with a dummy of codes 16 / 17 (all mismatches,
-// score 0) whose outputs are not written.  A simple packed kernel first:
-// tuning is later work (PERF.md section 6).
+// score 0) whose outputs are not written.
+//
+// What the first 16-bit design lost (PERF.md section 6): one thread per
+// two pairs in 128-thread blocks gave a launch half the int32 modes'
+// warps, so below about 16k pairs it left SMs idle (14 blocks for 132 SMs
+// at 3,382 pairs) and ran each pair pair's strips in one serial chain:
+// END16 took 1.06-1.40x END's time there.  Here G threads share a pair
+// pair's strips (G of 4 or 8 by cuda_align.split_group, a rule on
+// ceil(B/2) and the card's SM count: 4 at bench.py's 65,536 pairs, 8 at
+// the engine's and the align CLI's launches), the carry between the
+// strips of a round passes by shuffle, each pair pair's codes come in as
+// one 16-bit load where B is even, and each thread loads one column
+// ahead.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,6 +103,7 @@ namespace {
 
 constexpr int kN4 = 14;  // 4-bit code of N (and of padding)
 constexpr int kThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
 enum Mode { SCORE = 0, END = 1, TB = 2, SECOND = 3, SCORE16 = 4, END16 = 5 };
 
 template <int MODE, bool WITH_N>
@@ -238,10 +251,30 @@ __device__ __forceinline__ int hi16(uint32_t x) {
   return static_cast<int16_t>(x >> 16);
 }
 
+// Two pairs' codes at p (p[0] low, p[1] high) widened to s16x2 halves:
+// one 16-bit load where B is even (p is then 2-byte aligned), else two
+// byte loads, the high half the dummy's code where the pair has no
+// partner.
+__device__ __forceinline__ uint32_t codes2(const uint8_t* p, bool even,
+                                           bool two, uint32_t dummy) {
+  if (even)
+    return __byte_perm(*reinterpret_cast<const uint16_t*>(p), 0, 0x4140);
+  return p[0] | (two ? p[1] : dummy) << 16;
+}
+
 // SCORE16 (ENDS = false) and END16 (ENDS = true): the SCORE / END walk
 // above on two pairs at once, every DP quantity packed s16x2 (low half
-// pair 2k, high half pair 2k+1).
-template <bool ENDS>
+// pair 2k, high half pair 2k+1), G packed threads sharing the pair pair's
+// strips as local_start.cu's threads share a pair's: thread g takes
+// strips g, g + G, ... in rounds of G, one column behind thread g - 1,
+// from which it receives the packed (H, E) of the row above and the
+// packed query codes by __shfl_up_sync; thread 0 loads the next column's
+// codes and carry one column ahead and reads the carry that thread G - 1
+// wrote in the round before.  Each thread tracks its strip's packed best
+// (and, in END16, each half's cell); at a round's end the G strips are
+// combined in visit order, each half by a scalar strict '>', so an
+// earlier strip keeps a tie, as within a strip an earlier cell does.
+template <bool ENDS, int G>
 __global__ void __launch_bounds__(kThreads)
 local_sw16_kernel(const uint8_t* __restrict__ Q,  // [Lq, B]
                   const uint8_t* __restrict__ T,  // [Lt, B]
@@ -253,11 +286,14 @@ local_sw16_kernel(const uint8_t* __restrict__ Q,  // [Lq, B]
                   int* __restrict__ out_qend,     // [B] (END16)
                   int* __restrict__ out_tend)     // [B] (END16)
 {
+  static_assert(G >= 2 && 32 % G == 0, "a pair pair's threads share a warp");
   const int P = (B + 1) >> 1;
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= P) return;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31, g = lane % G, first = lane - g;
+  const int k = tid / G;
+  const bool live = k < P;  // no early return: every lane shuffles
   const int b = 2 * k;
-  const bool two = b + 1 < B;
+  const bool two = b + 1 < B, even = !(B & 1);
   const size_t sB = static_cast<size_t>(B), sP = static_cast<size_t>(P);
   // sub = match2 + ne * (-(match + mismatch)) per half, ne = 0 / 1: each
   // half's product fits in 16 bits, so one 32-bit multiply does both
@@ -268,79 +304,119 @@ local_sw16_kernel(const uint8_t* __restrict__ Q,  // [Lq, B]
   // the f chains start each strip at the TPU kernels' int16 -inf, -4096
   // (pallas_align.py:588, :653); any seed <= 0 gives the same H
   const uint32_t nbig2 = pack2(-4096);
+  const int nstrip = live ? Lt >> 3 : 0;
   uint32_t best = 0;
   int qend0 = 0, tend0 = 0, qend1 = 0, tend1 = 0;
-  // column j's codes of both pairs and its carry
-  auto load = [&](int j, int s, uint32_t& qc, uint32_t& hcol, uint32_t& e) {
-    const uint8_t* col = Q + static_cast<size_t>(j) * sB + b;
-    qc = col[0] | static_cast<uint32_t>(two ? col[1] : 16) << 16;
-    const size_t at = static_cast<size_t>(j) * sP + k;
-    hcol = s ? gH[at] : 0;
-    e = s ? gE[at] : 0;
-  };
-  const int n_strips = Lt >> 3;
-  for (int s = 0; s < n_strips; ++s) {
-    uint32_t tc[8], tn[8];
+  for (int r = 0; __any_sync(kFull, r * G < nstrip); ++r) {
+    const int s = r * G + g;
+    const bool mine = s < nstrip;
+    uint32_t tc[8], tn[8], hp[8], f[8];
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      const uint8_t* row = T + static_cast<size_t>(s * 8 + c) * sB + b;
-      tc[c] = row[0] | static_cast<uint32_t>(two ? row[1] : 17) << 16;
+      tc[c] = mine ? codes2(T + static_cast<size_t>(s * 8 + c) * sB + b, even,
+                            two, 17)
+                   : 0;
       tn[c] = ENDS ? __vcmpeq2(tc[c], n42) : 0;
-    }
-    uint32_t hp[8], f[8];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
       hp[c] = 0;
       f[c] = nbig2;
     }
+    // this strip's packed best and, in END16, each half's cell
+    uint32_t sbest = 0;
+    int sq0 = 0, st0 = 0, sq1 = 0, st1 = 0;
     uint32_t diag0 = 0;
-    // With half the int32 modes' threads, a warp that waits for its
-    // column's loads finds few others to run: the next two columns' loads
-    // are in flight while this one computes.
-    uint32_t qc1, hcol1, e1, qc2, hcol2, e2;
-    load(0, s, qc1, hcol1, e1);
-    load(min(1, Lq - 1), s, qc2, hcol2, e2);
-    for (int j = 0; j < Lq; ++j) {
-      const uint32_t qc = qc1, hcol = hcol1;
-      uint32_t e = e1;
-      qc1 = qc2;
-      hcol1 = hcol2;
-      e1 = e2;
-      load(min(j + 2, Lq - 1), s, qc2, hcol2, e2);
-      const uint32_t qn = ENDS ? __vcmpeq2(qc, n42) : 0;
+    // thread 0's codes and carry of the next column, loaded ahead
+    uint32_t qn = 0, hn = 0, en = 0;
+    auto load = [&](int j) {
+      qn = codes2(Q + static_cast<size_t>(j) * sB + b, even, two, 16);
       const size_t at = static_cast<size_t>(j) * sP + k;
-      uint32_t diag = diag0;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const uint32_t ne = minu2(qc ^ tc[c], 0x00010001u);
-        uint32_t sub = add2(match2, ne * miss);
-        if (ENDS) {
-          const uint32_t nm = qn | tn[c];
-          sub = (sub & ~nm) | (nsc2 & nm);
-        }
-        const uint32_t tmp = add2(diag, sub);
-        const uint32_t h = __vimax3_s16x2_relu(tmp, f[c], e);
-        if (ENDS) {
-          bool keep_hi, keep_lo;  // best >= h: a tie keeps the earlier cell
-          best = __vibmax_s16x2(best, h, &keep_hi, &keep_lo);
-          qend0 = keep_lo ? qend0 : j;
-          tend0 = keep_lo ? tend0 : s * 8 + c;
-          qend1 = keep_hi ? qend1 : j;
-          tend1 = keep_hi ? tend1 : s * 8 + c;
-        } else {
-          best = max2(best, h);
-        }
-        const uint32_t tmpg = add2(tmp, ngoe2);
-        f[c] = __viaddmax_s16x2(f[c], nge2, tmpg);
-        e = __viaddmax_s16x2(e, nge2, tmpg);
-        diag = hp[c];
-        hp[c] = h;
+      hn = s ? gH[at] : 0;
+      en = s ? gE[at] : 0;
+    };
+    if (g == 0 && mine) load(0);
+    uint32_t oh = 0, oe = 0, oq = 0;  // what this thread sent on, a column ago
+    for (int kk = 0; kk < Lq + G - 1; ++kk) {
+      uint32_t rh = hn, e = en, qc = qn;
+      const uint32_t uh = __shfl_up_sync(kFull, oh, 1, G);
+      const uint32_t ue = __shfl_up_sync(kFull, oe, 1, G);
+      const uint32_t uq = __shfl_up_sync(kFull, oq, 1, G);
+      if (g) {
+        rh = uh;
+        e = ue;
+        qc = uq;
       }
-      diag0 = hcol;
-      gH[at] = hp[7];
-      gE[at] = e;
+      const int j = kk - g;
+      if (g == 0 && mine && j + 1 < Lq) load(j + 1);
+      if (mine && j >= 0 && j < Lq) {
+        const uint32_t qnm = ENDS ? __vcmpeq2(qc, n42) : 0;
+        uint32_t diag = diag0;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const uint32_t ne = minu2(qc ^ tc[c], 0x00010001u);
+          uint32_t sub = add2(match2, ne * miss);
+          if (ENDS) {
+            const uint32_t nm = qnm | tn[c];
+            sub = (sub & ~nm) | (nsc2 & nm);
+          }
+          const uint32_t tmp = add2(diag, sub);
+          const uint32_t h = __vimax3_s16x2_relu(tmp, f[c], e);
+          if (ENDS) {
+            bool keep_hi, keep_lo;  // sbest >= h: a tie keeps the earlier cell
+            sbest = __vibmax_s16x2(sbest, h, &keep_hi, &keep_lo);
+            sq0 = keep_lo ? sq0 : j;
+            st0 = keep_lo ? st0 : s * 8 + c;
+            sq1 = keep_hi ? sq1 : j;
+            st1 = keep_hi ? st1 : s * 8 + c;
+          } else {
+            sbest = max2(sbest, h);
+          }
+          const uint32_t tmpg = add2(tmp, ngoe2);
+          f[c] = __viaddmax_s16x2(f[c], nge2, tmpg);
+          e = __viaddmax_s16x2(e, nge2, tmpg);
+          diag = hp[c];
+          hp[c] = h;
+        }
+        diag0 = rh;
+        oh = hp[7];
+        oe = e;
+        oq = qc;
+        if (g == G - 1 && s + 1 < nstrip) {
+          const size_t at = static_cast<size_t>(j) * sP + k;
+          gH[at] = oh;
+          gE[at] = oe;
+        }
+      }
+      __syncwarp();  // thread G-1's carry writes before thread 0's reads
     }
+    // the round's strips in visit order, each half on its own: strictly
+    // greater replaces, so an earlier strip keeps a tie
+    int blo = lo16(best), bhi = hi16(best);
+#pragma unroll
+    for (int h = 0; h < G; ++h) {
+      const int src = first + h;
+      const uint32_t m = __shfl_sync(kFull, sbest, src);
+      if (ENDS) {
+        const int mq0 = __shfl_sync(kFull, sq0, src);
+        const int mt0 = __shfl_sync(kFull, st0, src);
+        const int mq1 = __shfl_sync(kFull, sq1, src);
+        const int mt1 = __shfl_sync(kFull, st1, src);
+        if (lo16(m) > blo) {
+          blo = lo16(m);
+          qend0 = mq0;
+          tend0 = mt0;
+        }
+        if (hi16(m) > bhi) {
+          bhi = hi16(m);
+          qend1 = mq1;
+          tend1 = mt1;
+        }
+      } else {
+        blo = max(blo, lo16(m));
+        bhi = max(bhi, hi16(m));
+      }
+    }
+    best = (static_cast<uint32_t>(blo) & 0xFFFFu) | static_cast<uint32_t>(bhi) << 16;
   }
+  if (!live || g) return;
   out_score[b] = lo16(best);
   if (ENDS) {
     out_qend[b] = qend0;
@@ -355,19 +431,38 @@ local_sw16_kernel(const uint8_t* __restrict__ Q,  // [Lq, B]
   }
 }
 
+template <bool ENDS>
+int launch16(int group, const uint8_t* q, const uint8_t* t, int B, int Lq,
+             int Lt, int match, int mismatch, int n_score, int goe, int ge,
+             uint32_t* h, uint32_t* e, int* s, int* qe, int* te,
+             cudaStream_t st) {
+  const long long threads = static_cast<long long>((B + 1) / 2) * group;
+  const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
+#define LOCAL16(G)                                                           \
+  local_sw16_kernel<ENDS, G><<<grid, kThreads, 0, st>>>(                     \
+      q, t, B, Lq, Lt, match, mismatch, n_score, goe, ge, h, e, s, qe, te)
+  switch (group) {
+    case 4: LOCAL16(4); break;
+    case 8: LOCAL16(8); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef LOCAL16
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // mode: 0 SCORE, 1 END, 2 TB, 4 SCORE16, 5 END16.  SCORE takes with_n 0
-// or 1, SCORE16 only 0, the others only 1.  The 16-bit modes' gH/gE are
-// [Lq, ceil(B/2)] 32-bit words (one thread per two pairs).
+// or 1, SCORE16 only 0, the others only 1.  group: threads per pair (1)
+// in the int32 modes, per two pairs (4 or 8) in the 16-bit ones,
+// whose gH/gE are [Lq, ceil(B/2)] 32-bit words.
 // Launches on `stream` without synchronising; returns cudaGetLastError().
-extern "C" int local_sw_launch(int mode, int with_n, const void* Q, const void* T,
-                               int B, int Lq, int Lt, int match, int mismatch,
-                               int n_score, int goe, int ge, void* gH, void* gE,
-                               void* score, void* qend, void* tend, void* tb,
-                               void* stream) {
+extern "C" int local_sw_launch(int mode, int with_n, int group, const void* Q,
+                               const void* T, int B, int Lq, int Lt, int match,
+                               int mismatch, int n_score, int goe, int ge,
+                               void* gH, void* gE, void* score, void* qend,
+                               void* tend, void* tb, void* stream) {
   const dim3 grid((B + kThreads - 1) / kThreads), block(kThreads);
-  const dim3 grid16((B + 2 * kThreads - 1) / (2 * kThreads));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto q = static_cast<const uint8_t*>(Q);
   auto t = static_cast<const uint8_t*>(T);
@@ -377,6 +472,15 @@ extern "C" int local_sw_launch(int mode, int with_n, const void* Q, const void* 
   auto qe = static_cast<int*>(qend);
   auto te = static_cast<int*>(tend);
   auto w = static_cast<int*>(tb);
+  if (mode == SCORE16 && !with_n)
+    return launch16<false>(group, q, t, B, Lq, Lt, match, mismatch, n_score,
+                           goe, ge, static_cast<uint32_t*>(gH),
+                           static_cast<uint32_t*>(gE), s, qe, te, st);
+  if (mode == END16 && with_n)
+    return launch16<true>(group, q, t, B, Lq, Lt, match, mismatch, n_score,
+                          goe, ge, static_cast<uint32_t*>(gH),
+                          static_cast<uint32_t*>(gE), s, qe, te, st);
+  if (group != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (mode == SCORE && with_n) {
     local_sw_kernel<SCORE, true><<<grid, block, 0, st>>>(
         q, t, B, Lq, Lt, match, mismatch, n_score, goe, ge, h, e, s, qe, te, w,
@@ -389,14 +493,6 @@ extern "C" int local_sw_launch(int mode, int with_n, const void* Q, const void* 
     local_sw_kernel<END, true><<<grid, block, 0, st>>>(
         q, t, B, Lq, Lt, match, mismatch, n_score, goe, ge, h, e, s, qe, te, w,
         nullptr, nullptr, nullptr, nullptr, nullptr);
-  } else if (mode == SCORE16 && !with_n) {
-    local_sw16_kernel<false><<<grid16, block, 0, st>>>(
-        q, t, B, Lq, Lt, match, mismatch, n_score, goe, ge,
-        static_cast<uint32_t*>(gH), static_cast<uint32_t*>(gE), s, qe, te);
-  } else if (mode == END16 && with_n) {
-    local_sw16_kernel<true><<<grid16, block, 0, st>>>(
-        q, t, B, Lq, Lt, match, mismatch, n_score, goe, ge,
-        static_cast<uint32_t*>(gH), static_cast<uint32_t*>(gE), s, qe, te);
   } else if (mode == TB && with_n) {
     local_sw_kernel<TB, true><<<grid, block, 0, st>>>(
         q, t, B, Lq, Lt, match, mismatch, n_score, goe, ge, h, e, s, qe, te, w,

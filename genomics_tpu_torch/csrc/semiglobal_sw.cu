@@ -1,5 +1,5 @@
-// Semiglobal affine-gap alignment (GASAL2 semi_global kernel), one thread
-// per alignment, for Hopper (sm_90a), templated on the HEAD/TAIL skips.
+// Semiglobal affine-gap alignment (GASAL2 semi_global kernel) for Hopper
+// (sm_90a): G threads per alignment that share its strips.
 //
 // Replaces the Pallas kernels
 //   mode END  genomics_tpu/ops/pallas_gs.py _semiglobal_kernel_intertask
@@ -41,12 +41,44 @@
 // TB nibbles follow the JAX TB kernel's bookkeeping (pallas_align.py:
 // 1379-1389): f_ext compares against this cell's f, e_ext against this
 // cell's e (the e the cell used), not the pre-update chains of the local
-// core.
+// core; f_ext = !(tmp - goe > f - ge) is taken as f >= tmp - gapo, and
+// e_ext the same way.
 //
 // Bound: integer ALU work per cell (about 14 operations in END, 24 in TB)
-// plus, in TB, the nibble-cube writes (4 bytes per 8 cells).  This first
-// design is the simple one: DPX __vimax3_s32, packed 16-bit cells and
-// shared-memory carries are left to later work.
+// plus, in TB, the nibble-cube writes (4 bytes per 8 cells).
+//
+// What the first design lost against it (PERF.md section 6): each
+// column's query code and carry were loaded at the column's top, the
+// maxima were separate adds and compares, TAIL_T's test sat in every
+// cell, END walked every padded column and strip, and one thread a pair
+// in 128-thread blocks left SMs idle at the engine's launches (27 and 130
+// blocks for 132 SMs).  Here:
+//   - thread 0 of a pair loads the next column's query code and carry
+//     before computing its own (the boundary values where s == 0);
+//   - the cell takes Hopper's DPX maxima: __vimax3_s32 (no relu: SEMI_
+//     GLOBAL has no 0 floor) for h, __viaddmax_s32 for the f and e
+//     chains, with each row's H kept as H - gap_oe so that no chain
+//     forms its own open;
+//   - TAIL_T's capture is a column-level branch on j == qlen - 1 over
+//     the column's 8 rows, a strict '>' in row order;
+//   - END walks each pair only to its extents: columns < qlen and strips
+//     <= s_bottom = ceil(tlen/8) - 1.  The DP flows right and down and
+//     the outputs read only cells inside those extents (TAIL_T's column
+//     and TAIL_Q's padded row), so no cell past them feeds one that is
+//     read.  A pair without a TAIL flag walks nothing and writes the
+//     reference's constants.  TB walks everything: it writes every word
+//     of the cube, as the plain version does;
+//   - G threads share a pair's strips (semiglobal_sw_kernel<MODE, G>,
+//     G of 4 or 8 chosen by cuda_align.split_group, a rule on B and the
+//     card's SM count).  Thread g takes strips g, g + G, ... in
+//     rounds of G strips, one column behind thread g - 1, from which it
+//     receives the row above's (H, E) and the query code of its column by
+//     __shfl_up_sync; thread 0 reads the carry that thread G - 1 wrote in
+//     the round before.  TAIL_T's strips are combined in visit order at
+//     each round's end (strict '>', an earlier strip keeps a tie), and
+//     TAIL_Q's row is the one thread's whose strip is s_bottom (none
+//     where tlen is 0: that row reads 0, as in the plain version).  A round
+//     runs the warp's longest column loop plus G - 1 steps.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -57,6 +89,7 @@ namespace {
 constexpr int kN4 = 14;  // 4-bit code of N (and of padding)
 constexpr int kMinusInf = -32768;
 constexpr int kThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
 enum Mode { END = 0, TB = 1 };
 
 struct Args {
@@ -65,6 +98,7 @@ struct Args {
   const int* qlen;    // [B]
   const int* tlen;    // [B]
   int B, Lq, Lt, match, mismatch, n_score, gapo, ge;
+  bool head_q, head_t, tail_q, tail_t;
   int* gH;            // [Lq, B] scratch
   int* gE;            // [Lq, B] scratch
   int* score;         // [B]
@@ -73,81 +107,162 @@ struct Args {
   int* tb;            // [Lt/8, Lq, B] (TB)
 };
 
-template <int MODE, bool HEAD_Q, bool HEAD_T, bool TAIL_Q, bool TAIL_T>
-__global__ void __launch_bounds__(kThreads) semiglobal_sw_kernel(const Args a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const size_t sB = static_cast<size_t>(a.B);
-  const int Lq = a.Lq, gapo = a.gapo, ge = a.ge, goe = gapo + ge;
-  const int ql = a.qlen[b], tl = a.tlen[b];
-  const int jl = ql - 1;                 // TAIL_T's column
-  const int s_bottom = (tl + 7) / 8 - 1;  // strip of TAIL_Q's padded row
-  int best_t = kMinusInf, row_t = tl;    // TAIL_T: score and row
-  int best_q = INT_MIN, col_q = 0;       // TAIL_Q: leftmost row maximum
-  const int n_strips = a.Lt >> 3;
-  for (int s = 0; s < n_strips; ++s) {
-    int tc[8];
+// The 8 cells of one query column inside a strip, rows down.  p holds
+// each row's diagonal (H of the row above at the column before; the
+// strip's init at column 0) and takes the h above; hg holds H(row, j-1) -
+// gap_oe and takes this column's; f the f chains.  hup / e: H and E of the
+// row above the strip at this column.  Returns the strip's last row's E;
+// TB's nibbles go to word.
+template <int MODE>
+__device__ __forceinline__ int column(const Args& a, const int (&tc)[8],
+                                      int (&p)[8], int (&hg)[8], int (&f)[8],
+                                      int qc, int hup, int e, uint32_t& word) {
+  const int goe = a.gapo + a.ge;
+  int hab = hup, phd = hup - goe;  // the h above, and it less gap_oe
+  word = 0;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) tc[c] = a.T[static_cast<size_t>(s * 8 + c) * sB + b];
-    int hl[8], f[8], p[8];  // H(row c, j-1), f chain, diag of the next column
+  for (int c = 0; c < 8; ++c) {
+    int sub = (qc == tc[c]) ? a.match : -a.mismatch;
+    if (qc == kN4 || tc[c] == kN4) sub = a.n_score;
+    const int tmp = p[c] + sub;
+    const int fc = __viaddmax_s32(f[c], -a.ge, hg[c]);
+    e = __viaddmax_s32(e, -a.ge, phd);
+    const int h = __vimax3_s32(tmp, fc, e);
+    if (MODE == TB) {
+      const int tg = tmp - a.gapo;
+      const uint32_t d = (h == tmp) ? static_cast<uint32_t>(sub) >> 31
+                                    : (h == fc ? 3u : 2u);
+      word |= (d | (e >= tg ? 4u : 0u) | (fc >= tg ? 8u : 0u)) << (4 * c);
+    }
+    f[c] = fc;
+    p[c] = hab;
+    hab = h;
+    phd = h - goe;
+    hg[c] = phd;
+  }
+  return e;
+}
+
+template <int MODE, int G>
+__global__ void __launch_bounds__(kThreads) semiglobal_sw_kernel(const Args a) {
+  static_assert(G >= 2 && 32 % G == 0, "a pair's threads share a warp");
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31, g = lane % G, first = lane - g;
+  const int b = tid / G;
+  const bool live = b < a.B;  // no early return: every lane shuffles
+  const size_t sB = static_cast<size_t>(a.B);
+  const int Lq = a.Lq, goe = a.gapo + a.ge;
+  const int ql = live ? a.qlen[b] : 1, tl = live ? a.tlen[b] : 1;
+  const int s_bottom = (tl + 7) / 8 - 1;  // strip of TAIL_Q's padded row
+  // the walk: TB everything, END the pair's extents (nothing without a TAIL)
+  int ncol = MODE == TB ? Lq : (a.tail_q || a.tail_t ? min(ql, Lq) : 0);
+  if (!live) ncol = 0;
+  const int nstrip = ncol > 0 ? (MODE == TB ? a.Lt >> 3
+                                            : min(s_bottom + 1, a.Lt >> 3))
+                              : 0;
+  const int wcol = __reduce_max_sync(kFull, ncol);
+  int best_t = kMinusInf, row_t = tl;  // TAIL_T: score and row
+  int best_q = INT_MIN, col_q = 0;     // TAIL_Q: leftmost row maximum
+  for (int r = 0; __any_sync(kFull, r * G < nstrip); ++r) {
+    const int s = r * G + g;
+    const bool mine = s < nstrip;
+    int tc[8], p[8], hg[8], f[8];
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       const int row = s * 8 + c;
-      hl[c] = HEAD_T ? 0 : -(gapo + ge * row);
-      p[c] = (HEAD_T || row == 0) ? 0 : -(gapo + ge * row);
+      const int edge = -(a.gapo + a.ge * row);
+      tc[c] = mine ? a.T[static_cast<size_t>(row) * sB + b] : 0;
+      hg[c] = (a.head_t ? 0 : edge) - goe;
+      p[c] = (a.head_t || row == 0) ? 0 : edge;
       f[c] = kMinusInf;
     }
-    for (int j = 0; j < Lq; ++j) {
+    int sbest = kMinusInf, srow = tl;  // TAIL_T in this strip
+    // thread 0's query code and carry of the next column, loaded ahead
+    // (the boundary values where no strip has run)
+    int qn = 0, hn = 0, en = 0;
+    auto load = [&](int j) {
       const size_t at = static_cast<size_t>(j) * sB + b;
-      const int qc = a.Q[at];
-      int hup, e;  // H and e of the row above the strip
+      qn = a.Q[at];
       if (s) {
-        hup = a.gH[at];
-        e = a.gE[at];
-      } else if (HEAD_Q) {
-        hup = e = 0;
+        hn = a.gH[at];
+        en = a.gE[at];
+      } else if (a.head_q) {
+        hn = en = 0;
       } else {
-        hup = j ? -(gapo + ge * j) : 0;
-        e = kMinusInf;
+        hn = j ? -(a.gapo + a.ge * j) : 0;
+        en = kMinusInf;
       }
-      int phd = hup - goe;  // prev_hm_diff: the h above, less gap_oe
-      uint32_t word = 0;
+    };
+    if (g == 0 && mine) load(0);
+    int oh = 0, oe = 0, oq = 0;  // what this thread sent on, a column ago
+    for (int k = 0; k < wcol + G - 1; ++k) {
+      int rh = hn, re = en, rq = qn;
+      const int uh = __shfl_up_sync(kFull, oh, 1, G);
+      const int ue = __shfl_up_sync(kFull, oe, 1, G);
+      const int uq = __shfl_up_sync(kFull, oq, 1, G);
+      if (g) {
+        rh = uh;
+        re = ue;
+        rq = uq;
+      }
+      const int j = k - g;
+      if (g == 0 && mine && j + 1 < ncol) load(j + 1);
+      if (mine && j >= 0 && j < ncol) {
+        uint32_t word;
+        oe = column<MODE>(a, tc, p, hg, f, rq, rh, re, word);
+        oh = hg[7] + goe;
+        oq = rq;
+        const size_t at = static_cast<size_t>(j) * sB + b;
+        if (g == G - 1 && s + 1 < nstrip) {
+          a.gH[at] = oh;
+          a.gE[at] = oe;
+        }
+        if (MODE == TB)
+          a.tb[(static_cast<size_t>(s) * Lq + j) * sB + b] = static_cast<int>(word);
+        if (a.tail_t && j == ql - 1) {
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        int sub = (qc == tc[c]) ? a.match : -a.mismatch;
-        if (qc == kN4 || tc[c] == kN4) sub = a.n_score;
-        const int fc = max(hl[c] - goe, f[c] - ge);
-        const int tmp = p[c] + sub;
-        e = max(phd, e - ge);
-        const int h = max(max(tmp, fc), e);
-        if (MODE == TB) {
-          const int d = (h == tmp) ? (sub >= 0 ? 0 : 1) : (h == fc ? 3 : 2);
-          const int f_ext = tmp - goe > fc - ge ? 0 : 1;
-          const int e_ext = tmp - goe > e - ge ? 0 : 1;
-          word |= static_cast<uint32_t>(d | (e_ext << 2) | (f_ext << 3)) << (4 * c);
+          for (int c = 0; c < 8; ++c) {
+            const int h = hg[c] + goe;
+            if (s * 8 + c < tl && h > sbest) {
+              sbest = h;
+              srow = s * 8 + c;
+            }
+          }
         }
-        if (TAIL_T && j == jl && s * 8 + c < tl && h > best_t) {
-          best_t = h;
-          row_t = s * 8 + c;
+        if (a.tail_q && s == s_bottom && j < ql && oh > best_q) {
+          best_q = oh;
+          col_q = j;
         }
-        f[c] = fc;
-        p[c] = phd + goe;
-        phd = h - goe;
-        hl[c] = h;
       }
-      a.gH[at] = hl[7];
-      a.gE[at] = e;
-      if (TAIL_Q && s == s_bottom && j < ql && hl[7] > best_q) {
-        best_q = hl[7];
-        col_q = j;
+      __syncwarp();  // thread G-1's carry writes before thread 0's reads
+    }
+    // TAIL_T: the round's strips in visit order
+#pragma unroll
+    for (int h = 0; h < G; ++h) {
+      const int m = __shfl_sync(kFull, sbest, first + h);
+      const int mr = __shfl_sync(kFull, srow, first + h);
+      if (m > best_t) {
+        best_t = m;
+        row_t = mr;
       }
-      if (MODE == TB) a.tb[(static_cast<size_t>(s) * Lq + j) * sB + b] = static_cast<int>(word);
     }
   }
-  int score = TAIL_T ? best_t : kMinusInf;
+  // TAIL_Q's row ran in the thread whose strip is s_bottom.  An empty
+  // target has none (s_bottom -1): its row reads 0 at every column, as
+  // the plain version's row does before any is taken, so column 0 holds
+  // the leftmost maximum
+  const int src = first + max(s_bottom, 0) % G;
+  best_q = __shfl_sync(kFull, best_q, src);
+  col_q = __shfl_sync(kFull, col_q, src);
+  if (s_bottom < 0 && ql > 0) {
+    best_q = 0;
+    col_q = 0;
+  }
+  if (!live || g) return;
+  int score = a.tail_t ? best_t : kMinusInf;
   int qend = tl;
-  int tend = (TAIL_T && best_t > kMinusInf) ? row_t : ql;
-  if (TAIL_Q) {
+  int tend = (a.tail_t && best_t > kMinusInf) ? row_t : ql;
+  if (a.tail_q) {
     if (best_q > score) {
       score = best_q;
       qend = col_q;
@@ -159,61 +274,41 @@ __global__ void __launch_bounds__(kThreads) semiglobal_sw_kernel(const Args a) {
   a.tend[b] = tend;
 }
 
-// The template dispatch: one flag at a time, from the HEAD_Q end.
-template <int MODE, bool HQ, bool HT, bool TQ, bool TT>
-void launch(const Args& a, cudaStream_t st) {
-  const dim3 grid((a.B + kThreads - 1) / kThreads), block(kThreads);
-  semiglobal_sw_kernel<MODE, HQ, HT, TQ, TT><<<grid, block, 0, st>>>(a);
-}
-
-template <int MODE, bool HQ, bool HT, bool TQ>
-void pick_tail_t(bool tt, const Args& a, cudaStream_t st) {
-  tt ? launch<MODE, HQ, HT, TQ, true>(a, st) : launch<MODE, HQ, HT, TQ, false>(a, st);
-}
-
-template <int MODE, bool HQ, bool HT>
-void pick_tail_q(bool tq, bool tt, const Args& a, cudaStream_t st) {
-  tq ? pick_tail_t<MODE, HQ, HT, true>(tt, a, st)
-     : pick_tail_t<MODE, HQ, HT, false>(tt, a, st);
-}
-
-template <int MODE, bool HQ>
-void pick_head_t(bool ht, bool tq, bool tt, const Args& a, cudaStream_t st) {
-  ht ? pick_tail_q<MODE, HQ, true>(tq, tt, a, st)
-     : pick_tail_q<MODE, HQ, false>(tq, tt, a, st);
-}
-
 template <int MODE>
-void pick_head_q(bool hq, bool ht, bool tq, bool tt, const Args& a, cudaStream_t st) {
-  hq ? pick_head_t<MODE, true>(ht, tq, tt, a, st)
-     : pick_head_t<MODE, false>(ht, tq, tt, a, st);
+int launch(int group, const Args& a, cudaStream_t st) {
+  const long long threads = static_cast<long long>(a.B) * group;
+  const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
+  switch (group) {
+    case 4: semiglobal_sw_kernel<MODE, 4><<<grid, kThreads, 0, st>>>(a); break;
+    case 8: semiglobal_sw_kernel<MODE, 8><<<grid, kThreads, 0, st>>>(a); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // mode: 0 END, 1 TB.  flags: bit0 HEAD_Q, bit1 HEAD_T, bit2 TAIL_Q,
-// bit3 TAIL_T.  n_score: what a pairing with N scores (0, or -n_penalty).
-// Launches on `stream` without synchronising; returns cudaGetLastError().
-extern "C" int semiglobal_sw_launch(int mode, int flags, const void* Q,
-                                    const void* T, const void* qlen,
-                                    const void* tlen, int B, int Lq, int Lt,
-                                    int match, int mismatch, int n_score,
-                                    int gapo, int ge, void* gH, void* gE,
-                                    void* score, void* qend, void* tend,
-                                    void* tb, void* stream) {
+// bit3 TAIL_T.  group: threads per pair, 4 or 8.  n_score: what a
+// pairing with N scores (0, or -n_penalty).  Launches on `stream` without
+// synchronising; returns cudaGetLastError().
+extern "C" int semiglobal_sw_launch(int mode, int flags, int group,
+                                    const void* Q, const void* T,
+                                    const void* qlen, const void* tlen, int B,
+                                    int Lq, int Lt, int match, int mismatch,
+                                    int n_score, int gapo, int ge, void* gH,
+                                    void* gE, void* score, void* qend,
+                                    void* tend, void* tb, void* stream) {
   if ((mode != END && mode != TB) || flags < 0 || flags > 15)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const uint8_t*>(Q), static_cast<const uint8_t*>(T),
                static_cast<const int*>(qlen), static_cast<const int*>(tlen),
                B, Lq, Lt, match, mismatch, n_score, gapo, ge,
+               (flags & 1) != 0, (flags & 2) != 0, (flags & 4) != 0,
+               (flags & 8) != 0,
                static_cast<int*>(gH), static_cast<int*>(gE),
                static_cast<int*>(score), static_cast<int*>(qend),
                static_cast<int*>(tend), static_cast<int*>(tb)};
-  const bool hq = flags & 1, ht = flags & 2, tq = flags & 4, tt = flags & 8;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == END)
-    pick_head_q<END>(hq, ht, tq, tt, a, st);
-  else
-    pick_head_q<TB>(hq, ht, tq, tt, a, st);
-  return static_cast<int>(cudaGetLastError());
+  return mode == END ? launch<END>(group, a, st) : launch<TB>(group, a, st);
 }

@@ -9,10 +9,12 @@ Every function takes the plain version (`ops.scan_align`,
 hand-written kernel for tensors on a CUDA device; any other device
 raises.  There is no fallback from the kernel to the plain version.
 
-One kernel (one thread per alignment; four or eight in local_start)
-covers every batch size, so the TPU's lanes / inter-task split has no
-counterpart here.  The modes
-replace these Pallas kernels:
+One kernel covers every batch size, so the TPU's lanes / inter-task
+split has no counterpart here: one thread per alignment, or G threads
+sharing an alignment's strips in local_start and semiglobal_sw, and G
+threads per two alignments in the 16-bit local_sw modes (G of 4 or 8 by
+`split_group`, one rule on the launch and the SM count for all three).
+The modes replace these Pallas kernels:
 
   local_sw.score       `_local_kernel_intertask_score` (pallas_align.py:482)
   local_sw.end         `_local_kernel_intertask` (pallas_align.py:221)
@@ -83,10 +85,10 @@ SCORE16_LIMIT = (1 << 15) - 64
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # argument types of each exported entry point, by (library, entry)
 _SIGNATURES = {
-    # mode, with_n, Q, T, B, Lq, Lt, match, mismatch, n_score, goe, ge,
-    # gH, gE, score, qend, tend, tb, stream (every mode of _LOCAL_MODES)
+    # mode, with_n, group, Q, T, B, Lq, Lt, match, mismatch, n_score, goe,
+    # ge, gH, gE, score, qend, tend, tb, stream (every mode of _LOCAL_MODES)
     ("local_sw", "local_sw_launch"):
-        (_ci, _ci, _vp, _vp) + (_ci,) * 8 + (_vp,) * 7,
+        (_ci, _ci, _ci, _vp, _vp) + (_ci,) * 8 + (_vp,) * 7,
     # Q, T, qlen, tlen, B, Lq, Lt, match, mismatch, n_score, goe, ge, gH,
     # gE, score, qend, tend, score2, qend2, tend2, stream
     ("local_sw", "local_sw_second_launch"):
@@ -98,10 +100,10 @@ _SIGNATURES = {
     # n_penalty, gapo, ge, gH, gE, score, tb, stream
     ("global_sw", "global_sw_launch"):
         (_ci, _ci) + (_vp,) * 4 + (_ci,) * 8 + (_vp,) * 5,
-    # mode, flags, Q, T, qlen, tlen, B, Lq, Lt, match, mismatch, n_score,
-    # gapo, ge, gH, gE, score, qend, tend, tb, stream
+    # mode, flags, group, Q, T, qlen, tlen, B, Lq, Lt, match, mismatch,
+    # n_score, gapo, ge, gH, gE, score, qend, tend, tb, stream
     ("semiglobal_sw", "semiglobal_sw_launch"):
-        (_ci, _ci) + (_vp,) * 4 + (_ci,) * 8 + (_vp,) * 7,
+        (_ci, _ci, _ci) + (_vp,) * 4 + (_ci,) * 8 + (_vp,) * 7,
     # flags, Q, T, qlen, tlen, row_off, row_count, fwd_score, fwd_qend, B,
     # Lq, Lt, match, mismatch, n_score, gapo, ge, gH, gE, tstart, qstart,
     # stream
@@ -183,10 +185,6 @@ def _per_pair(n: int, Q: torch.Tensor):
             for _ in range(n)]
 
 
-def _ptr(x):
-    return None if x is None else x.data_ptr()
-
-
 def _call(key: str, dev: torch.device, *args, entry: str | None = None):
     """Launch the kernel counted under `key` ("<name>[.<mode>]", the
     library csrc/<name>.cu unless `_LIBRARY` maps the name) on dev's
@@ -229,8 +227,8 @@ def local_mode(ends: bool, Lq: int, params: AlignmentParams,
     int16, else "end".  Scores: "score16" for an N-free batch when every
     value fits, else "score"; the JAX package asks for
     GENOMICS_TPU_INT16_SCORE=1 as well, which this port does not: the
-    results are the same, and on an H100 SCORE16 took 0.36-0.91 of SCORE's
-    time at every launch size from 1,024 to 65,536 pairs (chip_smoke.py
+    results are the same, and on an H100 SCORE16 took 0.16-0.41 of SCORE's
+    time at every launch size from 830 to 65,536 pairs (chip_smoke.py
     phase 5, PERF.md section 6)."""
     if ends:
         on = os.environ.get("GENOMICS_TPU_INT16_CELLS") == "1"
@@ -240,17 +238,24 @@ def local_mode(ends: bool, Lq: int, params: AlignmentParams,
 
 
 def local_launch_args(mode: str, Q: torch.Tensor, T: torch.Tensor,
-                      params: AlignmentParams, with_n: bool) -> tuple:
+                      params: AlignmentParams, with_n: bool,
+                      group: int | None = None) -> tuple:
     """local_sw_launch's arguments but the stream, for time-major Q
     [Lq, B], T [Lt, B] uint8 in `mode` (a key of _LOCAL_MODES): the
-    mode's number, with_n, the inputs, the carries and the outputs
-    (score, qend, tend, tb), last; qend/tend are None in the score modes
-    and tb is the sqb cube [Lt//8, Lq, B] in tb mode."""
+    mode's number, with_n, the threads per pair (1) or, in the 16-bit
+    modes, per two pairs (`group`, default `split_group`'s on Q's card),
+    the inputs, the carries and the outputs (score, qend, tend, tb),
+    last; qend/tend are None in the score modes and tb is the sqb cube
+    [Lt//8, Lq, B] in tb mode."""
     Q, T = Q.contiguous(), T.contiguous()
     Lq, B = Q.shape
+    if not mode.endswith("16"):
+        group = 1
+    elif group is None:
+        group = split_group((B + 1) // 2, _sm_count(Q.device.index or 0))
     score, qend, tend, tb, gH, gE = _outputs(
         "local_sw", mode, Q, T, not mode.startswith("score"))
-    return (_LOCAL_MODES[mode], int(with_n), Q, T, B, Lq, T.shape[0],
+    return (_LOCAL_MODES[mode], int(with_n), group, Q, T, B, Lq, T.shape[0],
             params.match, params.mismatch, _n_score(params), params.gap_oe,
             params.gap_extend, gH, gE, score, qend, tend, tb)
 
@@ -258,7 +263,7 @@ def local_launch_args(mode: str, Q: torch.Tensor, T: torch.Tensor,
 def launch_local(args: tuple):
     """Launch local_sw on `local_launch_args`'s arguments (B > 0) and
     count it under local_sw.<mode>; returns (score, qend, tend, tb)."""
-    _call(f"local_sw.{_LOCAL_NAMES[args[0]]}", args[2].device, *args)
+    _call(f"local_sw.{_LOCAL_NAMES[args[0]]}", args[3].device, *args)
     return args[-4:]
 
 
@@ -268,7 +273,7 @@ def _launch(mode: str, Q: torch.Tensor, T: torch.Tensor,
     Returns (score, qend, tend, tb); qend/tend are None in the score modes
     and tb is the sqb cube [Lt//8, Lq, B] in tb mode."""
     args = local_launch_args(mode, Q, T, params, with_n)
-    return launch_local(args) if args[4] else args[-4:]
+    return launch_local(args) if args[5] else args[-4:]
 
 
 def local_align(
@@ -359,21 +364,43 @@ def semiglobal_align(
     if on_cpu(q):
         return semiglobal_align_batch(q, t, qlen, tlen, params, head=head,
                                       tail=tail, with_tb=with_tb)
-    mode = "tb" if with_tb else "end"
-    Q, T = q.T.contiguous(), t.T.contiguous()
+    args = semiglobal_launch_args(q.T, t.T, qlen, tlen, params, head, tail,
+                                  with_tb)
+    return AlignResult(*(launch_semiglobal(args) if args[7] else args[-4:]))
+
+
+def semiglobal_launch_args(Q: torch.Tensor, T: torch.Tensor, qlen, tlen,
+                           params: AlignmentParams,
+                           head: SemiGlobalSkip = SemiGlobalSkip.NONE,
+                           tail: SemiGlobalSkip = SemiGlobalSkip.NONE,
+                           with_tb: bool = False,
+                           group: int | None = None) -> tuple:
+    """semiglobal_sw_launch's arguments but the stream, for time-major Q
+    [Lq, B], T [Lt, B] uint8: the mode (1 with traceback), the skip
+    flags, the threads per pair (`group`, default `split_group`'s on Q's
+    card), the inputs, the [Lq, B] carries and the outputs (score, qend,
+    tend, tb), last; tb is the sqb cube [Lt//8, Lq, B] with traceback,
+    else None."""
+    Q, T = Q.contiguous(), T.contiguous()
     qlen, tlen = qlen.contiguous(), tlen.contiguous()
     Lq, B = Q.shape
-    score, qend, tend, tb, gH, gE = _outputs("semiglobal_sw", mode, Q, T, True)
-    if B:
-        flags = _skip_flags(**scan_align_full.skip_flags(head, tail))
-        _call(f"semiglobal_sw.{mode}", Q.device, int(with_tb), flags,
-              Q.data_ptr(), T.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
-              B, Lq, T.shape[0], params.match, params.mismatch,
-              _n_score(params),
-              params.gap_open, params.gap_extend, gH.data_ptr(),
-              gE.data_ptr(), score.data_ptr(), qend.data_ptr(),
-              tend.data_ptr(), _ptr(tb))
-    return AlignResult(score, qend, tend, tb)
+    if group is None:
+        group = split_group(B, _sm_count(Q.device.index or 0))
+    score, qend, tend, tb, gH, gE = _outputs(
+        "semiglobal_sw", "tb" if with_tb else "end", Q, T, True)
+    flags = _skip_flags(**scan_align_full.skip_flags(head, tail))
+    return (int(with_tb), flags, group, Q, T, qlen, tlen, B, Lq, T.shape[0],
+            params.match, params.mismatch, _n_score(params), params.gap_open,
+            params.gap_extend, gH, gE, score, qend, tend, tb)
+
+
+def launch_semiglobal(args: tuple):
+    """Launch semiglobal_sw on `semiglobal_launch_args`'s arguments (B >
+    0) and count it under semiglobal_sw.tb / semiglobal_sw.end; returns
+    (score, qend, tend, tb)."""
+    _call("semiglobal_sw.tb" if args[0] else "semiglobal_sw.end",
+          args[3].device, *args)
+    return args[-4:]
 
 
 def local_align_second(
@@ -431,16 +458,27 @@ def local_start(
     return launch_local_start(args) if args[6] else args[-3:]
 
 
-def local_start_group(B: int, sms: int) -> int:
-    """Threads per pair of a local_start launch of B pairs on a card with
-    `sms` SMs: 4, or 8 where 4 B threads would leave an SM without one of
-    the kernel's 128-thread blocks (4 B < 128 sms).  Four threads that
-    share a pair's strips cut its serial walk to a quarter and give an
-    SM more warps to hide the column's latency with; on an H100 they were
-    the fastest of 1, 2, 4 and 8 at bench.py's launch and at the engine's
-    larger one, and 8 at its smaller one, where 4 leave SMs without a
-    block (PERF.md section 6, tools/kernel_variants.py)."""
-    return 4 if 4 * B >= 128 * sms else 8
+# split_group's threads an SM at 4 threads a pair below which it takes 8
+SPLIT_MIN_THREADS_PER_SM = 384
+
+
+def split_group(n: int, sms: int) -> int:
+    """Threads per pair of a local_start or semiglobal_sw launch of n
+    pairs, or per two pairs of a 16-bit local_sw launch of n pair pairs,
+    on a card with `sms` SMs: 4, or 8 where 4 n threads would give an SM
+    fewer than SPLIT_MIN_THREADS_PER_SM (three 128-thread blocks).  G
+    threads share the strips of their pair (pair pair) and cut its
+    serial walk to about 1/G; 8 give a small launch's SMs more warps to
+    hide a column's latency with, and cost three shuffles a column and
+    G - 1 idle steps a round where a launch already fills them.  On an
+    H100 (132 SMs) the rule takes 8 below 12,672 pairs (pair pairs) and 4
+    from there.  `tools/kernel_variants.py --kernels groups` timed both
+    (PERF.md section 6): 8 won at the engine's 3,382-pair launch in every
+    kernel and at the 8,309 pair pairs of its 16,618-pair launch in the
+    16-bit modes (by 21-31%); 4 won there in local_start and
+    semiglobal_sw TB (by 4%; END lost 6%), and at bench.py's 65,536
+    pairs."""
+    return 4 if 4 * n >= SPLIT_MIN_THREADS_PER_SM * sms else 8
 
 
 @functools.cache
@@ -455,13 +493,13 @@ def local_start_launch_args(Q: torch.Tensor, T: torch.Tensor, fwd_score,
     reversed Q [Lq, B], T [Lt, B] uint8, the [B] int32 forward scores and,
     optionally, the extents qr8 / tr8 (None: the full Lq x Lt walk): the
     inputs, no order, the sizes and scores, the threads per pair
-    (`group`, default `local_start_group`'s on Q's card), the [Lq, B]
+    (`group`, default `split_group`'s on Q's card), the [Lq, B]
     carries and the [B] cprime, sstrip, r0, last."""
     Q, T = Q.contiguous(), T.contiguous()
     qr8, tr8 = (None if x is None else x.contiguous() for x in (qr8, tr8))
     Lq, B = Q.shape
     if group is None:
-        group = local_start_group(B, _sm_count(Q.device.index or 0))
+        group = split_group(B, _sm_count(Q.device.index or 0))
     gH, gE = _carry("local_start", Q, T)
     col, strip, row = _per_pair(3, Q)
     return (Q, T, fwd_score.contiguous(), qr8, tr8, None, B, Lq, T.shape[0],

@@ -224,9 +224,10 @@ def test_local_sw_launch_refuses_what_it_lacks(cuda, mode, with_n):
     p = AlignmentParams()
 
     def run(m, n, Qx, Tx):
+        group = 8 if m in (4, 5) else 1   # one the mode would take
         score, qend, tend, _, gH, gE = out
-        _build.launch("local_sw", "local_sw_launch", sig, cuda, m, n, Qx, Tx,
-                      64, 24, 32, p.match, p.mismatch, 0, p.gap_oe,
+        _build.launch("local_sw", "local_sw_launch", sig, cuda, m, n, group,
+                      Qx, Tx, 64, 24, 32, p.match, p.mismatch, 0, p.gap_oe,
                       p.gap_extend, gH, gE, score, qend, tend, None)
         torch.cuda.synchronize()
         return score
@@ -359,7 +360,7 @@ def _local_start_inputs(q, t, ql, tl, p):
 
 def _every_group_matches(rq, rt, score, qr8, tr8, p):
     """The kernel with the extents at both threads-per-pair the launcher
-    takes (4 and 8, what local_start_group picks), and the wrapper with
+    takes (4 and 8, what split_group picks), and the wrapper with
     and without them, each integer-equal to the plain version and
     counted once."""
     want = scan_align_full._local_start_core(rq, rt, score, p)
@@ -1067,3 +1068,216 @@ def test_align_fasta_pairs_on_the_card_matches_cpu(cuda, tmp_path,
             (a.score, a.query_start, a.target_start, a.query_end,
              a.target_end) == (b.score, b.query_start, b.target_start,
                                b.query_end, b.target_end))
+
+
+def _semi_groups_match(q, t, ql, tl, p, head, tail, with_tb, groups=(4, 8)):
+    """semiglobal_sw at each threads-per-pair group and through the
+    wrapper (the rule's group) equal to the plain version; TB's cube word
+    for word."""
+    want = semiglobal_align_batch(q, t, ql, tl, p, head=head, tail=tail,
+                                  with_tb=with_tb)
+    key = "semiglobal_sw.tb" if with_tb else "semiglobal_sw.end"
+    before = cuda_align.LAUNCHES[key]
+    for g in groups:
+        args = cuda_align.semiglobal_launch_args(q.T, t.T, ql, tl, p, head,
+                                                 tail, with_tb, group=g)
+        got = cuda_align.launch_semiglobal(args)
+        torch.cuda.synchronize()
+        _assert_equal(got, want)
+        if with_tb:
+            assert torch.equal(got[3], want.tb)
+    got = cuda_align.semiglobal_align(q, t, ql, tl, p, head=head, tail=tail,
+                                      with_tb=with_tb)
+    torch.cuda.synchronize()
+    assert cuda_align.LAUNCHES[key] == before + len(groups) + 1
+    _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("B", [1, 2, 33, 1025])
+@pytest.mark.parametrize("head,tail", list(itertools.product(SKIPS, SKIPS)),
+                         ids=lambda s: s.name)
+def test_semiglobal_end_groups_match_plain(cuda, head, tail, B):
+    """END, walked to each pair's extents, at 4 and 8 threads a pair
+    and through the wrapper under every HEAD x TAIL, on one pair, two, a
+    warp and a bit and an odd B, ragged lengths with Ns."""
+    args = [x.to(cuda) for x in _batch(43 + B, B, 40, 48, n_rate=0.03)]
+    p = AlignmentParams(algo=AlgoType.SEMI_GLOBAL, n_penalty=2)
+    _semi_groups_match(*args, p, head, tail, False)
+
+
+@pytest.mark.parametrize("B", [1, 33, 1025])
+@pytest.mark.parametrize("head,tail", TB_SKIPS, ids=lambda s: s.name)
+def test_semiglobal_tb_groups_match_plain(cuda, head, tail, B):
+    """TB at every group writes every word of the cube as the plain
+    version does, under the four skips the engine's traceback takes."""
+    args = [x.to(cuda) for x in _batch(47 + B, B, 40, 48, n_rate=0.03)]
+    p = AlignmentParams(algo=AlgoType.SEMI_GLOBAL)
+    _semi_groups_match(*args, p, head, tail, True)
+
+
+@pytest.mark.parametrize("with_tb", [False, True], ids=["end", "tb"])
+@pytest.mark.parametrize("tail", [SemiGlobalSkip.TARGET, SemiGlobalSkip.BOTH],
+                         ids=lambda s: s.name)
+def test_semiglobal_groups_at_ties_match_plain(cuda, tail, with_tb):
+    """Two letters at match = mismatch = gap_extend = 1 (gap_open 0): the
+    maxima, TAIL_T's rows, TAIL_Q's columns and the extension bits tie
+    everywhere."""
+    p = AlignmentParams(algo=AlgoType.SEMI_GLOBAL, match=1, mismatch=1,
+                        gap_open=0, gap_extend=1, n_penalty=1)
+    args = [x.to(cuda) for x in _two_letters(51, 1024 + 37, 64, 0.03)]
+    _semi_groups_match(*args, p, SemiGlobalSkip.NONE, tail, with_tb)
+
+
+@pytest.mark.parametrize("with_tb", [False, True], ids=["end", "tb"])
+@pytest.mark.parametrize("B,Lq,Lt", [(3382, 216, 216), (16618, 216, 328),
+                                     (65536, 152, 152)],
+                         ids=["engine_small", "engine_large", "bench"])
+def test_semiglobal_at_launch_sizes_matches_plain(cuda, B, Lq, Lt, with_tb):
+    """The engine's two bucket launches over 20,000 GASAL2-shaped pairs and
+    bench.py's, NONE/BOTH as the engine's glocal runs (BOTH/BOTH with
+    traceback), every group and the rule's."""
+    args = [x.to(cuda) for x in _batch(52, B, Lq, Lt, 0.01)]
+    p = AlignmentParams(algo=AlgoType.SEMI_GLOBAL)
+    head = SemiGlobalSkip.BOTH if with_tb else SemiGlobalSkip.NONE
+    _semi_groups_match(*args, p, head, SemiGlobalSkip.BOTH, with_tb)
+
+
+@pytest.mark.parametrize("kernel", ["local_start", "semiglobal_sw",
+                                    "local_sw16"])
+def test_split_group_boundaries_match_plain(cuda, kernel):
+    """Launches one pair (pair pair) either side of the rule's group
+    boundary on this card, through the wrappers: both groups the rule
+    takes give the plain version's results."""
+    sms = cuda_align._sm_count(cuda.index or 0)
+    edge = -(-cuda_align.SPLIT_MIN_THREADS_PER_SM * sms // 4)
+    seen = set()
+    for n in (edge - 1, edge):
+        B = 2 * n if kernel == "local_sw16" else n
+        q, t, ql, tl = [x.to(cuda) for x in _batch(53 + n % 7, B, 16, 24,
+                                                   0.01)]
+        if kernel == "local_start":
+            p = AlignmentParams()
+            rq, rt, score, qr8, tr8 = _local_start_inputs(q, t, ql, tl, p)
+            want = scan_align_full._local_start_core(rq, rt, score, p)
+            got = cuda_align.local_start(rq, rt, score, p, qr8, tr8)
+        elif kernel == "semiglobal_sw":
+            p = AlignmentParams(algo=AlgoType.SEMI_GLOBAL)
+            want = semiglobal_align_batch(q, t, ql, tl, p,
+                                          tail=SemiGlobalSkip.BOTH)
+            got = cuda_align.semiglobal_align(q, t, ql, tl, p,
+                                              tail=SemiGlobalSkip.BOTH)
+        else:
+            p = AlignmentParams()
+            qs, ts = (cuda_align._pads_to_sentinels(x, c)
+                      for x, c in ((q, 16), (t, 17)))
+            want = local_align_batch16(qs, ts, p, ends=False)[:1]
+            got = [cuda_align.local_align_scores(q, t, p, has_n=False)]
+        torch.cuda.synchronize()
+        _assert_equal(got, want)
+        seen.add(cuda_align.split_group(n, sms))
+    assert seen == {4, 8}
+
+
+@pytest.mark.parametrize("with_tb", [False, True], ids=["end", "tb"])
+def test_semiglobal_empty_targets_match_plain(cuda, with_tb):
+    """Pairs with an empty target beside full ones, pair 0's TAIL_Q row
+    in strip 3 (the lane before pair 1's at 4 threads a pair): each takes
+    the plain version's results under every HEAD x TAIL at both groups,
+    not a neighbour's TAIL_Q maximum."""
+    q, t, ql, tl = _batch(58, 64, 24, 32, 0.0)
+    tl[0] = 32
+    for k in (1, 2, 5, 9, 33):
+        tl[k] = 0
+        t[k] = 14
+    args = [x.to(cuda) for x in (q, t, ql, tl)]
+    p = AlignmentParams(algo=AlgoType.SEMI_GLOBAL)
+    for head, tail in itertools.product(SKIPS, SKIPS):
+        _semi_groups_match(*args, p, head, tail, with_tb)
+
+
+def _local16_groups_match(q, t, p, mode, groups=(4, 8)):
+    """A 16-bit mode at each group (and the rule's) equal to its plain
+    version and to the int32 mode; SCORE16 on the pads remapped."""
+    Q, T = q.T.contiguous(), t.T.contiguous()
+    if mode == "score16":
+        Q, T = (cuda_align._pads_to_sentinels(x, c) for x, c in ((Q, 16),
+                                                                 (T, 17)))
+    n = 1 if mode == "score16" else 3
+    want = local_align_batch16(Q.T, T.T, p, ends=mode == "end16")[:n]
+    int32 = cuda_align._launch("score" if n == 1 else "end", Q, T, p,
+                               mode == "end16")[:n]
+    for g in (*groups, None):
+        args = cuda_align.local_launch_args(mode, Q, T, p, mode == "end16",
+                                            group=g)
+        got = cuda_align.launch_local(args)[:n]
+        torch.cuda.synchronize()
+        _assert_equal(got, want)
+        _assert_equal(got, int32)
+
+
+@pytest.mark.parametrize("mode", ["score16", "end16"])
+@pytest.mark.parametrize("B", [1, 2, 33, 1023, 1024])
+def test_local16_groups_match_plain(cuda, mode, B):
+    """SCORE16 and END16 at 4 and 8 threads per two pairs and the
+    rule's, on one pair (partnered with the dummy), two, a warp and a bit,
+    and an odd and an even B (the 16-bit loads take even B only)."""
+    q, t, _, _ = (x.to(cuda) for x in _batch(
+        54 + B, B, 40, 48, 0.03 if mode == "end16" else 0.0))
+    _local16_groups_match(q, t, AlignmentParams(n_penalty=2), mode)
+
+
+@pytest.mark.parametrize("mode", ["score16", "end16"])
+@pytest.mark.parametrize("B,Lq,Lt", [(3382, 216, 216), (16618, 216, 328),
+                                     (4150, 216, 328), (65536, 152, 152)],
+                         ids=["engine_small", "engine_large", "cli_chunk",
+                              "bench"])
+def test_local16_at_launch_sizes_matches_plain(cuda, mode, B, Lq, Lt):
+    """The engine's two bucket launches, the align CLI's largest chunk
+    launch and bench.py's, every group."""
+    q, t, _, _ = (x.to(cuda) for x in _batch(
+        55, B, Lq, Lt, 0.01 if mode == "end16" else 0.0))
+    _local16_groups_match(q, t, AlignmentParams(), mode)
+
+
+@pytest.mark.parametrize("mode", ["score16", "end16"])
+def test_local16_groups_at_ties_match_plain(cuda, mode):
+    """Two letters at match = mismatch = gap_extend = 1 (gap_open 0): the
+    maxima tie everywhere, so END16 keeps the earliest cell within a
+    strip and across a round's strips."""
+    p = AlignmentParams(match=1, mismatch=1, gap_open=0, gap_extend=1,
+                        n_penalty=1)
+    q, t, _, _ = [x.to(cuda) for x in _two_letters(
+        56, 1024 + 37, 64, 0.03 if mode == "end16" else 0.0)]
+    _local16_groups_match(q, t, p, mode)
+
+
+@pytest.mark.parametrize("mode,match,Lq,Lt", [("end16", 127, 258, 264),
+                                              ("score16", 991, 33, 40)])
+def test_local16_groups_at_the_int16_limits_match_plain(cuda, mode, match,
+                                                        Lq, Lt):
+    """One below the ends' and the scores' limits (127 x 258 = 32,766,
+    991 x 33 = 32,703) on identical pairs, every group, odd B."""
+    p = AlignmentParams(match=match)
+    q, t = (x.to(cuda) for x in _same_pairs(33, Lq, Lt))
+    _local16_groups_match(q, t, p, mode)
+    assert int(local_align_batch16(q, t, p).score.max()) == match * Lq
+
+
+def test_split_launches_refuse_other_groups(cuda):
+    """semiglobal_sw and the 16-bit local_sw modes take 4 or 8 threads;
+    the int32 local_sw modes 1 only."""
+    q, t, ql, tl = [x.to(cuda) for x in _batch(57, 64, 24, 32, 0.0)]
+    p = AlignmentParams(algo=AlgoType.SEMI_GLOBAL)
+    for g in (0, 1, 2, 3, 16):
+        args = cuda_align.semiglobal_launch_args(q.T, t.T, ql, tl, p,
+                                                 group=g)
+        with pytest.raises(RuntimeError, match="semiglobal_sw_launch failed"):
+            cuda_align.launch_semiglobal(args)
+    for mode, g in (("score16", 1), ("end16", 2), ("score16", 3),
+                    ("end16", 16), ("end", 2), ("tb", 4)):
+        args = list(cuda_align.local_launch_args(mode, q.T, t.T,
+                                                 AlignmentParams(),
+                                                 mode != "score16"))
+        args[2] = g
+        with pytest.raises(RuntimeError, match="local_sw_launch failed"):
+            cuda_align.launch_local(tuple(args))

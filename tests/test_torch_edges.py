@@ -108,25 +108,27 @@ def test_semiglobal_start_plain_at_the_edges_matches_jax(head, tail):
 
 @pytest.mark.parametrize("mode", ["score", "end", "tb", "score16", "end16"])
 def test_local_launch_args_lay_out_each_mode(mode):
-    """One value per C parameter but the stream: the mode's number and
-    with_n, the time-major inputs, the [Lq, B] carries ([Lq, ceil(B/2)]
-    packed in the 16-bit modes), the [B] outputs, qend / tend only with
-    ends and the sqb cube only in TB."""
+    """One value per C parameter but the stream: the mode's number,
+    with_n and the threads per pair (per two pairs in the 16-bit modes,
+    the group asked for), the time-major inputs, the [Lq, B] carries
+    ([Lq, ceil(B/2)] packed in the 16-bit modes), the [B] outputs, qend /
+    tend only with ends and the sqb cube only in TB."""
     B, Lq, Lt = 7, 9, 16
     q, t, _, _ = _local_batch(32, B, Lq, Lt)
     Q, T = torch.from_numpy(q.T.copy()), torch.from_numpy(t.T.copy())
     p = AlignmentParams(n_penalty=3)
-    args = cuda_align.local_launch_args(mode, Q, T, p, True)
+    args = cuda_align.local_launch_args(mode, Q, T, p, True, group=8)
     sig = cuda_align._SIGNATURES["local_sw", "local_sw_launch"]
     assert len(args) + 1 == len(sig)
-    assert args[:2] == (cuda_align._LOCAL_MODES[mode], 1)
-    assert args[2].data_ptr() == Q.data_ptr()
-    assert args[3].data_ptr() == T.data_ptr()
-    assert args[4:12] == (B, Lq, Lt, p.match, p.mismatch, -3, p.gap_oe,
+    assert args[:3] == (cuda_align._LOCAL_MODES[mode], 1,
+                        8 if mode.endswith("16") else 1)
+    assert args[3].data_ptr() == Q.data_ptr()
+    assert args[4].data_ptr() == T.data_ptr()
+    assert args[5:13] == (B, Lq, Lt, p.match, p.mismatch, -3, p.gap_oe,
                           p.gap_extend)
     width = (B + 1) // 2 if mode.endswith("16") else B
     assert all(x.shape == (Lq, width) and x.dtype == torch.int32
-               for x in args[12:14])
+               for x in args[13:15])
     score, qend, tend, tb = args[-4:]
     assert score.shape == (B,)
     assert (qend is None) == (tend is None) == mode.startswith("score")

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """What the redesigned kernels' times are made of: one-change variants of
-csrc/local_sw.cu, csrc/semiglobal_start.cu, csrc/local_start.cu and
-csrc/banded_sw.cu timed side by side on one card.
+csrc/local_sw.cu, csrc/semiglobal_start.cu, csrc/local_start.cu,
+csrc/banded_sw.cu and csrc/semiglobal_sw.cu timed side by side on one
+card.
 
     python3 tools/kernel_variants.py --parent DIR [--kernels K,...]
                                      [--rounds N] [--out DIR]
+    python3 tools/kernel_variants.py --kernels groups [--rounds N]
 
 DIR is an unpacked checkout of the commit before the kernels' redesign
 (`git archive <commit> | tar -x -C DIR`, into a directory .gitignore
 lists): for local_sw and semiglobal_start the parent of their redesign
-(299c71f), for local_start and banded_sw the parent of theirs (7e5a43d).
---kernels picks the families (default local_start,banded_sw).  The
+(299c71f), for local_start and banded_sw the parent of theirs (7e5a43d),
+for semiglobal_sw and local_sw16 (local_sw.cu's 16-bit SCORE16 / END16)
+the parent of theirs (7fb004a).  --kernels picks the families (default
+semiglobal_sw,local_sw16); the family groups needs no DIR (below).  The
 script builds, with the port's nvcc flags:
 
   local_sw-parent          DIR's local_sw.cu, the first design
@@ -49,6 +53,29 @@ script builds, with the port's nvcc flags:
                            carries and query codes loaded at its top
   banded_sw-this-128       this tree's with 128 threads a shared-layout
                            block instead of one warp
+  semiglobal_sw-parent     DIR's semiglobal_sw.cu, the first design
+  semiglobal_sw-parent-ahead   that, loading the next column's query
+                           code and carry one column ahead
+  semiglobal_sw-parent-dpx that, with the DPX maxima (__vimax3_s32,
+                           __viaddmax_s32)
+  semiglobal_sw-parent-tailt   that, with TAIL_T's capture once a column
+  semiglobal_sw-parent-extents that, with END walking each pair only to
+                           its extents (columns < qlen, strips <= s_bottom)
+  semiglobal_sw-parent-32  that, with one-warp (32-thread) blocks
+  semiglobal_sw-this-full  this tree's with END over every column and
+                           strip
+  semiglobal_sw-this-top   this tree's with thread 0's loads at each
+                           column's top
+  semiglobal_sw-this-32    this tree's with one-warp blocks
+  local_sw16-parent        DIR's local_sw.cu, the first 16-bit design
+  local_sw16-parent-load16 that, with one 16-bit load of each pair pair's
+                           codes (the timed launches have even B)
+  local_sw16-parent-32     that, with one-warp blocks
+  local_sw16-this-bytes    this tree's with two byte loads
+  local_sw16-this-32       this tree's with one-warp blocks
+  local_sw16-this-shared   this tree's with the carry between a thread
+                           group's rounds in shared memory instead of the
+                           [Lq, ceil(B/2)] device scratch
 
 and launches them with CUDA events, the launches alone, in turns (every
 variant forward, then backward).  local_sw and semiglobal_start run at
@@ -69,7 +96,7 @@ banded_sw by band tiles; the ordering counted), its loads one column
 ahead, this tree's walk at one thread a pair over the full Lq x Lt and
 to the extents in the launch's order, ordered, with its loads at the
 top, and at 2, 4 and 8 threads a pair (4 also in the launch's order;
-the port takes 4 or 8 by cuda_align.local_start_group); banded_sw's
+the port takes 4 or 8 by cuda_align.split_group); banded_sw's
 shared carry in the launch's
 order (the port's launch), ordered by band tiles or by tlen (the key,
 the argsort, the gathers and the scatter counted) and on inputs sorted
@@ -80,8 +107,20 @@ reading is the mean of a few launches; --rounds passes (default 2) give
 each variant 2 x rounds readings, their mean and their spread.  Every
 variant's output is compared word for word with the plain version's
 (LOCAL: scores, ends, cube; SEMI_GLOBAL starts under all 16 HEAD x TAIL
-flags; the start cells; BANDED scores and ends); the script exits 1 if
-any disagrees.  It also prints the lanes' share of the work
+flags; the start cells; BANDED scores and ends; SEMI_GLOBAL scores, ends
+and cube; the 16-bit scores and ends); the script exits 1 if any
+disagrees.  semiglobal_sw (END and TB) and local_sw16 (SCORE16 on the
+pads remapped, END16) run at bench.py's shape (NONE/BOTH), at the
+engine's launches (glocal's TARGET/TARGET) and, local_sw16 only, at the
+align CLI's launches (the first 5,000 pairs' buckets): each variant
+above, this tree at 4 and 8 threads a pair (pair pair) and
+through the wrapper (cuda_align.split_group's), and this tree's int32
+SCORE / END beside SCORE16 / END16.  The family groups times this tree's
+local_start, semiglobal_sw END / TB and SCORE16 / END16 at 4 and 8
+threads a pair (pair pair) over launch sizes of 2,048-32,768 pairs (pair
+pairs) at 216 x 328 and 152 x 152, each held to the plain version, and
+prints from which size 4 is no slower than 8: the data behind
+cuda_align.split_group's boundary (SPLIT_MIN_THREADS_PER_SM).  It also prints the lanes' share of the work
 (chip_smoke.lane_share) in the launch's order and under each key.  The
 variant sources go to --out (default chiprun_out/kernel_variants), for
 tools/sass_report.py --src.
@@ -125,6 +164,8 @@ from genomics_tpu_torch.ops import cuda_align, scan_align_full  # noqa: E402
 from genomics_tpu_torch.ops.scan_align import (  # noqa: E402
     banded_align_batch,
     local_align_batch,
+    local_align_batch16,
+    semiglobal_align_batch,
 )
 from tools.tb_variants import build_variants, edit  # noqa: E402
 
@@ -366,6 +407,123 @@ BAND_AHEAD = """    int slot = (lo * 8) % ring;
 # 128 threads a shared-layout block instead of 32
 BAND_WARP_BLOCKS = "constexpr int kSharedThreads = 32;\n"
 
+# semiglobal_sw.cu, the first design (7fb004a): its column loads at the
+# top, loaded one column ahead instead (the boundary values where s == 0)
+SG_TOP = """    for (int j = 0; j < Lq; ++j) {
+      const size_t at = static_cast<size_t>(j) * sB + b;
+      const int qc = a.Q[at];
+      int hup, e;  // H and e of the row above the strip
+      if (s) {
+        hup = a.gH[at];
+        e = a.gE[at];
+      } else if (HEAD_Q) {
+        hup = e = 0;
+      } else {
+        hup = j ? -(gapo + ge * j) : 0;
+        e = kMinusInf;
+      }
+"""
+SG_AHEAD = """    int qn = a.Q[b];
+    int hn = s ? a.gH[b] : 0;
+    int en = s ? a.gE[b] : (HEAD_Q ? 0 : kMinusInf);
+    for (int j = 0; j < Lq; ++j) {
+      const size_t at = static_cast<size_t>(j) * sB + b;
+      const int qc = qn;
+      int hup = hn, e = en;
+      if (j + 1 < Lq) {
+        qn = a.Q[at + sB];
+        hn = s ? a.gH[at + sB] : (HEAD_Q ? 0 : -(gapo + ge * (j + 1)));
+        en = s ? a.gE[at + sB] : (HEAD_Q ? 0 : kMinusInf);
+      }
+"""
+# its maxima as DPX
+SG_MAX = [("        const int fc = max(hl[c] - goe, f[c] - ge);\n",
+           "        const int fc = __viaddmax_s32(f[c], -ge, hl[c] - goe);\n"),
+          ("        e = max(phd, e - ge);\n        const int h = max(max(tmp, fc), e);\n",
+           "        e = __viaddmax_s32(e, -ge, phd);\n"
+           "        const int h = __vimax3_s32(tmp, fc, e);\n")]
+# TAIL_T's capture once a column instead of in every cell
+SG_CELL_CAPTURE = """        if (TAIL_T && j == jl && s * 8 + c < tl && h > best_t) {
+          best_t = h;
+          row_t = s * 8 + c;
+        }
+"""
+SG_COLUMN_END = """        hl[c] = h;
+      }
+      a.gH[at] = hl[7];
+"""
+SG_ONCE_CAPTURE = """        hl[c] = h;
+      }
+      if (TAIL_T && j == jl) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          if (s * 8 + c < tl && hl[c] > best_t) {
+            best_t = hl[c];
+            row_t = s * 8 + c;
+          }
+        }
+      }
+      a.gH[at] = hl[7];
+"""
+# END walked to each pair's extents
+SG_EXTENTS = [("  const int n_strips = a.Lt >> 3;\n",
+               "  const int n_strips = MODE == TB ? a.Lt >> 3\n"
+               "      : (TAIL_Q || TAIL_T) ? min(s_bottom + 1, a.Lt >> 3) : 0;\n"),
+              (SG_TOP.splitlines(True)[0],
+               "    for (int j = 0; j < (MODE == TB ? Lq : min(ql, Lq)); ++j) {\n")]
+# this tree's semiglobal_sw.cu: END over every column and strip
+SG_THIS_EXTENTS = """  int ncol = MODE == TB ? Lq : (a.tail_q || a.tail_t ? min(ql, Lq) : 0);
+  if (!live) ncol = 0;
+  const int nstrip = ncol > 0 ? (MODE == TB ? a.Lt >> 3
+                                            : min(s_bottom + 1, a.Lt >> 3))
+                              : 0;
+"""
+SG_THIS_FULL = """  int ncol = Lq;
+  if (!live) ncol = 0;
+  const int nstrip = ncol > 0 ? a.Lt >> 3 : 0;
+"""
+# ... and with thread 0's loads at each column's top
+SG_THIS_LOADS = [("    if (g == 0 && mine) load(0);\n", ""),
+                 ("      int rh = hn, re = en, rq = qn;\n",
+                  "      if (g == 0 && mine && k < ncol) load(k);\n"
+                  "      int rh = hn, re = en, rq = qn;\n"),
+                 ("      if (g == 0 && mine && j + 1 < ncol) load(j + 1);\n", "")]
+# local_sw.cu's 16-bit kernel, the first design: one 16-bit load of each
+# pair pair's codes (even B only, as every timed launch has)
+L16_BYTES = [("    qc = col[0] | static_cast<uint32_t>(two ? col[1] : 16) << 16;\n",
+              "    qc = two ? __byte_perm(*reinterpret_cast<const uint16_t*>(col), 0, 0x4140)\n"
+              "             : col[0] | 16u << 16;\n"),
+             ("      tc[c] = row[0] | static_cast<uint32_t>(two ? row[1] : 17) << 16;\n",
+              "      tc[c] = two ? __byte_perm(*reinterpret_cast<const uint16_t*>(row), 0, 0x4140)\n"
+              "                  : row[0] | 17u << 16;\n")]
+# this tree's: two byte loads instead of one 16-bit load
+L16_THIS_LOAD = ("  if (even)\n    return __byte_perm",
+                 "  if (false)\n    return __byte_perm")
+# this tree's: the carry between a thread group's rounds in shared memory
+# ([Lq] H and E words per pair pair of the block) instead of the [Lq,
+# ceil(B/2)] device scratch; 2 Lq 128 / G words a block, under 48 KB at
+# the rule's groups of the timed launches
+L16_THIS_SHARED = [
+    ("  const int nstrip = live ? Lt >> 3 : 0;\n",
+     "  const int nstrip = live ? Lt >> 3 : 0;\n"
+     "  extern __shared__ uint32_t carry[];\n"
+     "  const int ppb = blockDim.x / G, slot = threadIdx.x / G;\n"
+     "  uint32_t* sH = carry + slot;\n"
+     "  uint32_t* sE = carry + Lq * ppb + slot;\n"),
+    ("      hn = s ? gH[at] : 0;\n      en = s ? gE[at] : 0;\n",
+     "      hn = s ? sH[j * ppb] : 0;\n      en = s ? sE[j * ppb] : 0;\n"),
+    ("          gH[at] = oh;\n          gE[at] = oe;\n",
+     "          sH[j * ppb] = oh;\n          sE[j * ppb] = oe;\n"),
+    ("  local_sw16_kernel<ENDS, G><<<grid, kThreads, 0, st>>>(",
+     "  local_sw16_kernel<ENDS, G><<<grid, kThreads, 8 * Lq * (kThreads / G), st>>>(")]
+SPLIT_KERNELS = ("semiglobal_sw", "local_sw16")
+SPLIT_GROUPS = (4, 8)   # what cuda_align.split_group takes
+# --kernels groups: launch sizes, in pairs (local_start, semiglobal_sw)
+# or pair pairs (the 16-bit local_sw modes), and shapes
+GROUP_SWEEP_N = (2048, 4096, 6144, 8192, 10240, 12288, 14336, 16384, 20480,
+                 24576, 32768)
+GROUP_SWEEP_SHAPES = ((216, 328), (BENCH_L, BENCH_L))
+
 # the first designs' entry points: local_start_launch(Q, T, fwd, B, Lq,
 # Lt, match, mismatch, n_score, goe, ge, gH, gE, col, strip, row, stream)
 # and banded_sw_launch(mode, with_n, Q, T, qlen, tlen, B, Lq, Lt, k_band,
@@ -376,8 +534,21 @@ PARENT_SIGNATURES = {
     "local_start": (_vp,) * 3 + (_ci,) * 8 + (_vp,) * 6,
     "banded_sw": (_ci, _ci) + (_vp,) * 4 + (_ci,) * 9 + (_vp,) * 6,
 }
+# local_sw_launch and semiglobal_sw_launch before they took a group (the
+# third argument): every first design here, 299c71f's and 7fb004a's
+for _key in (("local_sw", "local_sw_launch"),
+             ("semiglobal_sw", "semiglobal_sw_launch")):
+    _sig = cuda_align._SIGNATURES[_key]
+    PARENT_SIGNATURES[_key[0]] = _sig[:2] + _sig[3:]
+
+
+def ungrouped(args: tuple) -> tuple:
+    """Launch arguments of this tree's local_sw / semiglobal_sw as a first
+    design's entry point takes them: without the group."""
+    return args[:2] + args[3:]
 THREADS = "constexpr int kThreads = 128;\n"
 ENGINE_START_B = 10_000   # about one engine start launch (216 x 328)
+CLI_CHUNK = 5000          # models/aligner.py's chunk (GASAL2's STREAM_BATCH_SIZE)
 
 
 def edits(src: str, pairs) -> str:
@@ -435,6 +606,35 @@ def start_band_variants(parent: Path) -> dict[str, str]:
         "banded_sw-this-top": edit(bt, BAND_AHEAD, BAND_TOP),
         "banded_sw-this-128": edit(bt, BAND_WARP_BLOCKS,
                                    BAND_WARP_BLOCKS.replace("32", "128")),
+    }
+
+
+def split_variants(parent: Path) -> dict[str, str]:
+    """{"<kernel>-<variant>": source} of semiglobal_sw's and of the 16-bit
+    local_sw modes' (family local_sw16) variants."""
+    csrc = parent / "genomics_tpu_torch" / "csrc"
+    sp = (csrc / "semiglobal_sw.cu").read_text()
+    lp = (csrc / "local_sw.cu").read_text()
+    st = (_build.CSRC / "semiglobal_sw.cu").read_text()
+    lt = (_build.CSRC / "local_sw.cu").read_text()
+    warp = THREADS.replace("128", "32")
+    return {
+        "semiglobal_sw-parent": sp,
+        "semiglobal_sw-parent-ahead": edit(sp, SG_TOP, SG_AHEAD),
+        "semiglobal_sw-parent-dpx": edits(sp, SG_MAX),
+        "semiglobal_sw-parent-tailt": edits(sp, [
+            (SG_CELL_CAPTURE, ""), (SG_COLUMN_END, SG_ONCE_CAPTURE)]),
+        "semiglobal_sw-parent-extents": edits(sp, SG_EXTENTS),
+        "semiglobal_sw-parent-32": edit(sp, THREADS, warp),
+        "semiglobal_sw-this-full": edit(st, SG_THIS_EXTENTS, SG_THIS_FULL),
+        "semiglobal_sw-this-top": edits(st, SG_THIS_LOADS),
+        "semiglobal_sw-this-32": edit(st, THREADS, warp),
+        "local_sw16-parent": lp,
+        "local_sw16-parent-load16": edits(lp, L16_BYTES),
+        "local_sw16-parent-32": edit(lp, THREADS, warp),
+        "local_sw16-this-bytes": edit(lt, *L16_THIS_LOAD),
+        "local_sw16-this-32": edit(lt, THREADS, warp),
+        "local_sw16-this-shared": edits(lt, L16_THIS_SHARED),
     }
 
 
@@ -529,14 +729,17 @@ def time_local_sw(libs, srcs, dev, smi, rounds, check):
     plain = local_align_batch(q, t, P, with_tb=True)
     plain2 = scan_align_full.local_align_second_batch(q, t, ql, tl, P)
     local = {}
-    for name in (n for n in srcs if n.startswith("local_sw")):
-        launch = entry(libs[name], ("local_sw", "local_sw_launch"))
+    for name in (n for n in srcs if n.startswith("local_sw-")):
+        old = "parent" in name   # 299c71f's entry point takes no group
+        launch = entry(libs[name], ("local_sw", "local_sw_launch"),
+                       PARENT_SIGNATURES["local_sw"] if old else None)
         second = entry(libs[name], ("local_sw", "local_sw_second_launch"))
         for mode in ("score", "end", "tb"):
             a = (cuda_align.local_launch_args(mode, Qs, Ts, P, False)
                  if mode == "score" else
                  cuda_align.local_launch_args(mode, Q, T, P, True))
-            local[f"{name} {mode}"] = runner(launch, a, dev)
+            local[f"{name} {mode}"] = runner(launch, ungrouped(a) if old
+                                             else a, dev)
         local[f"{name} second"] = runner(second, second_args(Q, T, ql, tl, P),
                                          dev)
         for mode, want in (("score", plain[:1]), ("end", plain[:3]),
@@ -684,7 +887,7 @@ def local_start_family(libs, dev, batch, smi, rounds, check, what, reps):
     # the lanes' share of the work under each ordering key, at the pairs a
     # warp of the port's threads a pair
     work = start_work(want[1], want[0], qr8)
-    wp = 32 // cuda_align.local_start_group(Q.shape[1], cuda_align._sm_count(0))
+    wp = 32 // cuda_align.split_group(Q.shape[1], cuda_align._sm_count(0))
     keys = {"launch order": None, "qr8 x tr8 (launched)": qr8 * tr8,
             "tr8": tr8, "the forward score": score, "the true stop": work}
     print(f"local_start {what}: lanes' share of the columns to the stop at "
@@ -812,12 +1015,215 @@ def banded_family(libs, dev, batch, smi, rounds, check, what, reps):
     report(in_turns(runs, reps, rounds), "banded_sw-parent end", what, smi)
 
 
+def split_family(libs, dev, batch, smi, rounds, check, what, reps, skips):
+    """semiglobal_sw END and TB under `skips` (head, tail) and the 16-bit
+    local_sw modes (SCORE16 on the pads remapped, END16), each variant
+    with one change against the next: the first design, its one-change
+    variants and 32-thread blocks, this tree at every group and through
+    the wrapper (the rule's group), this tree with END over every column
+    and strip, with its loads at each column's top, with two byte loads,
+    and with one-warp blocks at the rule's group; int32 SCORE / END of
+    this tree beside them.  Timed in turns, every output held to the
+    plain version; prints the lanes' share of END's work at the
+    extents."""
+    q, t, ql, tl = batch
+    B = q.shape[0]
+    Q, T = q.T.contiguous(), t.T.contiguous()
+    sms = cuda_align._sm_count(0)
+    head, tail = skips
+    PS = AlignmentParams(algo=AlgoType.SEMI_GLOBAL)
+    P = AlignmentParams()
+    runs, runs16 = {}, {}
+    if "semiglobal_sw-parent" in libs:
+        for with_tb in (False, True):
+            m = "tb" if with_tb else "end"
+            want = semiglobal_align_batch(q, t, ql, tl, PS, head=head,
+                                          tail=tail, with_tb=with_tb)
+            args = {g: cuda_align.semiglobal_launch_args(
+                Q, T, ql, tl, PS, head, tail, with_tb, group=g)
+                for g in SPLIT_GROUPS}
+            rule = cuda_align.split_group(B, sms)
+            for name in (n for n in libs if n.startswith("semiglobal_sw-")):
+                old = "parent" in name
+                fn = entry(libs[name], ("semiglobal_sw", "semiglobal_sw_launch"),
+                           PARENT_SIGNATURES["semiglobal_sw"] if old else None)
+                if name == "semiglobal_sw-this-full" and with_tb:
+                    continue   # TB walks everything already
+                runs[f"{name} {m}"] = runner(
+                    fn, ungrouped(args[4]) if old else args[rule], dev)
+            for g in SPLIT_GROUPS:
+                runs[f"semiglobal_sw-this {m} G={g}"] = (
+                    lambda a=args[g]: cuda_align.launch_semiglobal(a))
+            for name, run in runs.items():
+                if name.startswith("semiglobal_sw") and f" {m}" in name:
+                    check(f"{name} {what}", list(run())[-4:][:4 if with_tb
+                                                             else 3],
+                          want[:4 if with_tb else 3])
+        # the lanes' share of END's work at the extents: strips x columns
+        # per pair, at 32 / G pairs a warp
+        tails = tail != SemiGlobalSkip.NONE
+        work = (torch.clamp(ql, max=Q.shape[0]).long()
+                * torch.clamp((tl + 7) // 8, max=T.shape[0] // 8).long()
+                * int(tails))
+        wp = 32 // cuda_align.split_group(B, sms)
+        by = torch.argsort(work, descending=True)
+        print(f"semiglobal_sw {what}, {head.name}/{tail.name}: END's lanes' "
+              f"share of the columns x strips to the extents at {wp} pairs "
+              f"a warp {lane_share(work, wp):.4f} in the pairs' order, "
+              f"{lane_share(work[by], wp):.4f} were they ordered; "
+              f"{int(work.sum())} of {B * Q.shape[0] * (T.shape[0] // 8)} "
+              f"column-strips", flush=True)
+    if "local_sw16-parent" in libs:
+        Qs, Ts = (cuda_align._pads_to_sentinels(x, c) for x, c in ((Q, 16),
+                                                                  (T, 17)))
+        plain = local_align_batch16(Qs.T, Ts.T, P, ends=False)[:1]
+        plain16 = local_align_batch16(q, t, P)[:3]
+        rule = cuda_align.split_group((B + 1) // 2, sms)
+        for m, (a, b, with_n), want in (
+                ("score16", (Qs, Ts, False), plain),
+                ("end16", (Q, T, True), plain16)):
+            args = {g: cuda_align.local_launch_args(m, a, b, P, with_n,
+                                                    group=g)
+                    for g in SPLIT_GROUPS}
+            for name in (n for n in libs if n.startswith("local_sw16-")):
+                old = "parent" in name
+                fn = entry(libs[name], ("local_sw", "local_sw_launch"),
+                           PARENT_SIGNATURES["local_sw"] if old else None)
+                runs16[f"{name} {m}"] = runner(
+                    fn, ungrouped(args[4]) if old else args[rule], dev)
+            for g in SPLIT_GROUPS:
+                runs16[f"local_sw16-this {m} G={g}"] = (
+                    lambda x=args[g]: cuda_align.launch_local(x))
+            i32 = cuda_align.local_launch_args(m[:-2], a, b, P, with_n)
+            runs16[f"local_sw-this {m[:-2]} (int32)"] = (
+                lambda x=i32: cuda_align.launch_local(x))
+            for name, run in runs16.items():
+                if name.startswith("local_sw") and (f" {m}" in name or
+                                                    f" {m[:-2]} (" in name):
+                    check(f"{name} {what}", list(run())[-4:][:len(want)],
+                          want)
+    torch.cuda.synchronize()
+    if runs:
+        report(in_turns(runs, reps, rounds), "semiglobal_sw-parent end",
+               f"{what}, {head.name}/{tail.name}", smi)
+    if runs16:
+        report(in_turns(runs16, reps, rounds), "local_sw16-parent score16",
+               what, smi)
+
+
+GROUP_KEYS = ("local_start", "semiglobal_sw.end", "semiglobal_sw.tb",
+              "local_sw.score16", "local_sw.end16")
+
+
+def group_times(batch, cuts, smi, rounds, check) -> dict:
+    """{label: {"<key> G=<g>": ms}}: GROUP_KEYS at 4 and 8 threads a
+    pair (pair pair) on the first n pairs of `batch` (q, t, qlen, tlen on
+    the card) for each (n, n16, label) of `cuts` (n16 the 16-bit modes'
+    pairs), through the launch helpers; launches alone in turns, every
+    output held to the plain version (computed once on the largest cut:
+    each pair's result is its own)."""
+    P, PS = AlignmentParams(), AlignmentParams(algo=AlgoType.SEMI_GLOBAL)
+    gl = (SemiGlobalSkip.TARGET, SemiGlobalSkip.TARGET)
+    q, t, ql, tl = batch
+    top, top16 = max(c[0] for c in cuts), max(c[1] for c in cuts)
+    Q, T = q.T.contiguous(), t.T.contiguous()
+    Qs, Ts = (cuda_align._pads_to_sentinels(x, c) for x, c in ((Q, 16),
+                                                             (T, 17)))
+    fwd = cuda_align.local_align(q[:top], t[:top], P)
+    rq, rt, qr8, tr8 = scan_align_full.local_start_inputs(
+        q[:top], t[:top], ql[:top], tl[:top], fwd.query_end, fwd.target_end)
+    want = {
+        "local_start": scan_align_full._local_start_core(rq, rt, fwd.score, P),
+        "semiglobal_sw.end": semiglobal_align_batch(
+            q[:top], t[:top], ql[:top], tl[:top], PS, *gl)[:3],
+        "semiglobal_sw.tb": semiglobal_align_batch(
+            q[:top], t[:top], ql[:top], tl[:top], PS, *gl, with_tb=True),
+        "local_sw.score16": local_align_batch16(
+            Qs[:, :top16].T, Ts[:, :top16].T, P, ends=False)[:1],
+        "local_sw.end16": local_align_batch16(q[:top16], t[:top16], P)[:3],
+    }
+    out = {}
+    for n, n16, label in cuts:
+        runs = {}
+        for g in SPLIT_GROUPS:
+            a = cuda_align.local_start_launch_args(
+                rq[:n].T, rt[:n].T, fwd.score[:n], P, qr8[:n], tr8[:n],
+                group=g)
+            runs[f"local_start G={g}"] = (
+                lambda a=a: cuda_align.launch_local_start(a))
+            for with_tb in (False, True):
+                a = cuda_align.semiglobal_launch_args(
+                    Q[:, :n], T[:, :n], ql[:n], tl[:n], PS, *gl, with_tb,
+                    group=g)
+                runs[f"semiglobal_sw.{'tb' if with_tb else 'end'} G={g}"] = (
+                    lambda a=a: cuda_align.launch_semiglobal(a))
+            for m, (a, b, with_n) in (("score16", (Qs, Ts, False)),
+                                      ("end16", (Q, T, True))):
+                a = cuda_align.local_launch_args(m, a[:, :n16], b[:, :n16],
+                                                 P, with_n, group=g)
+                runs[f"local_sw.{m} G={g}"] = (
+                    lambda a=a: cuda_align.launch_local(a))
+        for name, run in runs.items():
+            key = name.split()[0]
+            exp = [x[..., :n16 if key.startswith("local_sw") else n]
+                   for x in want[key]]
+            got = list(run())
+            got = got[-3:] if key == "local_start" else got[:len(exp)]
+            check(f"{name} groups {label}", got, exp)
+        torch.cuda.synchronize()
+        out[label] = {k: float(np.mean(v))
+                      for k, v in in_turns(runs, 10, rounds).items()}
+        print(f"groups at {label}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in out[label].items())
+            + f", on {smi}", flush=True)
+    return out
+
+
+def group_sweep(dev, smi, rounds, check):
+    """split_group's data: GROUP_KEYS (semiglobal_sw at glocal's
+    TARGET/TARGET) at 4 and 8 threads a pair (pair pair) over
+    GROUP_SWEEP_N launch sizes at each of GROUP_SWEEP_SHAPES, and at the
+    engine's own launches (chip_smoke.engine_batches of the 20,000
+    GASAL2-shaped pairs).  Prints each launch's times and, per mode and
+    shape, the least size from which 4 is no slower than 8 at every
+    larger one, beside the least size at which split_group takes 4 on
+    this card."""
+    sms = cuda_align._sm_count(0)
+    rule4 = next(n for n in itertools.count(1)
+                 if cuda_align.split_group(n, sms) == 4)
+    for lq, lt in GROUP_SWEEP_SHAPES:
+        top = max(GROUP_SWEEP_N)
+        batch = [torch.from_numpy(x).to(dev) for x in random_codes(
+            np.random.default_rng(11), 2 * top, lq, lt, 0.0)]
+        cuts = [(n, 2 * n, f"{n} pairs ({n} pair pairs) {lq}x{lt}, "
+                 f"split_group {cuda_align.split_group(n, sms)}")
+                for n in GROUP_SWEEP_N]
+        times = group_times(batch, cuts, smi, rounds, check)
+        for key in GROUP_KEYS:
+            four = [n for n, _, label in cuts if all(
+                times[lb][f"{key} G=4"] <= times[lb][f"{key} G=8"]
+                for m, _, lb in cuts if m >= n)]
+            print(f"groups {key} {lq}x{lt}: 4 no slower than 8 from "
+                  f"{four[0] if four else None} pairs (pair pairs) on; "
+                  f"split_group takes 4 from {rule4} on {sms} SMs, on {smi}",
+                  flush=True)
+    qs, ts = gasal_pairs(np.random.default_rng(0), PAIRS)
+    for (lq, lt), arrays in engine_batches(qs, ts).items():
+        B = len(arrays[0])
+        batch = [torch.from_numpy(x).to(dev) for x in arrays]
+        group_times(batch, [(B, B, f"B={B} {lq}x{lt} (an engine launch), "
+                             f"split_group {cuda_align.split_group(B, sms)}"
+                             f" / {cuda_align.split_group((B + 1) // 2, sms)}"
+                             " (16-bit)")], smi, rounds, check)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", required=True)
-    ap.add_argument("--kernels", default="local_start,banded_sw",
+    ap.add_argument("--parent", help="needed by every family but groups")
+    ap.add_argument("--kernels", default="semiglobal_sw,local_sw16",
                     help="comma-separated families: local_sw, "
-                         "semiglobal_start, local_start, banded_sw")
+                         "semiglobal_start, local_start, banded_sw, "
+                         "semiglobal_sw, local_sw16, groups")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
                                          "kernel_variants"))
     ap.add_argument("--rounds", type=int, default=2,
@@ -827,11 +1233,15 @@ def main() -> int:
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 2
     kernels = args.kernels.split(",")
+    if set(kernels) - {"groups"} and not args.parent:
+        ap.error("--parent is needed by every family but groups")
     srcs = {}
     if {"local_sw", "semiglobal_start"} & set(kernels):
         srcs |= pr9_variants(Path(args.parent))
     if {"local_start", "banded_sw"} & set(kernels):
         srcs |= start_band_variants(Path(args.parent))
+    if set(SPLIT_KERNELS) & set(kernels):
+        srcs |= split_variants(Path(args.parent))
     srcs = {k: v for k, v in srcs.items() if k.split("-")[0] in kernels}
     out = Path(args.out)
     build_variants(srcs, out)
@@ -843,14 +1253,35 @@ def main() -> int:
         time_local_sw(libs, srcs, dev, smi, args.rounds, check)
     if "semiglobal_start" in kernels:
         time_semiglobal_start(libs, srcs, dev, smi, args.rounds, check)
+    if "groups" in kernels:
+        group_sweep(dev, smi, args.rounds, check)
     batches = {f"B={BENCH_B} {BENCH_L}x{BENCH_L}": bench_batch(dev)}
-    if {"local_start", "banded_sw"} & set(kernels):
-        qs, ts = gasal_pairs(np.random.default_rng(0), PAIRS)
+    qs, ts = gasal_pairs(np.random.default_rng(0), PAIRS)
+    if {"local_start", "banded_sw", *SPLIT_KERNELS} & set(kernels):
         for (lq, lt), arrays in engine_batches(qs, ts).items():
             batches[f"B={len(arrays[0])} {lq}x{lt} (an engine launch)"] = [
                 torch.from_numpy(x).to(dev) for x in arrays]
-    for what, batch in batches.items():
+    cli = {}   # the align CLI's launches: one chunk of CLI_CHUNK pairs
+    if "local_sw16" in kernels:
+        for (lq, lt), arrays in engine_batches(qs[:CLI_CHUNK],
+                                               ts[:CLI_CHUNK]).items():
+            cli[f"B={len(arrays[0])} {lq}x{lt} (a CLI chunk's launch)"] = [
+                torch.from_numpy(x).to(dev) for x in arrays]
+    for what, batch in (batches | cli).items():
         reps = 10 if what.startswith(f"B={BENCH_B}") else 20
+        if set(SPLIT_KERNELS) & set(kernels):
+            # bench.py's SEMI_GLOBAL skips at its shape, glocal's at the
+            # engine's launches; the CLI's launches run LOCAL only
+            skips = ((SemiGlobalSkip.NONE, SemiGlobalSkip.BOTH)
+                     if what.startswith(f"B={BENCH_B}") else
+                     (SemiGlobalSkip.TARGET, SemiGlobalSkip.TARGET))
+            fam = {k: v for k, v in libs.items()
+                   if k.split("-")[0] in SPLIT_KERNELS
+                   and not (what in cli and k.startswith("semiglobal"))}
+            split_family(fam, dev, batch, smi, args.rounds, check, what,
+                         reps, skips)
+        if what in cli:
+            continue
         if "local_start" in kernels:
             local_start_family(libs, dev, batch, smi, args.rounds, check,
                                what, reps)
