@@ -26,7 +26,12 @@ Run from the root of a checkout.  Phases, one line each:
             BOTH/BOTH (END and TB also under each HEAD with TAIL BOTH at
             1, 2, 4 and 8 threads a pair, and END16 / SCORE16 at 1, 2, 4
             and 8 threads per two pairs, besides the rule's),
-            the LOCAL, GLOBAL and SEMI_GLOBAL walks,
+            the LOCAL, GLOBAL and SEMI_GLOBAL walks to byte-CIGARs (the
+            bytes that carry meaning, n_ops and the starts; SEMI_GLOBAL
+            under each HEAD), also at their edges (walk_edges: M runs of
+            63, 64 and 126, pads of 63 and 64, starts outside the cube,
+            walks with no step, a LOCAL stop on the first step, chain-
+            biased cubes) at B=37 and 4,133 in every mode and head,
             local_start fed the END kernel's result, semiglobal_start for
             all 16 HEAD x TAIL fed the semiglobal END kernel's, ksw_extend
             END/SCORE with seed scores h0 of 0-60 (and at Lq 1,000, where
@@ -39,11 +44,15 @@ Run from the root of a checkout.  Phases, one line each:
             global one at B=1, 7, 64, 256 and 1,061 with rlen at every
             round edge and ragged reads with clen past C (pairhmm_edges),
             64 records against the gold, and
-            Myers at W=1, 3, 5 and 9;
+            Myers at W=1, 3, 5 and 9 (uint32 and int64 masks, texts whole,
+            3 bytes off a 16-byte boundary and with rows 13 bytes past
+            Lt, all read in place);
 4. slice    20,000 GASAL2-shaped pairs (150 bp reads cut from 200-300 bp
             targets, ~2% substitutions, ~0.5% 1-3 bp indels, a few Ns)
             through AlignEngine(device="cuda"), every kernel's launch
-            count set to 0 just before and read just after each path:
+            count set to 0 just before and read just after each path,
+            the plain version's host run-length encode made to raise
+            on every card run (no_host_encode):
             LOCAL with traceback, ends only (END, and END16 under
             GENOMICS_TPU_INT16_CELLS=1), score-only (SCORE: every chunk
             holds Ns), score-only on N-free copies of the pairs (SCORE16;
@@ -96,14 +105,17 @@ Run from the root of a checkout.  Phases, one line each:
             launches alone in turns; local_start, BANDED, semiglobal_sw
             END / TB (glocal's TARGET/TARGET) and local_sw SCORE16 /
             END16 beside SCORE / END also at the engine's own launches
-            (phase 4's pairs in its buckets), held to the plain versions;
+            (phase 4's pairs in its buckets), held to the plain versions,
+            and the three walks there on the TB kernels' cubes, in turns,
+            beside their bounds and sector floors;
             ptxas's resources of ksw_extend, global_sw, local_sw,
             semiglobal_sw, semiglobal_start, local_start and banded_sw),
             PairHMM at
             B=16,384 x 128 x 128 and Myers at B=16,384, Lp 96, Lt 152
             (run_all.py's shapes; the launch alone on inputs already in
-            the kernel's layout, and the wrapper with its layout passes
-            beside it), both PairHMM kernels also at the launches the
+            the kernel's layout, and the wrapper beside it), Myers also at
+            the `ed` stage's launch (phase 4's 65,536 reads, W = 5), both
+            PairHMM kernels also at the launches the
             paths make (pairhmm_timing_launches: the 65,536-pair region
             launch, a 256-pair candidate launch, 1, 7 and 64 pairs of 250
             x 500) with their serial steps a pair, the least time the card
@@ -296,6 +308,45 @@ def max_abs_err(got, want) -> int:
         if a.numel():
             err = max(err, int((a.long() - b.long()).abs().max()))
     return err
+
+
+def walk_work(*walk_args) -> tuple[int, int, int]:
+    """(steps, words, bytes) of walk_cigars on walk_args, from the plain
+    version: the walk's steps; the cube words it needs, counted low as
+    the steps that move the column (M, X, I), each reading a word no
+    earlier step read; and the CIGAR bytes it writes (n_ops)."""
+    from genomics_tpu_torch.ops import tb_walk
+
+    ops = tb_walk.tb_walk_plain(*walk_args[:6])[0]
+    n_ops = tb_walk.walk_cigars_plain(*walk_args)[1]
+    return (int((ops != 255).sum()), int(((ops <= 1) | (ops == 3)).sum()),
+            int(n_ops.sum()))
+
+
+def walk_err(got, want) -> int:
+    """max_abs_err of two walk_cigars results: the bytes that carry
+    meaning (tb_walk.valid_bytes), n_ops and the starts."""
+    from genomics_tpu_torch.ops import tb_walk
+
+    return max_abs_err([tb_walk.valid_bytes(*got[:2]), *got[1:]],
+                       [tb_walk.valid_bytes(*want[:2]), *want[1:]])
+
+
+@contextlib.contextmanager
+def no_host_encode():
+    """The engine's card path must not run the plain version's host loops
+    (tb_walk.rle_cigar, tb_walk.cigars_from_walk): within this block they
+    raise."""
+    from genomics_tpu_torch.ops import tb_walk
+
+    def host_loop(*_a, **_k):
+        raise AssertionError("the card path ran a host run-length encode")
+    saved = tb_walk.rle_cigar, tb_walk.cigars_from_walk
+    tb_walk.rle_cigar = tb_walk.cigars_from_walk = host_loop
+    try:
+        yield
+    finally:
+        tb_walk.rle_cigar, tb_walk.cigars_from_walk = saved
 
 
 def random_codes(rng, B, Lq, Lt, n_rate, related=True):
@@ -636,6 +687,56 @@ def pairhmm_edges(rng, B, G, K, dev):
     return t, p
 
 
+WALK_EDGE_L = 136   # a cube that holds an M run of 126
+# (start row, start column, the cell of an X on an all-M cube, what it
+# shows); GLOBAL walks from (tlen, qlen), so these rows and columns are
+# GLOBAL's tlen and qlen too
+WALK_EDGES = (
+    (136, 136, None, "from outside the cube: M runs 63, 63, 11"),
+    (136, 136, 73, "an M run of exactly 63"),
+    (136, 136, 72, "an M run of exactly 64"),
+    (136, 136, 10, "an M run of exactly 126"),
+    (99, 36, None, "a D pad of exactly 63"),
+    (100, 36, None, "a D pad of exactly 64"),
+    (36, 99, None, "an I pad of exactly 63"),
+    (36, 100, None, "an I pad of exactly 64"),
+    (149, 20, None, "a start row past the cube (SEMI_GLOBAL's TAIL_T row)"),
+    (-1, 5, None, "no step: an I pad only"),
+    (5, -1, None, "no step: a D pad only"),
+    (40, 40, None, "LOCAL: an M, then the score stop"),
+)
+
+
+def walk_edges(rng, B: int, dev, L: int = WALK_EDGE_L):
+    """(tb [L/8, L, B] int32, score, qend, tend [B] int32) on dev: B walks
+    over L x L nibble cubes.  With L = WALK_EDGE_L the first pairs are
+    WALK_EDGES' (all M but for the X, LOCAL's score the match there); the
+    rest start at random cells of random cubes, a quarter each uniform,
+    mostly D chains (D runs across word rows), mostly I chains (I runs
+    longer than a window) and all M, LOCAL's score random in -20..40."""
+    nibs = rng.integers(0, 16, (B, L, L)).astype(np.uint8)
+    kind = np.arange(B) % 4
+    chain = rng.random((B, L, L)) < 0.8
+    nibs[(kind == 1)[:, None, None] & chain] = 2 | 4   # D, extended
+    nibs[(kind == 2)[:, None, None] & chain] = 3 | 8   # I, extended
+    nibs[kind == 3] = 0
+    i0 = rng.integers(0, L, B).astype(np.int32)
+    j0 = rng.integers(0, L, B).astype(np.int32)
+    score = rng.integers(-20, 41, B).astype(np.int32)
+    if L == WALK_EDGE_L:
+        for b, (i, j, x, _) in enumerate(WALK_EDGES[:B]):
+            nibs[b] = 0
+            if x is not None:
+                nibs[b, x, x] = 1
+            i0[b], j0[b] = i, j
+            score[b] = 1   # AlignmentParams' match: LOCAL stops at once
+    cube = np.zeros((L // 8, L, B), np.uint32)
+    for r in range(8):
+        cube |= nibs[:, r::8, :].transpose(1, 2, 0).astype(np.uint32) << (4 * r)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (cube.view(np.int32), score, j0, i0)]
+
+
 def pairhmm_launch(kernel: str, t, p, G: int, K: int, force_global=False):
     """One counted launch of a PairHMM kernel on inputs t, p through its
     layout and launch helpers, G lanes a pair (32 for the wavefront) and K
@@ -807,7 +908,7 @@ def myers_inputs(rng, B, W, dev):
     texts[rng.random(texts.shape) < 0.03] = 4
     texts[rng.random(texts.shape) < 0.01] = 255
     pats[np.arange(Lp)[None, :] >= plen[:, None]] = 255
-    eq = myers.build_eq_masks(pats, plen, W).astype(np.int64)
+    eq = myers.build_eq_masks(pats, plen, W)
     return [torch.from_numpy(a).to(dev) for a in (eq, plen, texts, tlen)]
 
 
@@ -862,6 +963,28 @@ def cuda_ms(fn, reps: int) -> float:
     a.record()
     for _ in range(reps):
         fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps launches captured in one CUDA
+    graph and replayed, after a warm-up: the launches without the host's
+    cost of making them, for a kernel shorter than that cost (fn must
+    allocate nothing)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
@@ -1099,8 +1222,8 @@ def main() -> int:
             top = f" (match=200: best score {int(plain200.score.max())})"
         walk_args = (got_tb.tb, got_tb.score, got_tb.query_end,
                      got_tb.target_end, P)
-        e["tb_walk"] = max_abs_err(tb_walk.tb_walk(*walk_args),
-                                   tb_walk.tb_walk_plain(*walk_args))
+        e["tb_walk"] = walk_err(tb_walk.walk_cigars(*walk_args),
+                                tb_walk.walk_cigars_plain(*walk_args))
         e["local_sw.second"] = max_abs_err(
             cuda_align.local_align_second(q, t, ql, tl, P),
             scan_align_full.local_align_second_batch(q, t, ql, tl, P))
@@ -1115,8 +1238,8 @@ def main() -> int:
         e["global_sw.score"] = max_abs_err(
             cuda_align.global_align(q, t, ql, tl, PG)[:3], plain_g[:3])
         walk_args = (got_g.tb, got_g.score, ql, tl, PG, "global")
-        e["tb_walk.global"] = max_abs_err(tb_walk.tb_walk(*walk_args),
-                                          tb_walk.tb_walk_plain(*walk_args))
+        e["tb_walk.global"] = walk_err(tb_walk.walk_cigars(*walk_args),
+                                       tb_walk.walk_cigars_plain(*walk_args))
         # SEMI_GLOBAL: ends for all 16 skips, traceback for head == tail
         e["semiglobal_sw.end"] = e["semiglobal_sw.tb"] = 0
         e["tb_walk.semiglobal"] = e["semiglobal_start"] = 0
@@ -1149,9 +1272,12 @@ def main() -> int:
                             q, t, ql, tl, PS, head=head,
                             tail=SemiGlobalSkip.BOTH, with_tb=tb_)[:4 if tb_ else 3]))
             i0, j0 = walk_start(AlgoType.SEMI_GLOBAL, head, got_s, ql, tl)
-            walk_args = (got_s.tb, got_s.score, j0, i0, PS, "semiglobal")
-            e["tb_walk.semiglobal"] = max(e["tb_walk.semiglobal"], max_abs_err(
-                tb_walk.tb_walk(*walk_args), tb_walk.tb_walk_plain(*walk_args)))
+            walk_args = (got_s.tb, got_s.score, j0, i0, PS, "semiglobal",
+                         bool(head & SemiGlobalSkip.QUERY),
+                         bool(head & SemiGlobalSkip.TARGET))
+            e["tb_walk.semiglobal"] = max(e["tb_walk.semiglobal"], walk_err(
+                tb_walk.walk_cigars(*walk_args),
+                tb_walk.walk_cigars_plain(*walk_args)))
         # KSW with seed scores of 0-60; BANDED at bands of 1, 2, 4 tiles;
         # score-only without the N compare where the batch holds no N
         no_n = (True, False) if n_rate == 0.0 else (True,)
@@ -1308,23 +1434,66 @@ def main() -> int:
         raise AssertionError(f"PairHMM differs from the gold: {got} vs {want}")
     # Myers at W = 1, 3, 5 (registers) and 9 (scratch words): half the texts
     # hold their pattern, Ns, interior 255s, three empty patterns
+    # uint32 masks (the `ed` stage's), their int64 copy (read at every second
+    # word) and texts that are a slice of a larger tensor: rows 3 bytes off
+    # a 16-byte boundary, and rows 13 bytes further apart than Lt
     e["myers"] = 0
     for W in (1, 3, 5, 9):
         m_args = myers_inputs(ph_rng, 4096 + 37, W, dev)
-        e["myers"] = max(e["myers"], max_abs_err(
-            myers.myers_batch(*m_args), myers.myers_batch_plain(*m_args)))
+        m_plain = myers.myers_batch_plain(*m_args)
+        B_m, Lt_m = m_args[2].shape
+        flat = torch.zeros(3 + B_m * Lt_m, dtype=torch.uint8, device=dev)
+        flat[3:] = m_args[2].reshape(-1)
+        wide = torch.zeros((B_m, Lt_m + 13), dtype=torch.uint8, device=dev)
+        wide[:, 5:5 + Lt_m] = m_args[2]
+        for eq_m in (m_args[0], m_args[0].long()):
+            for tx in (m_args[2], flat[3:].view(B_m, Lt_m),
+                       wide[:, 5:5 + Lt_m]):
+                e["myers"] = max(e["myers"], max_abs_err(
+                    myers.myers_batch(eq_m, m_args[1], tx, m_args[3]),
+                    m_plain))
     torch.cuda.synchronize()
     err.update(e)
     log("3 parity", f"PairHMM B=4133 100-150 x 250-350 (both exact modes), "
         f"wavefront B=1/7/64 at 250 x 500, the round edges at B="
         f"{'/'.join(map(str, PAIRHMM_EDGE_B))} for (kernel, lanes a pair, "
         f"rows a lane) in {PAIRHMM_SHAPES}, handover by the rule and "
-        f"forced global; Myers W=1/3/5/9 at B=4133: "
+        f"forced global; Myers W=1/3/5/9 at B=4133 (uint32 and int64 masks, "
+        f"texts whole, 3 bytes off 16 and rows 13 bytes apart): "
         f"max |kernel - plain| " + " ".join(f"{k} {v}" for k, v in e.items())
         + f"; PairHMM == gold bit for bit on {GOLD_CHECK} records")
     if any(e.values()):
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{e}")
+
+    # the walk at its edges (walk_edges: M runs of 63, 64 and 126, pads of
+    # 63 and 64, starts outside the cube, walks with no step, a LOCAL stop
+    # on the first step, chain-biased cubes) in every mode and SEMI_GLOBAL
+    # head, under one wave and at 4,133 pairs; its own generator, so every
+    # later phase's data stays the earlier slices'
+    w_rng = np.random.default_rng(args.seed + 7)
+    walk_modes = [("tb_walk", P, "local", False, False),
+                  ("tb_walk.global", PG, "global", False, False)] + [
+        ("tb_walk.semiglobal", PS, "semiglobal", hq, ht)
+        for hq in (False, True) for ht in (False, True)]
+    e = {k: 0 for k, *_ in walk_modes}
+    for B in (37, 4096 + 37):
+        edge = walk_edges(w_rng, B, dev)
+        for key, pp, algo, hq, ht in walk_modes:
+            a_ = (*edge, pp, algo, hq, ht)
+            e[key] = max(e[key], walk_err(tb_walk.walk_cigars(*a_),
+                                          tb_walk.walk_cigars_plain(*a_)))
+    torch.cuda.synchronize()
+    log("3 parity", f"walk edges ({len(WALK_EDGES)} made pairs, the rest "
+        f"random and chain-biased {WALK_EDGE_L} x {WALK_EDGE_L} cubes) at "
+        f"B=37 and 4133, every mode and SEMI_GLOBAL head: max |kernel - "
+        f"plain| over the bytes, n_ops and starts " + " ".join(
+            f"{k} {v}" for k, v in e.items()))
+    if any(e.values()):
+        raise AssertionError(f"the walk disagrees with its plain version at "
+                             f"its edges: {e}")
+    for k, v in e.items():
+        err[k] = max(err[k], v)
 
     # -- 4. the slice through AlignEngine ---------------------------------
     qs, ts = gasal_pairs(rng, PAIRS)
@@ -1336,8 +1505,11 @@ def main() -> int:
     secs = {}
 
     def timed(key, eng, pairs=None, h0=None):
+        """eng.align on the card (no host run-length encode), its host
+        clock in secs[key]."""
         t0 = time.time()
-        jobs = eng.align(*(pairs or (qs, ts)), h0=h0)
+        with no_host_encode():
+            jobs = eng.align(*(pairs or (qs, ts)), h0=h0)
         secs[key] = time.time() - t0
         if len(jobs) != n:
             raise AssertionError(f"{key}: the engine returned {len(jobs)} "
@@ -1509,8 +1681,9 @@ def main() -> int:
     # models/assembly.py's GLOBAL scoring (haplotype vs reference window)
     PA = AlignmentParams(algo=AlgoType.GLOBAL, match=2, mismatch=4,
                          gap_open=6, gap_extend=1)
-    a_tb = AlignEngine(PA, with_tb=True, device=dev).align(qs[:4096],
-                                                           ts[:4096])
+    with no_host_encode():
+        a_tb = AlignEngine(PA, with_tb=True, device=dev).align(qs[:4096],
+                                                               ts[:4096])
     assert_jobs_equal(a_tb, AlignEngine(
         PA, with_tb=True, device="cpu").align(qs[:256], ts[:256]),
         "GLOBAL with the assembly scoring")
@@ -1826,7 +1999,7 @@ def main() -> int:
                     tb_res.target_end, P),
         "tb_walk.global": (g_res.tb, g_res.score, ql, tl, PG, "global"),
         "tb_walk.semiglobal": (s_res.tb, s_res.score, sj0, si0, PS,
-                               "semiglobal"),
+                               "semiglobal", False, False),
     }
     # local_sw's score, end and TB modes as launches alone on their
     # allocated outputs (the score modes on the inputs with the pads
@@ -1874,8 +2047,12 @@ def main() -> int:
               "semiglobal_sw.end"):
         ms[k] = ms.get(k, 0.0) + cuda_ms(
             lambda a=s_args[k]: cuda_align.launch_semiglobal(a), 10) / 2
-    for k, a in walks.items():
-        ms[k] = cuda_ms(lambda a=a: tb_walk.tb_walk(*a), 10)
+    # the walks as launches alone on their allocated outputs, in turns (A,
+    # B, C, C, B, A)
+    walk_lay = {k: tb_walk.walk_launch_args(*a) for k, a in walks.items()}
+    for k in (*walks, *reversed(walks)):
+        ms[k] = ms.get(k, 0.0) + cuda_ms(
+            lambda a=walk_lay[k]: tb_walk.launch_walk(a), 10) / 2
     for k, (kern, _, a, kw) in plains.items():
         ms[k] = cuda_ms(lambda kern=kern, a=a, kw=kw: kern(*a, **kw), 10)
     plain_ms = {
@@ -1961,15 +2138,12 @@ def main() -> int:
         err[k] = max(err[k], max_abs_err(
             got[:3] if k == "banded_sw.end" else got[:1],
             plain_b[:3] if k == "banded_sw.end" else plain_b[:1]))
-    steps, words = {}, {}
+    steps, words, walk_out = {}, {}, {}
     for k, a in walks.items():
-        plain_ms[k] = cuda_ms(lambda a=a: tb_walk.tb_walk_plain(*a), 1)
-        got = tb_walk.tb_walk(*a)
-        err[k] = max(err[k], max_abs_err(got, tb_walk.tb_walk_plain(*a)))
-        steps[k] = int((got[0] != 255).sum())
-        # a step that moves the column (M, X, I) reads a cube word no
-        # earlier step read: a lower count of the words the walk needs
-        words[k] = int(((got[0] <= 1) | (got[0] == 3)).sum())
+        plain_ms[k] = cuda_ms(lambda a=a: tb_walk.walk_cigars_plain(*a), 1)
+        err[k] = max(err[k], walk_err(tb_walk.launch_walk(walk_lay[k]),
+                                      tb_walk.walk_cigars_plain(*a)))
+        steps[k], words[k], walk_out[k] = walk_work(*a)
     for k, (kern, plain, a, kw) in plains.items():
         plain_ms[k] = cuda_ms(lambda plain=plain, a=a, kw=kw: plain(*a, **kw),
                               1)
@@ -2049,8 +2223,8 @@ def main() -> int:
         "banded_sw.end": (covered["banded"], seqs + 5 * pp),
         "banded_sw.score": (covered["banded"], seqs + 3 * pp),
     }
-    for k in walks:   # words read, 3 int32 in, ops [Lq+Lt, B] + 2 out
-        work[k] = (steps[k], 4 * words[k] + 5 * pp + seqs)
+    for k in walks:   # words read, 3 int32 in; the bytes and 3 int32 out
+        work[k] = (steps[k], 4 * words[k] + 6 * pp + walk_out[k])
     peak = int32_peak()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     log("5 timings", f"bound: {sms} SMs x {INT32_LANES_PER_SM} INT32 lanes "
@@ -2067,7 +2241,9 @@ def main() -> int:
         return f"{OPS_PER_CELL[k]} op per {'step' if k in steps else 'cell'}"
     for k in ms:
         if k in steps:
-            rate = f"{steps[k] / ms[k] / 1e6:.3f} G steps/s"
+            rate = (f"{steps[k] / ms[k] / 1e6:.3f} G steps/s, {steps[k]} "
+                    f"steps, {words[k]} words: sector floor "
+                    f"{32 * words[k] / HBM_BYTES_PER_S * 1e3:.4f} ms")
         elif k.endswith("_start"):
             rate = f"stops at the start, {work[k][0]} cells"
         elif k.split(".")[0] in ("ksw", "banded_sw"):
@@ -2294,6 +2470,39 @@ def main() -> int:
             + f"; SCORE16 / SCORE {l_ms['score16'] / l_ms['score']:.3f}, "
             f"END16 / END {l_ms['end16'] / l_ms['end']:.3f}; bounds SCORE16 "
             f"{l_b['score16']:.4f} ms, END16 {l_b['end16']:.4f} ms; on {smi}")
+        # the walk at this launch: LOCAL, GLOBAL and glocal (TARGET/TARGET)
+        # on the TB kernels' cubes, launches alone in turns (A, B, C, C, B,
+        # A), held to the plain version, beside the bound (the bytes: the
+        # words the walk needs, 3 int32 in, the CIGAR bytes and 3 int32
+        # out) and the sector floor (32 bytes a word)
+        r_l = cuda_align.local_align(eq, et, P, with_tb=True)
+        r_g = cuda_align.global_align(eq, et, eql, etl, PG, with_tb=True)
+        r_s = cuda_align.semiglobal_align(eq, et, eql, etl, PS, with_tb=True,
+                                          **gl)
+        ei0, ej0 = walk_start(AlgoType.SEMI_GLOBAL, gl["tail"], r_s, eql, etl)
+        e_walks = {
+            "tb_walk": (r_l.tb, r_l.score, r_l.query_end, r_l.target_end, P),
+            "tb_walk.global": (r_g.tb, r_g.score, eql, etl, PG, "global"),
+            "tb_walk.semiglobal": (r_s.tb, r_s.score, ej0, ei0, PS,
+                                   "semiglobal", False, True)}
+        e_lay = {k: tb_walk.walk_launch_args(*a) for k, a in e_walks.items()}
+        w_ms = dict.fromkeys(e_walks, 0.0)
+        for k in (*e_walks, *reversed(e_walks)):
+            w_ms[k] += cuda_ms(lambda a=e_lay[k]: tb_walk.launch_walk(a),
+                               20) / 2
+        parts = []
+        for k, a in e_walks.items():
+            err[k] = max(err[k], walk_err(tb_walk.launch_walk(e_lay[k]),
+                                          tb_walk.walk_cigars_plain(*a)))
+            st, wd, nb = walk_work(*a)
+            wb = bound(OPS_PER_CELL[k] * st, 4 * wd + 6 * 4 * n_b + nb, peak)
+            parts.append(f"{k} {w_ms[k]:.4f} ms (bound {wb[0]:.4f} ms by "
+                         f"{wb[1]}, sector floor "
+                         f"{32 * wd / HBM_BYTES_PER_S * 1e3:.4f} ms, {st} "
+                         f"steps)")
+        del e_lay, e_walks, r_l, r_g, r_s
+        log("5 timings", f"walk at an engine launch, B={n_b} {lq}x{lt}: "
+            + "; ".join(parts) + f"; == plain; on {smi}")
     log("5 timings", "engine, " + "; ".join(
         f"{k} {v:.3f} s ({n / v:.0f} pairs/s)" for k, v in secs.items())
         + f", {n} pairs, host clock, on {smi}")
@@ -2307,15 +2516,14 @@ def main() -> int:
     W5 = (MY_LP + 31) // 32
     r5 = np.random.default_rng(0)
     pats = r5.integers(0, 4, (MY_B, MY_LP)).astype(np.uint8)
-    m5 = [myers.build_eq_masks(pats, np.full(MY_B, MY_LP, np.int32),
-                               W5).astype(np.int64),
+    m5 = [myers.build_eq_masks(pats, np.full(MY_B, MY_LP, np.int32), W5),
           np.full(MY_B, MY_LP, np.int32),
           r5.integers(0, 4, (MY_B, MY_LT)).astype(np.uint8),
           np.full(MY_B, MY_LT, np.int32)]
     m5 = [torch.from_numpy(a).to(dev) for a in m5]
     # `ms` is the launch alone, on inputs already in the kernel's layout;
-    # `wrapper_ms` adds the wrapper's layout passes (Myers' transposes;
-    # PairHMM's allocations) around it
+    # `wrapper_ms` adds the wrapper (its checks, views and allocations)
+    # around it
     launch_only = {
         "pairhmm.intertask": (cuda_pairhmm.launch_intertask,
                               cuda_pairhmm.intertask_layout(*t5, p5)),
@@ -2326,6 +2534,10 @@ def main() -> int:
     wrapper_ms = {}
     for k, (launch, lay) in launch_only.items():
         ms[k] = cuda_ms(lambda launch=launch, lay=lay: launch(lay), 50)
+    # Myers' launch takes less time on the card than its making on the
+    # host: replayed from a CUDA graph
+    ms["myers"] = graph_ms(lambda: myers.launch_myers(launch_only["myers"][1]),
+                           50)
     for k, fn in kernels_ph.items():
         wrapper_ms[k] = cuda_ms(lambda fn=fn: fn(*t5, p5), 50)
     wrapper_ms["myers"] = cuda_ms(lambda: myers.myers_batch(*m5), 50)
@@ -2405,12 +2617,39 @@ def main() -> int:
                              f"at the timed launches: {err}")
     log("5 timings", f"myers: kernel {ms['myers']:.4f} ms "
         f"({MY_B * MY_LP * MY_LT / ms['myers'] / 1e6:.2f} GCUPS as "
-        f"run_all.py counts B.Lp.Lt; the wrapper with its layout passes "
+        f"run_all.py counts B.Lp.Lt; the wrapper, host included, "
         f"{wrapper_ms['myers']:.4f} ms), plain {plain_ms['myers']:.2f} ms, "
         f"bound {bounds['myers'][0]:.4f} ms by {bounds['myers'][1]} "
         f"({MYERS_OPS_PER_WORD} int op per word-step x W={W5} + "
         f"{MYERS_OPS_PER_STEP} per step, {my_steps} steps, {my_bytes} "
         f"bytes), B={MY_B} Lp {MY_LP} Lt {MY_LT}, on {smi}")
+
+    # Myers at the `ed` stage's launch: phase 4's 65,536 reads against
+    # their 200 bp windows (W = 5), the uint32 masks as
+    # edit_distance_semiglobal passes them; the launch alone, the wrapper
+    # and the plain version, held to it
+    ed_in = [torch.from_numpy(a).to(dev)
+             for a in myers.encode_batch(reads_ed, wins)]
+    ed_lay = myers.myers_layout(*ed_in)
+    ed_ms = graph_ms(lambda: myers.launch_myers(ed_lay), 50)
+    ed_wrap = cuda_ms(lambda: myers.myers_batch(*ed_in), 50)
+    ed_plain = cuda_ms(lambda: myers.myers_batch_plain(*ed_in), 1)
+    err["myers"] = max(err["myers"], max_abs_err(
+        myers.launch_myers(ed_lay), myers.myers_batch_plain(*ed_in)))
+    B_ed, Lt_ed = ed_in[2].shape
+    W_ed = ed_in[0].shape[2]
+    ed_steps = int(((ed_in[2] != 255) & (torch.arange(Lt_ed, device=dev)[
+        None, :] < ed_in[3][:, None])).sum())
+    ed_bound = bound(ed_steps * (W_ed * MYERS_OPS_PER_WORD
+                                 + MYERS_OPS_PER_STEP),
+                     B_ed * (16 * W_ed + Lt_ed + 2 * 4 + 3 * 4), peak)
+    if err["myers"]:
+        raise AssertionError(f"Myers disagrees with its plain version at the "
+                             f"ed launch: {err['myers']}")
+    log("5 timings", f"myers at the ed launch, B={B_ed} W={W_ed} Lt "
+        f"{Lt_ed}: kernel {ed_ms:.4f} ms (the wrapper {ed_wrap:.4f} ms), "
+        f"plain {ed_plain:.2f} ms, bound {ed_bound[0]:.4f} ms by "
+        f"{ed_bound[1]} ({ed_steps} steps), == plain; on {smi}")
 
     src = "genomics_tpu_torch/csrc/"
     rows = [

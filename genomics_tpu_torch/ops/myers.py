@@ -28,8 +28,8 @@ LAUNCHES = {"myers": 0}
 WORD = 0xFFFFFFFF
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
-# eq, texts, plen, tlen, B, W, Lt, state, best, end, final, stream
-_ARGS = (_vp,) * 4 + (_ci,) * 3 + (_vp,) * 5
+# eq, es, texts, ts, plen, tlen, B, W, Lt, state, best, end, final, stream
+_ARGS = (_vp, _ci, _vp, ctypes.c_longlong, _vp, _vp) + (_ci,) * 3 + (_vp,) * 5
 
 # bases → 2-bit codes, anything else 4 (models/cluster.py's _BASE_MAP)
 _BASE_MAP = np.full(256, 4, np.uint8)
@@ -108,7 +108,7 @@ def myers_batch_plain(eq, plen, texts, tlen):
 
 
 def myers_batch(
-    eq: torch.Tensor,      # [B, 4, W] pattern match masks, uint32 or int64
+    eq: torch.Tensor,      # [B, 4, W] match masks, uint32, int32 or int64
     plen: torch.Tensor,    # [B] int32 pattern lengths
     texts: torch.Tensor,   # [B, Lt] uint8 2-bit codes (255 = pad)
     tlen: torch.Tensor,    # [B] int32
@@ -126,6 +126,9 @@ def myers_batch(
                          f"{tuple(eq.shape)}, {tuple(texts.shape)}")
     if texts.dtype != torch.uint8:
         raise TypeError(f"texts must be uint8 codes; got {texts.dtype}")
+    if eq.dtype not in (torch.uint32, torch.int32, torch.int64):
+        raise TypeError(f"eq must be uint32, int32 or int64 masks; got "
+                        f"{eq.dtype}")
     for x in (plen, tlen):
         if x.shape != (B,) or x.dtype != torch.int32:
             raise ValueError(f"plen / tlen must be int32 [{B}]; got "
@@ -143,18 +146,22 @@ def myers_batch(
 
 def myers_layout(eq, plen, texts, tlen) -> tuple:
     """The kernel's arguments for checked inputs on the card, in the order
-    of `myers_launch`: the eq words as [4W, B] (int32 holds the uint32
-    bits), the texts as [Lt, B], both batch innermost, the lengths, B, W,
-    Lt, the [2W, B] scratch (None for W <= 8) and the three [B] int32
-    outputs (best, end, final), last."""
+    of `myers_launch`, read in place: the eq masks as 32-bit words (an
+    int32 view of uint32 or int64 masks, which the kernel reads every
+    `es`-th word: 2 takes the low words of int64), the texts with their
+    row stride in bytes, the lengths, B, W, Lt, the [2W, B] scratch (None
+    for W <= 8) and the three [B] int32 outputs (best, end, final), last.
+    Nothing is permuted or converted: only masks that are not contiguous,
+    or texts whose bytes are not contiguous within a row, are copied."""
     B, _, W = eq.shape
     dev = eq.device
-    eq_w = (eq.view(torch.int32) if eq.dtype == torch.uint32 else
-            eq.to(torch.int32)).permute(1, 2, 0).reshape(4 * W, B).contiguous()
+    eq = eq.contiguous()
+    eq_w = eq if eq.dtype == torch.int32 else eq.view(torch.int32)
+    texts = texts if texts.stride(1) == 1 else texts.contiguous()
     state = (torch.empty((2 * W, B), dtype=torch.int32, device=dev)
              if W > 8 else None)
-    return (eq_w, texts.T.contiguous(), plen.contiguous(), tlen.contiguous(),
-            B, W, texts.shape[1], state,
+    return (eq_w, eq_w.shape[2] // W, texts, texts.stride(0),
+            plen.contiguous(), tlen.contiguous(), B, W, texts.shape[1], state,
             *(torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)))
 
 
@@ -191,8 +198,7 @@ def edit_distance_semiglobal(patterns, texts, device="cuda"):
     unless `device` says otherwise (`myers.edit_distance_semiglobal`)."""
     dev = checked_device(device)
     eq, plen, tarr, tlen = encode_batch(patterns, texts)
-    args = [torch.from_numpy(a).to(dev)
-            for a in (eq.astype(np.int64), plen, tarr, tlen)]
+    args = [torch.from_numpy(a).to(dev) for a in (eq, plen, tarr, tlen)]
     return tuple(x.cpu().numpy() for x in myers_batch(*args))
 
 

@@ -1,19 +1,19 @@
-"""Traceback walk on the device, and the host run-length encode to
-byte-CIGARs.  The counterpart of `genomics_tpu/ops/tb_walk.py` and, for
-GLOBAL and SEMI_GLOBAL, of the native decoder `native/cigar.cpp`.
+"""Traceback walk on the device straight to byte-CIGARs.  The
+counterpart of `genomics_tpu/ops/tb_walk.py` and of the native decoder
+`native/cigar.cpp` decode_one that the JAX engine runs after it.
 
-The walk is the state machine of native/cigar.cpp decode_one (itself
-the transcription of CDP/GASAL2/src/kernels/get_tb.h:5-149): op_select /
-op_shift gap-chain tracking, X/M from the substitution bit, and for
-LOCAL the score-stop.  It reads the sqb nibble cube [Lt//8, Lq, B] that
-the `ops.cuda_align` kernels write with traceback, and only the
-O(Lq + Lt)-byte op stream per alignment goes back to the host.  There
-`cigars_from_walk` run-length encodes it and, for GLOBAL and
-SEMI_GLOBAL, appends decode_one's leading D/I pads and derives the
-starts from where the walk ended — the same bytes decode_one emits.
+The walk is the state machine of decode_one (itself the transcription
+of CDP/GASAL2/src/kernels/get_tb.h:5-149): op_select / op_shift
+gap-chain tracking, X/M from the substitution bit, and for LOCAL the
+score stop.  It reads the sqb nibble cube [Lt//8, Lq, B] that the
+`ops.cuda_align` kernels write with traceback.  `walk_cigars` gives
+decode_one's bytes: the walk's runs, and for GLOBAL and SEMI_GLOBAL the
+leading D/I pads, with the starts.
 
-`tb_walk` takes the plain version for CPU tensors and the kernel of
-`csrc/tb_walk.cu` for CUDA tensors.
+`walk_cigars` takes the plain version for CPU tensors: `tb_walk_plain`,
+the op stream [Lq + Lt, B], then `cigars_from_walk`, which run-length
+encodes it and adds the pads on the host.  For CUDA tensors it launches
+`csrc/tb_walk.cu`, which writes the bytes on the card.
 """
 from __future__ import annotations
 
@@ -34,16 +34,40 @@ _ALGOS = {"local": 0, "global": 1, "semiglobal": 2}
 # one where it launches.
 LAUNCHES = {"tb_walk": 0, "tb_walk.global": 0, "tb_walk.semiglobal": 0}
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
-# algo, tb, score, qend, tend, B, Lq, Lt8, match, mismatch, goe, ge, ops,
-# qfin, tfin, stream
-_ARGS = (_ci,) + (_vp,) * 4 + (_ci,) * 7 + (_vp,) * 4
+# algo, pad_d, pad_i, tb, score, qend, tend, B, Lq, Lt8, width, match,
+# mismatch, goe, ge, cigars, n_ops, qstart, tstart, stream
+_ARGS = (_ci,) * 3 + (_vp,) * 4 + (_ci,) * 8 + (_vp,) * 5
+
+
+def cigar_width(Lq: int, Lt: int) -> int:
+    """Bytes of a row of `walk_cigars`' cigars for a [Lt//8, Lq, B] cube:
+    the Lq + Lt + 8 of the op stream's encode, two pads of at most
+    (max(Lq, Lt) + 1) // 63 + 1 bytes each, rounded up to a multiple of 4
+    (the kernel stores four bytes at a time)."""
+    need = Lq + Lt + 8 + 2 * ((max(Lq, Lt) + 1) // 63 + 1)
+    return (need + 3) // 4 * 4
+
+
+def valid_bytes(cigars: torch.Tensor, n_ops: torch.Tensor) -> torch.Tensor:
+    """cigars with every byte past its row's n_ops set to 0: the bytes
+    that carry meaning, comparable across the kernel and the plain
+    version."""
+    cols = torch.arange(cigars.shape[1], device=cigars.device)
+    return torch.where(cols[None, :] < n_ops[:, None].long(), cigars,
+                       torch.zeros((), dtype=cigars.dtype,
+                                   device=cigars.device))
 
 
 def tb_walk_plain(tb_sqb, score, qend, tend, params: AlignmentParams,
                   algo: str = "local"):
-    """Vectorised walk over the batch: one step for every lane at a
-    time, stopping early once every lane is done.  Bit-identical to
-    genomics_tpu.ops.tb_walk.tb_walk_device with algo="local"."""
+    """→ (ops [Lq+Lt, B] uint8 walk-order op codes (0=M 1=X 2=D 3=I,
+    255 = inactive), final j [B] int32, final i [B] int32).
+
+    Vectorised walk over the batch: one step for every lane at a time,
+    stopping early once every lane is done.  Bit-identical to
+    genomics_tpu.ops.tb_walk.tb_walk_device with algo="local".  Lq + Lt
+    steps hold every walk from a start column <= Lq (see
+    csrc/tb_walk.cu); `cigars_from_walk` turns the outputs into bytes."""
     Lt8, Lq, B = tb_sqb.shape
     Lt = Lt8 * 8
     T = Lq + Lt
@@ -97,47 +121,6 @@ def tb_walk_plain(tb_sqb, score, qend, tend, params: AlignmentParams,
         op_select = torch.where(active, new_select, op_select)
         active = move & (i >= 0) & (j >= 0)
     return ops, j.to(torch.int32), i.to(torch.int32)
-
-
-def tb_walk(tb_sqb, score, qend, tend, params: AlignmentParams,
-            algo: str = "local"):
-    """→ (ops [Lq+Lt, B] uint8 walk-order op codes (0=M 1=X 2=D 3=I,
-    255 = inactive), final j [B] int32, final i [B] int32).
-
-    The walk starts at (tend, qend).  LOCAL stops where the rebuilt
-    score reaches `score`, and its final (j, i) are the starts.  GLOBAL
-    (start (tlen, qlen)) and SEMI_GLOBAL (the resolved end cell) walk
-    to row or column -1 and ignore `score`; `cigars_from_walk` turns
-    their final (j, i) into pads and starts.  Lq + Lt steps hold every
-    walk from a start column <= Lq (see csrc/tb_walk.cu)."""
-    if algo not in _ALGOS:
-        raise ValueError(f"algo must be one of {sorted(_ALGOS)}; got {algo!r}")
-    if tb_sqb.dim() != 3 or tb_sqb.dtype != torch.int32:
-        raise ValueError(f"need an int32 [Lt//8, Lq, B] cube; got "
-                         f"{tb_sqb.dtype} {tuple(tb_sqb.shape)}")
-    Lt8, Lq, B = tb_sqb.shape
-    for x in (score, qend, tend):
-        if x.shape != (B,) or x.dtype != torch.int32 or x.device != tb_sqb.device:
-            raise ValueError(f"score/qend/tend must be int32 [{B}] on "
-                             f"{tb_sqb.device}; got {x.dtype} {tuple(x.shape)}"
-                             f" on {x.device}")
-    if on_cpu(tb_sqb):
-        return tb_walk_plain(tb_sqb, score, qend, tend, params, algo)
-    dev = tb_sqb.device
-    ops = torch.empty((Lq + Lt8 * 8, B), dtype=torch.uint8, device=dev)
-    qfin = torch.empty(B, dtype=torch.int32, device=dev)
-    tfin = torch.empty(B, dtype=torch.int32, device=dev)
-    if B == 0:
-        return ops, qfin, tfin
-    tb_sqb = tb_sqb.contiguous()
-    score, qend, tend = (x.contiguous() for x in (score, qend, tend))
-    _build.launch("tb_walk", "tb_walk_launch", _ARGS, dev, _ALGOS[algo],
-                  tb_sqb.data_ptr(), score.data_ptr(), qend.data_ptr(),
-                  tend.data_ptr(), B, Lq, Lt8, params.match, params.mismatch,
-                  params.gap_oe, params.gap_extend, ops.data_ptr(),
-                  qfin.data_ptr(), tfin.data_ptr())
-    LAUNCHES["tb_walk" if algo == "local" else f"tb_walk.{algo}"] += 1
-    return ops, qfin, tfin
 
 
 def rle_cigar(ops_np: np.ndarray, max_ops: int | None = None):
@@ -217,3 +200,87 @@ def cigars_from_walk(ops_np: np.ndarray, qfin: np.ndarray, tfin: np.ndarray,
             qstart[b] = 0 if pad_i else max(j + 1, 0)
             tstart[b] = 0 if pad_d else max(i + 1, 0)
     return out, n_ops, qstart, tstart
+
+
+def walk_cigars_plain(tb_sqb, score, qend, tend, params: AlignmentParams,
+                      algo: str = "local", head_q: bool = False,
+                      head_t: bool = False):
+    """The plain version of `walk_cigars`: `tb_walk_plain`, then
+    `cigars_from_walk` on the host, the rows widened to
+    `cigar_width(Lq, Lt)` bytes; on the inputs' device."""
+    Lt8, Lq, B = tb_sqb.shape
+    ops, qfin, tfin = tb_walk_plain(tb_sqb, score, qend, tend, params, algo)
+    cig, n_ops, qs, ts = cigars_from_walk(
+        ops.cpu().numpy(), qfin.cpu().numpy(), tfin.cpu().numpy(), algo,
+        head_q, head_t)
+    width = cigar_width(Lq, Lt8 * 8)
+    out = np.zeros((B, width), np.uint8)
+    keep = min(width, cig.shape[1])
+    out[:, :keep] = cig[:, :keep]
+    dev = tb_sqb.device
+    return (torch.from_numpy(out).to(dev),
+            *(torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+              for x in (n_ops, qs, ts)))
+
+
+def walk_cigars(tb_sqb, score, qend, tend, params: AlignmentParams,
+                algo: str = "local", head_q: bool = False,
+                head_t: bool = False):
+    """→ (cigars [B, cigar_width(Lq, Lt)] uint8, n_ops [B] int32, qstart
+    [B] int32, tstart [B] int32): native/cigar.cpp decode_one's bytes for
+    every pair, pair-major; only the first n_ops bytes of a row carry
+    meaning.
+
+    The walk starts at (tend, qend).  LOCAL stops where the rebuilt
+    score reaches `score`, and its final (j, i) are the starts.  GLOBAL
+    (start (tlen, qlen)) and SEMI_GLOBAL (the resolved end cell) walk to
+    row or column -1 and ignore `score`; after the walk's runs come the
+    leading D pad of i + 1 rows, then the I pad of j + 1 columns — for
+    SEMI_GLOBAL only where that HEAD (`head_t`, `head_q`) is not skipped.
+    GLOBAL's starts are 0, SEMI_GLOBAL's 0 under a pad, else max(final
+    + 1, 0)."""
+    if algo not in _ALGOS:
+        raise ValueError(f"algo must be one of {sorted(_ALGOS)}; got {algo!r}")
+    if tb_sqb.dim() != 3 or tb_sqb.dtype != torch.int32:
+        raise ValueError(f"need an int32 [Lt//8, Lq, B] cube; got "
+                         f"{tb_sqb.dtype} {tuple(tb_sqb.shape)}")
+    Lt8, Lq, B = tb_sqb.shape
+    for x in (score, qend, tend):
+        if x.shape != (B,) or x.dtype != torch.int32 or x.device != tb_sqb.device:
+            raise ValueError(f"score/qend/tend must be int32 [{B}] on "
+                             f"{tb_sqb.device}; got {x.dtype} {tuple(x.shape)}"
+                             f" on {x.device}")
+    if on_cpu(tb_sqb):
+        return walk_cigars_plain(tb_sqb, score, qend, tend, params, algo,
+                                 head_q, head_t)
+    args = walk_launch_args(tb_sqb, score, qend, tend, params, algo, head_q,
+                            head_t)
+    return launch_walk(args) if B else args[-4:]
+
+
+def walk_launch_args(tb_sqb, score, qend, tend, params: AlignmentParams,
+                     algo: str = "local", head_q: bool = False,
+                     head_t: bool = False) -> tuple:
+    """tb_walk_launch's arguments but the stream, for checked inputs: the
+    mode and the pads, the inputs, the shapes and scores, and the outputs
+    (cigars, n_ops, qstart, tstart), last."""
+    Lt8, Lq, B = tb_sqb.shape
+    dev = tb_sqb.device
+    width = cigar_width(Lq, Lt8 * 8)
+    cigars = torch.empty((B, width), dtype=torch.uint8, device=dev)
+    n_ops, qstart, tstart = (torch.empty(B, dtype=torch.int32, device=dev)
+                             for _ in range(3))
+    score, qend, tend = (x.contiguous() for x in (score, qend, tend))
+    return (_ALGOS[algo], int(not head_t), int(not head_q),
+            tb_sqb.contiguous(), score, qend, tend, B, Lq, Lt8, width,
+            params.match, params.mismatch, params.gap_oe, params.gap_extend,
+            cigars, n_ops, qstart, tstart)
+
+
+def launch_walk(args: tuple):
+    """Launch csrc/tb_walk.cu on `walk_launch_args`' arguments (B > 0)
+    and count it under its mode; returns (cigars, n_ops, qstart,
+    tstart)."""
+    _build.launch("tb_walk", "tb_walk_launch", _ARGS, args[3].device, *args)
+    LAUNCHES[("tb_walk", "tb_walk.global", "tb_walk.semiglobal")[args[0]]] += 1
+    return args[-4:]

@@ -10,21 +10,18 @@ The counterpart of `genomics_tpu/runtime/dispatch.py`.  `AlignEngine`:
    MAX_PAIRS_PER_LAUNCH pairs, fewer where the traceback cube would pass
    MAX_TB_BYTES; results do not depend on the chunking);
 3. with traceback (LOCAL, GLOBAL, SEMI_GLOBAL), walks the nibble cube
-   on the device too (`ops.tb_walk`), so only the O(Lq+Lt) op stream
-   per pair comes back;
-   for SEMI_GLOBAL the walk's start cell is first resolved from the
-   kernel's ends on the device;
+   on the device too (`ops.tb_walk.walk_cigars`), straight to
+   byte-CIGARs with GLOBAL's and SEMI_GLOBAL's leading D/I pads and the
+   starts, so only those bytes come back; for SEMI_GLOBAL the walk's
+   start cell is first resolved from the kernel's ends on the device;
 4. without traceback, serves `compute_start` (LOCAL, SEMI_GLOBAL) with
    GASAL2's reverse start pass fed the forward kernel's result on the
    device, and LOCAL's `second_best` with the inline second-best kernel
-   (`ops.scan_align_full`, `ops.cuda_align`);
-5. run-length encodes the op streams to byte-CIGARs on the host, with
-   GLOBAL's and SEMI_GLOBAL's leading D/I pads.
+   (`ops.scan_align_full`, `ops.cuda_align`).
 
 Results come back in submission order, every `AlignmentJob` field as the
-JAX engine gives it.  The JAX engine decodes GLOBAL and SEMI_GLOBAL
-tracebacks on the host (native/cigar.cpp); here the walk runs on the
-device and the host encodes, the split LOCAL already has.  The JAX
+JAX engine gives it.  The JAX engine decodes tracebacks on the host
+(native/cigar.cpp); here the card writes the bytes.  The JAX
 engine's 128-multiple batch floor and its 2048/1024 chunks exist for the
 TPU's vector layout and are not carried over.
 """
@@ -209,9 +206,10 @@ class AlignEngine:
     def _run_chunk(self, qb: np.ndarray, tb: np.ndarray, qlen: np.ndarray,
                    tlen: np.ndarray, h0: np.ndarray, has_n: bool) -> dict:
         """Launch one chunk; returns device tensors: score, qend and tend
-        (None when score-only), walk = (ops, final j, final i), starts =
-        (qstart, tstart) from the start pass and second = (score2, qend2,
-        tend2), each None when not asked for."""
+        (None when score-only), walk = (cigars, n_ops, qstart, tstart) of
+        `tb_walk.walk_cigars`, starts = (qstart, tstart) from the start
+        pass and second = (score2, qend2, tend2), each None when not
+        asked for."""
         p = self.params
         q = torch.from_numpy(qb).to(self.device)
         t = torch.from_numpy(tb).to(self.device)
@@ -249,8 +247,10 @@ class AlignEngine:
             out["second"] = cuda_align.local_align_second(q, t, ql, tl, p)[3:]
         if self.with_tb:
             i0, j0 = walk_start(p.algo, self.tail, res, ql, tl)
-            out["walk"] = tb_walk.tb_walk(res.tb, res.score, j0, i0, p,
-                                          _WALK[p.algo])
+            out["walk"] = tb_walk.walk_cigars(
+                res.tb, res.score, j0, i0, p, _WALK[p.algo],
+                head_q=bool(self.head & SemiGlobalSkip.QUERY),
+                head_t=bool(self.head & SemiGlobalSkip.TARGET))
         if self.start_pass and p.algo == AlgoType.LOCAL:
             out["starts"] = scan_align_full.local_starts(q, t, ql, tl,
                                                          *res[:3], p)
@@ -324,10 +324,9 @@ class AlignEngine:
             starts, second = host(r["starts"]), host(r["second"])
             cigars = None
             if r["walk"] is not None:
-                cigars, n_ops, *starts = tb_walk.cigars_from_walk(
-                    *host(r["walk"]), _WALK[self.params.algo],
-                    head_q=bool(self.head & SemiGlobalSkip.QUERY),
-                    head_t=bool(self.head & SemiGlobalSkip.TARGET))
+                n_ops, *starts = host(r["walk"][1:])
+                cigars = r["walk"][0][:, :int(n_ops.max(initial=0))]
+                cigars = cigars.cpu().numpy()
             for k, i in enumerate(idxs):
                 job = AlignmentJob(score=int(score[k]))
                 if ends is not None:

@@ -21,6 +21,7 @@ from chip_smoke import (
     PAIRHMM_SHAPES,
     band_windows,
     pairhmm_edges,
+    walk_edges,
 )
 
 from genomics_tpu_torch import AlgoType, AlignEngine, AlignmentParams
@@ -286,23 +287,34 @@ def test_semiglobal_tb_kernel_matches_plain(cuda, head, tail):
     _assert_equal(got, want)
 
 
+def _walk_equal(got, want):
+    """walk_cigars' outputs: the bytes that carry meaning, n_ops and the
+    starts, equal."""
+    assert got[0].shape == want[0].shape and got[0].dtype == torch.uint8
+    assert torch.equal(tb_walk.valid_bytes(*got[:2]).cpu(),
+                       tb_walk.valid_bytes(*want[:2]).cpu())
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
 def test_walk_kernel_matches_plain(cuda):
     p = AlignmentParams()
     q, t, _, _ = _batch(2, 1000, 64, 96, n_rate=0.02)
     res = cuda_align.local_align(q.to(cuda), t.to(cuda), p, with_tb=True)
-    want = tb_walk.tb_walk_plain(res.tb, res.score, res.query_end,
-                                 res.target_end, p)
+    args = (res.tb, res.score, res.query_end, res.target_end, p)
+    want = tb_walk.walk_cigars_plain(*args)
     before = tb_walk.LAUNCHES["tb_walk"]
-    got = tb_walk.tb_walk(res.tb, res.score, res.query_end, res.target_end, p)
+    got = tb_walk.walk_cigars(*args)
     torch.cuda.synchronize()
     assert tb_walk.LAUNCHES["tb_walk"] == before + 1
-    _assert_equal(got, want)
+    _walk_equal(got, want)
 
 
 @pytest.mark.parametrize("algo", ["global", "semiglobal"])
 def test_global_walks_match_plain(cuda, algo):
     """Walks from (tlen, qlen) — one cell past the end, the exact-fit pair
-    0 included — and, for the semiglobal mode, from the resolved ends."""
+    0 included — and, for the semiglobal mode, from the resolved ends,
+    pads and starts included."""
     q, t, ql, tl = [x.to(cuda) for x in _batch(3, 1000, 64, 96, n_rate=0.02)]
     if algo == "global":
         p = AlignmentParams(algo=AlgoType.GLOBAL)
@@ -314,13 +326,90 @@ def test_global_walks_match_plain(cuda, algo):
             q, t, ql, tl, p, head=SemiGlobalSkip.TARGET,
             tail=SemiGlobalSkip.TARGET, with_tb=True)
         i0, j0 = res.target_end, ql - 1
-    want = tb_walk.tb_walk_plain(res.tb, res.score, j0, i0, p, algo)
+    args = (res.tb, res.score, j0, i0, p, algo, False, algo == "semiglobal")
+    want = tb_walk.walk_cigars_plain(*args)
     key = f"tb_walk.{algo}"
     before = tb_walk.LAUNCHES[key]
-    got = tb_walk.tb_walk(res.tb, res.score, j0, i0, p, algo)
+    got = tb_walk.walk_cigars(*args)
     torch.cuda.synchronize()
     assert tb_walk.LAUNCHES[key] == before + 1
-    _assert_equal(got, want)
+    _walk_equal(got, want)
+
+
+WALK_MODES = [("local", False, False), ("global", False, False)] + [
+    ("semiglobal", hq, ht) for hq in (False, True) for ht in (False, True)]
+
+
+@pytest.mark.parametrize("algo,head_q,head_t", WALK_MODES,
+                         ids=[f"{a}-q{int(q)}-t{int(t)}"
+                              for a, q, t in WALK_MODES])
+@pytest.mark.parametrize("B", [37, 4133], ids=["under_a_wave", "a_wave"])
+def test_walk_kernel_at_the_edges(cuda, algo, head_q, head_t, B):
+    """chip_smoke.walk_edges: M runs of 63, 64 and 126, pads of 63 and 64,
+    starts outside the cube, walks with no step, a LOCAL stop on the first
+    step, D runs across word rows and I runs past a window."""
+    p = AlignmentParams(algo={"local": AlgoType.LOCAL,
+                              "global": AlgoType.GLOBAL,
+                              "semiglobal": AlgoType.SEMI_GLOBAL}[algo])
+    args = (*walk_edges(np.random.default_rng(B), B, cuda), p, algo, head_q,
+            head_t)
+    want = tb_walk.walk_cigars_plain(*args)
+    got = tb_walk.walk_cigars(*args)
+    torch.cuda.synchronize()
+    _walk_equal(got, want)
+    if algo == "global":
+        runs = [int(x) >> 2 for x in got[0][2, :got[1][2]].cpu()]
+        assert runs[:3] == [63, 1, 1]
+
+
+def test_walk_kernel_over_many_waves(cuda):
+    """1,048,576 walks on 16 x 16 cubes, more threads than stay resident;
+    4,096 of them, from every part of the launch, held to the plain
+    version."""
+    p = AlignmentParams(algo=AlgoType.GLOBAL)
+    B = 1 << 20
+    tb, score, qend, tend = walk_edges(np.random.default_rng(8), B, cuda,
+                                       L=16)
+    got = tb_walk.walk_cigars(tb, score, qend, tend, p, "global")
+    torch.cuda.synchronize()
+    pick = torch.from_numpy(np.sort(np.random.default_rng(9).choice(
+        B, 4096, replace=False))).to(cuda)
+    want = tb_walk.walk_cigars_plain(tb[:, :, pick].contiguous(),
+                                     score[pick], qend[pick], tend[pick], p,
+                                     "global")
+    _walk_equal([got[0][pick], *(x[pick] for x in got[1:])], want)
+
+
+@pytest.mark.parametrize("algo,head", [
+    (AlgoType.LOCAL, SemiGlobalSkip.NONE),
+    (AlgoType.GLOBAL, SemiGlobalSkip.NONE),
+    (AlgoType.SEMI_GLOBAL, SemiGlobalSkip.TARGET),
+    (AlgoType.SEMI_GLOBAL, SemiGlobalSkip.NONE)],
+    ids=["local", "global", "glocal", "semiglobal_none"])
+def test_engine_traceback_on_the_card_needs_no_host_encode(cuda, monkeypatch,
+                                                           algo, head):
+    """AlignEngine with traceback on the card takes the walk's bytes as
+    they come: rle_cigar and cigars_from_walk (the plain version's host
+    loops) are never called, and every field equals the CPU engine's."""
+    rng = np.random.default_rng(31)
+    qs = ["".join(rng.choice(list("ACGT"), int(rng.integers(40, 150))))
+          for _ in range(300)]
+    ts = [q[5:] + "".join(rng.choice(list("ACGT"), 60)) for q in qs]
+    kw = dict(with_tb=True, head=head, tail=head)
+    want = AlignEngine(AlignmentParams(algo=algo), device="cpu",
+                       **kw).align(qs, ts)
+
+    def host_loop(*_a, **_k):
+        raise AssertionError("the card path ran a host encode")
+    monkeypatch.setattr(tb_walk, "rle_cigar", host_loop)
+    monkeypatch.setattr(tb_walk, "cigars_from_walk", host_loop)
+    got = AlignEngine(AlignmentParams(algo=algo), device=cuda,
+                      **kw).align(qs, ts)
+    for g, w in zip(got, want, strict=True):
+        assert (g.score, g.query_end, g.target_end, g.query_start,
+                g.target_start) == (w.score, w.query_end, w.target_end,
+                                    w.query_start, w.target_start)
+        np.testing.assert_array_equal(g.cigar, w.cigar)
 
 
 @pytest.mark.parametrize("params", [
@@ -1047,6 +1136,16 @@ def test_myers_kernel_matches_plain(cuda, W):
     _assert_equal([g.cpu() for g in got], want)
     args[0] = args[0].long()
     _assert_equal([g.cpu() for g in myers.myers_batch(*args)], want)
+    # texts that are a slice of a larger tensor: rows 3 bytes off a 16-byte
+    # boundary, and rows with a stride past Lt
+    flat = torch.zeros(3 + B * Lt + 16, dtype=torch.uint8, device=cuda)
+    flat[3:3 + B * Lt] = args[2].reshape(-1)
+    wide = torch.zeros((B, Lt + 21), dtype=torch.uint8, device=cuda)
+    wide[:, 5:5 + Lt] = args[2]
+    for texts in (flat[3:3 + B * Lt].view(B, Lt), wide[:, 5:5 + Lt]):
+        lay = myers.myers_layout(args[0], args[1], texts, args[3])
+        assert lay[2].data_ptr() == texts.data_ptr()
+        _assert_equal([g.cpu() for g in myers.launch_myers(lay)], want)
 
 
 def test_edit_distance_on_the_card_matches_cpu(cuda):

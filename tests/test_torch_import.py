@@ -125,7 +125,7 @@ def test_layouts_give_every_launch_argument():
     """The PairHMM and Myers layouts hold one value per C parameter but
     the stream: PairHMM's inputs as they are ([B, R] / [B, C], no copy),
     the lanes a pair (inter-task) and rows a lane first, the handover
-    scratch only in the global layout; Myers' batch innermost."""
+    scratch only in the global layout; Myers' masks and texts in place."""
     import numpy as np
     import torch
 
@@ -179,8 +179,11 @@ def test_layouts_give_every_launch_argument():
     texts = torch.from_numpy(rng.integers(0, 4, (B, 50)).astype(np.uint8))
     lay = myers.myers_layout(eq, rlen, texts, clen)
     assert len(lay) + 1 == len(myers._ARGS)
-    assert lay[0].shape == (4 * W, B) and lay[1].shape == (50, B)
-    assert lay[4:8] == (B, W, 50, None)
+    # read in place: the int64 masks' low words (every second int32 word)
+    # and the texts' rows, 50 bytes apart
+    assert lay[0].data_ptr() == eq.data_ptr() and lay[0].shape == (B, 4, 2 * W)
+    assert lay[1] == 2 and lay[2] is texts and lay[3] == 50
+    assert lay[6:10] == (B, W, 50, None)
 
 
 def test_a_header_newer_than_a_library_rebuilds_it(tmp_path, monkeypatch):

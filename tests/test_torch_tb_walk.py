@@ -74,7 +74,7 @@ def test_plain_walk_matches_tb_walk_device(B, Lq, Lt, jp):
         jnp.asarray(sqb), jnp.zeros(B, jnp.int32), jnp.zeros(B, jnp.int32),
         jnp.asarray(res.score.numpy()), jnp.asarray(res.query_end.numpy()),
         jnp.asarray(res.target_end.numpy()), jp, algo="local")
-    got_ops, got_qs, got_ts = tb_walk.tb_walk(
+    got_ops, got_qs, got_ts = tb_walk.tb_walk_plain(
         res.tb, res.score, res.query_end, res.target_end, p)
     assert got_ops.dtype == torch.uint8 and got_ops.shape == (Lq + Lt, B)
     np.testing.assert_array_equal(got_ops.numpy(), np.asarray(ops))
@@ -101,7 +101,7 @@ def test_walk_and_rle_match_native_decoder():
     want_cig, want_n, want_qs, want_ts = native.decode_tb_batch(
         packed, qlen, tlen, "local", jp, score=score, qend=qend, tend=tend)
     sqb = torch.from_numpy(np.ascontiguousarray(packed.transpose(1, 2, 0)))
-    ops, qst, tst = tb_walk.tb_walk(
+    ops, qst, tst = tb_walk.tb_walk_plain(
         sqb, torch.from_numpy(score), torch.from_numpy(qend),
         torch.from_numpy(tend), p)
     got_cig, got_n = tb_walk.rle_cigar(ops.numpy(), max_ops=want_cig.shape[1])
@@ -134,17 +134,20 @@ def test_cpu_walk_counts_no_launch_and_checks_inputs():
     sqb = torch.zeros((2, 8, 5), dtype=torch.int32)
     z = torch.zeros(5, dtype=torch.int32)
     before = dict(tb_walk.LAUNCHES)
-    ops, qs, ts = tb_walk.tb_walk(sqb, z, z, z, p)
-    assert ops.shape == (24, 5)
-    ops, qs, ts = tb_walk.tb_walk(sqb, z, z + 8, z + 16, p, "global")
-    assert ops.shape == (24, 5)
+    cig, n, qs, ts = tb_walk.walk_cigars(sqb, z, z, z, p)
+    assert cig.shape == (5, tb_walk.cigar_width(8, 16)) == (5, 36)
+    assert cig.dtype == torch.uint8 and n.dtype == torch.int32
+    cig, n, qs, ts = tb_walk.walk_cigars(sqb, z, z + 8, z + 16, p, "global")
+    assert cig.shape == (5, 36)
+    # from (16, 8), outside the cube: 8 diagonal steps, M8, then the D pad
+    assert cig[0, :n[0]].tolist() == [0 | 9 << 2, 2 | 8 << 2]
     assert tb_walk.LAUNCHES == before
     with pytest.raises(ValueError):
-        tb_walk.tb_walk(sqb.to(torch.int64), z, z, z, p)
+        tb_walk.walk_cigars(sqb.to(torch.int64), z, z, z, p)
     with pytest.raises(ValueError):
-        tb_walk.tb_walk(sqb, z[:4], z, z, p)
+        tb_walk.walk_cigars(sqb, z[:4], z, z, p)
     with pytest.raises(ValueError, match="algo"):
-        tb_walk.tb_walk(sqb, z, z, z, p, "banded")
+        tb_walk.walk_cigars(sqb, z, z, z, p, "banded")
 
 
 def _walk_batch(rng, B, Lq, Lt):
@@ -198,7 +201,7 @@ def test_global_walks_match_native_decoder(algo, head, tail):
         i0, j0 = walk_start(AlgoType.SEMI_GLOBAL, tail, res, qlt, tlt)
         head_q = bool(head & SemiGlobalSkip.QUERY)
         head_t = bool(head & SemiGlobalSkip.TARGET)
-    ops, qfin, tfin = tb_walk.tb_walk(res.tb, res.score, j0, i0, p, algo)
+    ops, qfin, tfin = tb_walk.tb_walk_plain(res.tb, res.score, j0, i0, p, algo)
     got_cig, got_n, got_qs, got_ts = tb_walk.cigars_from_walk(
         ops.numpy(), qfin.numpy(), tfin.numpy(), algo, head_q, head_t)
     want_cig, want_n, want_qs, want_ts = native.decode_tb_batch(
@@ -264,7 +267,7 @@ def test_walks_from_outside_the_cube_fit_the_stream(case):
     packed = _pack_nibbles_np(nib)                       # [1, Lt8, Lq]
     sqb = torch.from_numpy(np.ascontiguousarray(packed.transpose(1, 2, 0)))
     one = torch.ones(1, dtype=torch.int32)
-    ops, qfin, tfin = tb_walk.tb_walk(sqb, one * 0, one * j0, one * i0, p,
+    ops, qfin, tfin = tb_walk.tb_walk_plain(sqb, one * 0, one * j0, one * i0, p,
                                       algo)
     n_steps = int((ops[:, 0] != tb_walk.STOP).sum())
     assert ops.shape[0] == Lq + Lt and n_steps < Lq + Lt

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """What the redesigned kernels' times are made of: one-change variants of
 csrc/local_sw.cu, csrc/semiglobal_start.cu, csrc/local_start.cu,
-csrc/banded_sw.cu, csrc/semiglobal_sw.cu and the two PairHMM kernels
-(csrc/pairhmm_intertask.cu, csrc/pairhmm_wavefront.cu) timed side by side
-on one card.
+csrc/banded_sw.cu, csrc/semiglobal_sw.cu, the two PairHMM kernels
+(csrc/pairhmm_intertask.cu, csrc/pairhmm_wavefront.cu), csrc/tb_walk.cu
+and csrc/myers.cu timed side by side on one card.
 
     python3 tools/kernel_variants.py --parent DIR [--kernels K,...]
                                      [--rounds N] [--out DIR]
@@ -15,7 +15,9 @@ lists): for local_sw and semiglobal_start the parent of their redesign
 (299c71f), for local_start and banded_sw the parent of theirs (7e5a43d),
 for semiglobal_sw and local_sw16 (local_sw.cu's 16-bit SCORE16 / END16)
 the parent of theirs (7fb004a), for pairhmm (both PairHMM kernels) the
-parent of theirs (604c0a0).  --kernels picks the families (default
+parent of theirs (604c0a0), for tb_walk and myers the parent of theirs
+(32913d8; only DIR/genomics_tpu_torch/csrc is read).  --kernels picks the
+families (default
 semiglobal_sw,local_sw16); the family groups needs no DIR (below).  The
 script builds, with the port's nvcc flags:
 
@@ -90,6 +92,29 @@ script builds, with the port's nvcc flags:
                            loaded at its step, not one ahead
   pairhmm-*-this-unroll2   this tree's with the step loop unrolled twice
   pairhmm-*-this-64        this tree's in 64-thread blocks
+  tb_walk-parent           DIR's tb_walk.cu, the first design (one load a
+                           step, the [Lq + Lt, B] op stream), alone and
+                           with the host encode that followed it
+  tb_walk-smem-*           this tree's tb_walk.cu (design A, the window in
+                           shared memory) at K of 4, 8 and 16 over two word
+                           rows (rows2) and 8, 16 and 32 diagonal words
+                           (diag), fixed or sized by use (adapt), and two
+                           in 32-thread blocks (T32)
+  tb_walk-reg-*            tools/tb_walk_registers.cu: design A with the
+                           window in registers, columns unrolled, with and
+                           without a pair counter
+  tb_walk-lanes-G*         tools/tb_walk_lanes.cu: design B, G lanes a
+                           pair sharing a window by shuffles, G of 4, 8 and
+                           32, with and without a pair counter
+  myers-parent             DIR's myers.cu, the first design, alone on its
+                           batch-innermost copies and with its wrapper's
+                           transposes
+  myers-T*-C*              this tree's myers.cu at 128 and 64 threads a
+                           block and 32 or 64 text bytes a stage
+  myers-this-predicated    this tree's with the step's state update by
+                           predicated selects, not a branch
+  myers-this-word-step     this tree's with the first design's step, one
+                           word at a time
 
 and launches them with CUDA events, the launches alone, in turns (every
 variant forward, then backward).  local_sw and semiglobal_start run at
@@ -144,6 +169,12 @@ transposes), their variants, this tree at every lanes x rows shape in
 its rule's handover layout and the global one, this tree's variants at
 the rule's shape and the other kernel's rule on the same launch, each
 held to the plain version bit for bit, with the serial steps of a pair.
+The family tb_walk times every walk variant at bench.py's shape
+(LOCAL, GLOBAL and SEMI_GLOBAL NONE/BOTH on the TB kernels' cubes) and at
+the engine's two launches (glocal's TARGET/TARGET), each held to the
+plain version's bytes, n_ops and starts; myers times its variants at
+run_all.py's 16,384 x 96 x 152 and the `ed` stage's 65,536 150 bp reads
+against 200 bp windows, held to the plain version.
 The variant sources go to --out (default chiprun_out/kernel_variants), for
 tools/sass_report.py --src.
 """
@@ -154,6 +185,7 @@ import ctypes
 import functools
 import itertools
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -1456,6 +1488,281 @@ def pairhmm_family(libs, dev, smi, rounds, check):
                    f"pairhmm {k} at {label}", smi)
 
 
+# --kernels tb_walk,myers: csrc/tb_walk.cu and csrc/myers.cu against their
+# first designs (DIR = 32913d8): tb_walk_launch(algo, tb, score, qend,
+# tend, B, Lq, Lt8, match, mismatch, goe, ge, ops [Lq + Lt, B], qfin, tfin,
+# stream), the op stream the host then encodes, and myers_launch(eq [4W,
+# B], texts [Lt, B], plen, tlen, B, W, Lt, state, best, end, final,
+# stream), batch-innermost copies of the inputs
+WALK_PARENT_ARGS = (_ci,) + (_vp,) * 4 + (_ci,) * 7 + (_vp,) * 4
+MYERS_PARENT_ARGS = (_vp,) * 4 + (_ci,) * 3 + (_vp,) * 5
+# design A, the window in shared memory (csrc/tb_walk.cu: kWindow,
+# kDiagonal, kAdaptive, kThreads) or in registers
+# (tools/tb_walk_registers.cu: those and kCounter)
+WALK_SMEM = [dict(kWindow=k, kDiagonal=diag, kAdaptive=adapt)
+             for diag, ks in ((False, (4, 8, 16)), (True, (8, 16, 32)))
+             for k in ks for adapt in (False, True)] + [
+    dict(kWindow=8, kDiagonal=False, kAdaptive=False, kThreads=32),
+    dict(kWindow=16, kDiagonal=True, kAdaptive=True, kThreads=32)]
+WALK_REGISTERS = [dict(kWindow=k, kDiagonal=diag, kAdaptive=False,
+                       kCounter=counter)
+                  for k, diag in ((4, False), (8, False), (8, True))
+                  for counter in (False, True)]
+WALK_LANES = [(4, False), (8, False), (32, False), (8, True)]   # B: kGroup, kCounter
+# the L2's fetch granularity at 32 bytes (a word read pulls one sector, not
+# two) around a launch: restored once the launch is made, or once the
+# kernel has run (the stream synchronised, then restored)
+FETCH32 = ("  size_t fetch = 0;\n"
+           "  cudaDeviceGetLimit(&fetch, cudaLimitMaxL2FetchGranularity);\n"
+           "  cudaDeviceSetLimit(cudaLimitMaxL2FetchGranularity, 32);\n")
+FETCH_BACK = "  cudaDeviceSetLimit(cudaLimitMaxL2FetchGranularity, fetch);\n"
+FETCH_SYNC = ("  cudaStreamSynchronize(static_cast<cudaStream_t>(stream));\n"
+              + FETCH_BACK)
+WALK_PARENT_RETURN = "      static_cast<int*>(qfin), static_cast<int*>(tfin));\n"
+WALK_LAUNCH = "  tb_walk_kernel<kWindow, kDiagonal, kAdaptive>\n"
+WALK_RETURN = "         static_cast<cudaStream_t>(stream)>>>(a);\n"
+WALK_PARENT_LAUNCH = "  tb_walk_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(\n"
+MYERS_THREADS = (128, 64)
+MYERS_CHUNKS = (32, 64)
+# myers.cu's step with predicated selects in place of its branch on
+# `active`, and one word at a time as the first design stepped (word_step:
+# the carry and the shifted-out bits by compares and shifts, the score
+# bits of word lastw by a test in every word)
+MYERS_BRANCH = """      if (c == 255 || j >= tl) continue;   // the state stays, j counts
+      int dscore = 0;
+      if constexpr (WR > 0) {
+        uint32_t ev[NR];
+#pragma unroll
+        for (int w = 0; w < NR; ++w)
+          ev[w] = select_eq(c, e[0][w], e[1][w], e[2][w], e[3][w]);
+        dscore = step_words<NR>(ev, pv, mv, tm);
+      } else {
+"""
+MYERS_PREDICATED = [(MYERS_BRANCH, """      const bool active = c != 255 && j < tl;
+      int dscore = 0;
+      if constexpr (WR > 0) {
+        uint32_t ev[NR], p[NR], q[NR];
+#pragma unroll
+        for (int w = 0; w < NR; ++w) {
+          ev[w] = select_eq(c, e[0][w], e[1][w], e[2][w], e[3][w]);
+          p[w] = pv[w];
+          q[w] = mv[w];
+        }
+        dscore = step_words<NR>(ev, p, q, tm);
+        dscore = active ? dscore : 0;
+#pragma unroll
+        for (int w = 0; w < NR; ++w) {
+          pv[w] = active ? p[w] : pv[w];
+          mv[w] = active ? q[w] : mv[w];
+        }
+      } else if (active) {
+""")]
+MYERS_WORD_STEP = [("        dscore = step_words<NR>(ev, pv, mv, tm);\n", """        uint32_t cin = 0u, cbp = 0u, cbm = 0u;
+#pragma unroll
+        for (int w = 0; w < NR; ++w)
+          word_step(ev[w], pv[w], mv[w], cin, cbp, cbm, w == lastw, topb,
+                    dscore);
+""")]
+
+
+def set_consts(src: str, **values) -> str:
+    """src with each `constexpr <type> <name> = ...;` set to values[name]."""
+    for name, v in values.items():
+        m = re.search(rf"constexpr (\w+) {name} = [^;]+;", src)
+        v = str(v).lower() if isinstance(v, bool) else str(v)
+        src = edit(src, m.group(0), f"constexpr {m.group(1)} {name} = {v};")
+    return src
+
+
+def walk_myers_variants(parent: Path) -> dict[str, str]:
+    """{"<kernel>-<variant>": source} of the walk's and Myers' variants:
+    the first designs, design A at each window (two rows or the diagonal
+    word), each with the counter, design B at each group with and without
+    the counter, Myers at each block size and chunk."""
+    csrc = parent / "genomics_tpu_torch" / "csrc"
+    wt = (_build.CSRC / "tb_walk.cu").read_text()
+    lanes = (ROOT / "tools" / "tb_walk_lanes.cu").read_text()
+    mt = (_build.CSRC / "myers.cu").read_text()
+    regs = (ROOT / "tools" / "tb_walk_registers.cu").read_text()
+    out = {"tb_walk-parent": (csrc / "tb_walk.cu").read_text(),
+           "myers-parent": (csrc / "myers.cu").read_text()}
+    for kind, src, shapes in (("smem", wt, WALK_SMEM),
+                              ("reg", regs, WALK_REGISTERS)):
+        for c in shapes:
+            name = (f"tb_walk-{kind}-{'diag' if c['kDiagonal'] else 'rows2'}"
+                    f"-K{c['kWindow']}{'-adapt' if c['kAdaptive'] else ''}"
+                    f"{'-counter' if c.get('kCounter') else ''}"
+                    f"{'-T32' if c.get('kThreads') == 32 else ''}")
+            out[name] = set_consts(src, **c)
+    out["tb_walk-smem-rows2-K8-fetch32"] = edits(wt, [
+        (WALK_LAUNCH, FETCH32 + WALK_LAUNCH),
+        (WALK_RETURN, WALK_RETURN + FETCH_BACK)])
+    out["tb_walk-smem-rows2-K8-sync"] = edits(wt, [
+        (WALK_RETURN, WALK_RETURN + FETCH_SYNC.split("\n")[0] + "\n")])
+    out["tb_walk-smem-rows2-K8-fetch32-sync"] = edits(wt, [
+        (WALK_LAUNCH, FETCH32 + WALK_LAUNCH),
+        (WALK_RETURN, WALK_RETURN + FETCH_SYNC)])
+    out["tb_walk-smem-diag-K8-adapt-fetch32"] = edits(
+        set_consts(wt, kDiagonal=True, kAdaptive=True), [
+            (WALK_LAUNCH, FETCH32 + WALK_LAUNCH),
+            (WALK_RETURN, WALK_RETURN + FETCH_BACK)])
+    out["tb_walk-parent-fetch32-sync"] = edits(out["tb_walk-parent"], [
+        (WALK_PARENT_LAUNCH, FETCH32 + WALK_PARENT_LAUNCH),
+        (WALK_PARENT_RETURN, WALK_PARENT_RETURN + FETCH_SYNC)])
+    for g, counter in WALK_LANES:
+        out[f"tb_walk-lanes-G{g}{'-counter' if counter else ''}"] = (
+            set_consts(lanes, kGroup=g, kCounter=counter))
+    for threads in MYERS_THREADS:
+        for chunk in MYERS_CHUNKS:
+            out[f"myers-T{threads}-C{chunk}"] = set_consts(
+                mt, kThreads=threads, kChunk=chunk)
+    out["myers-this-predicated"] = edits(mt, MYERS_PREDICATED)
+    out["myers-this-word-step"] = edits(mt, MYERS_WORD_STEP)
+    return out
+
+
+def walk_cases(dev) -> dict:
+    """{label: {mode: walk_cigars' arguments}}: bench.py's shape and the
+    engine's two launches, LOCAL, GLOBAL and SEMI_GLOBAL on the TB
+    kernels' cubes (bench.py's NONE/BOTH; glocal's TARGET/TARGET at the
+    engine's launches), as chip_smoke.py phase 5 makes them."""
+    from genomics_tpu_torch.runtime.dispatch import walk_start
+
+    P = AlignmentParams()
+    PG = AlignmentParams(algo=AlgoType.GLOBAL)
+    PS = AlignmentParams(algo=AlgoType.SEMI_GLOBAL)
+    batches = {f"B={BENCH_B} {BENCH_L}x{BENCH_L}": (
+        bench_batch(dev), (SemiGlobalSkip.NONE, SemiGlobalSkip.BOTH))}
+    qs, ts = gasal_pairs(np.random.default_rng(0), PAIRS)
+    for (lq, lt), arrays in engine_batches(qs, ts).items():
+        batches[f"B={len(arrays[0])} {lq}x{lt} (an engine launch)"] = (
+            [torch.from_numpy(x).to(dev) for x in arrays],
+            (SemiGlobalSkip.TARGET, SemiGlobalSkip.TARGET))
+    out = {}
+    for label, ((q, t, ql, tl), (head, tail)) in batches.items():
+        r_l = cuda_align.local_align(q, t, P, with_tb=True)
+        r_g = cuda_align.global_align(q, t, ql, tl, PG, with_tb=True)
+        r_s = cuda_align.semiglobal_align(q, t, ql, tl, PS, head=head,
+                                          tail=tail, with_tb=True)
+        i0, j0 = walk_start(AlgoType.SEMI_GLOBAL, tail, r_s, ql, tl)
+        out[label] = {
+            "local": (r_l.tb, r_l.score, r_l.query_end, r_l.target_end, P,
+                      "local"),
+            "global": (r_g.tb, r_g.score, ql, tl, PG, "global"),
+            "semiglobal": (r_s.tb, r_s.score, j0, i0, PS, "semiglobal",
+                           bool(head & SemiGlobalSkip.QUERY),
+                           bool(head & SemiGlobalSkip.TARGET))}
+    return out
+
+
+def walk_family(libs, dev, smi, rounds, check):
+    """Every walk variant at each case of walk_cases: the first design's
+    op stream as a launch alone (held to tb_walk_plain's) and with the
+    host encode that followed it (held to the plain version's bytes),
+    then each variant's launch alone on walk_launch_args' outputs, held
+    to the plain version's bytes, n_ops and starts; launches alone, in
+    turns."""
+    from chip_smoke import walk_err
+    from genomics_tpu_torch.ops import tb_walk
+
+    for label, modes in walk_cases(dev).items():
+        reps = 10 if label.startswith(f"B={BENCH_B}") else 20
+        for mode, a in modes.items():
+            want = tb_walk.walk_cigars_plain(*a)
+            plain_ops = tb_walk.tb_walk_plain(*a[:6])
+            tb, score, qend, tend, p = a[:5]
+            Lt8, Lq, B = tb.shape
+            ops = torch.empty((Lq + 8 * Lt8, B), dtype=torch.uint8, device=dev)
+            qfin, tfin = (torch.empty(B, dtype=torch.int32, device=dev)
+                          for _ in range(2))
+            first = (tb_walk._ALGOS[mode], tb, score, qend, tend, B, Lq, Lt8,
+                     p.match, p.mismatch, p.gap_oe, p.gap_extend, ops, qfin,
+                     tfin)
+            runs = {}
+            for name in (n for n in libs if n.startswith("tb_walk-parent")):
+                runs[name] = runner(entry(libs[name], (
+                    "tb_walk", "tb_walk_launch"), WALK_PARENT_ARGS), first,
+                    dev)
+                runs[name]()
+                check(f"{name} {mode} {label}", [ops, qfin, tfin],
+                      list(plain_ops))
+
+            def parent_encoded(run=runs["tb_walk-parent"], a=a):
+                run()
+                return tb_walk.cigars_from_walk(
+                    ops.cpu().numpy(), qfin.cpu().numpy(),
+                    tfin.cpu().numpy(), mode, *a[6:])
+            enc = parent_encoded()
+            check(f"tb_walk-parent + host encode {mode} {label}",
+                  [torch.from_numpy(x) for x in enc[1:]],
+                  [w.cpu() for w in want[1:]])
+            lay = tb_walk.walk_launch_args(*a)
+            for name in (n for n in libs if n.startswith("tb_walk-")
+                         and not n.startswith("tb_walk-parent")):
+                fn = entry(libs[name], ("tb_walk", "tb_walk_launch"),
+                           tb_walk._ARGS)
+
+                def run(go=runner(fn, lay, dev)):
+                    return go()[-4:]
+                runs[name] = run
+                if walk_err(run(), want):
+                    check.bad.append(f"{name} {mode} {label}")
+            torch.cuda.synchronize()
+            ms = in_turns(runs, reps, rounds)
+            ms["tb_walk-parent + host encode"] = [
+                cuda_ms(parent_encoded, 1) for _ in range(2)]
+            report(ms, "tb_walk-parent", f"walk {mode} at {label}", smi)
+
+
+def myers_family(libs, dev, smi, rounds, check):
+    """Myers at run_all.py's 16,384 x 96 x 152 (W = 3) and the `ed`
+    stage's 65,536 reads against 200 bp windows (W = 5): the first
+    design as a launch alone on its batch-innermost copies and with the
+    wrapper's transposes, each block size and chunk of this tree as a
+    launch alone and this tree's wrapper; held to the plain version."""
+    from chip_smoke import ED_PAIRS, MY_B, MY_LP, MY_LT, ed_pairs
+    from genomics_tpu_torch.ops import myers
+
+    r5 = np.random.default_rng(0)
+    pats = r5.integers(0, 4, (MY_B, MY_LP)).astype(np.uint8)
+    cases = {f"B={MY_B} Lp {MY_LP} Lt {MY_LT} (run_all.py)": [
+        torch.from_numpy(x).to(dev) for x in (
+            myers.build_eq_masks(pats, np.full(MY_B, MY_LP, np.int32), 3),
+            np.full(MY_B, MY_LP, np.int32),
+            r5.integers(0, 4, (MY_B, MY_LT)).astype(np.uint8),
+            np.full(MY_B, MY_LT, np.int32))]}
+    reads, wins = ed_pairs(np.random.default_rng(5), ED_PAIRS)
+    cases[f"B={ED_PAIRS} 150 x 200 (the ed stage)"] = [
+        torch.from_numpy(x).to(dev) for x in myers.encode_batch(reads, wins)]
+    for label, m in cases.items():
+        want = myers.myers_batch_plain(*m)
+        eq, plen, texts, tlen = m
+        B, _, W = eq.shape
+        Lt = texts.shape[1]
+
+        def parent_args():
+            return (eq.view(torch.int32).permute(1, 2, 0).reshape(4 * W, B)
+                    .contiguous(), texts.T.contiguous(), plen, tlen, B, W, Lt,
+                    None, *(torch.empty(B, dtype=torch.int32, device=dev)
+                            for _ in range(3)))
+        fn = entry(libs["myers-parent"], ("myers", "myers_launch"),
+                   MYERS_PARENT_ARGS)
+        runs = {"myers-parent": runner(fn, parent_args(), dev),
+                "myers-parent (with its wrapper's transposes)":
+                    lambda fn=fn: runner(fn, parent_args(), dev)()}
+        lay = myers.myers_layout(*m)
+        for name in (n for n in libs if n.startswith(("myers-T",
+                                                       "myers-this"))):
+            runs[name] = runner(entry(libs[name], ("myers", "myers_launch"),
+                                      myers._ARGS), lay, dev)
+        runs["myers this tree's wrapper"] = lambda m=m: myers.myers_batch(*m)
+        for name, run in runs.items():
+            check(f"{name} {label}", list(run())[-3:], list(want))
+        torch.cuda.synchronize()
+        report(in_turns(runs, 50, rounds), "myers-parent", f"myers at {label}",
+               smi)
+
+
 def engine_families(libs, kernels, dev, smi, rounds, check):
     """The families that run at bench.py's shape, the engine's launches
     and (local_sw16) the align CLI's: semiglobal_sw, local_sw16,
@@ -1500,7 +1807,8 @@ def main() -> int:
     ap.add_argument("--kernels", default="semiglobal_sw,local_sw16",
                     help="comma-separated families: local_sw, "
                          "semiglobal_start, local_start, banded_sw, "
-                         "semiglobal_sw, local_sw16, groups, pairhmm")
+                         "semiglobal_sw, local_sw16, groups, pairhmm, "
+                         "tb_walk, myers")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
                                          "kernel_variants"))
     ap.add_argument("--rounds", type=int, default=2,
@@ -1521,6 +1829,8 @@ def main() -> int:
         srcs |= split_variants(Path(args.parent))
     if "pairhmm" in kernels:
         srcs |= pairhmm_variants(Path(args.parent))
+    if {"tb_walk", "myers"} & set(kernels):
+        srcs |= walk_myers_variants(Path(args.parent))
     srcs = {k: v for k, v in srcs.items() if k.split("-")[0] in kernels}
     out = Path(args.out)
     build_variants(srcs, out)
@@ -1536,6 +1846,10 @@ def main() -> int:
         group_sweep(dev, smi, args.rounds, check)
     if "pairhmm" in kernels:
         pairhmm_family(libs, dev, smi, args.rounds, check)
+    if "tb_walk" in kernels:
+        walk_family(libs, dev, smi, args.rounds, check)
+    if "myers" in kernels:
+        myers_family(libs, dev, smi, args.rounds, check)
     if {"local_start", "banded_sw", *SPLIT_KERNELS} & set(kernels):
         engine_families(libs, kernels, dev, smi, args.rounds, check)
     print(json.dumps({"all equal to the plain versions": not check.bad,

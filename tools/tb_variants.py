@@ -34,6 +34,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -140,21 +141,24 @@ def variants(parent: Path) -> dict[str, str]:
 
 def build_variants(srcs: dict[str, str], out: Path):
     """Write each variant's source to out/<name>.cu and build it into
-    out/<name>.so with the port's nvcc flags, one nvcc per source, all
-    started together."""
+    out/<name>.so with the port's nvcc flags, one nvcc per source, as
+    many at a time as the machine has cores."""
     out.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, text in srcs.items():
-        cu = out / f"{name}.cu"
-        cu.write_text(text)
-        jobs[name] = subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"{name}.so"),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)
-    for name, proc in jobs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{err}")
+    names = list(srcs)
+    step = os.cpu_count() or 1
+    for at in range(0, len(names), step):
+        jobs = {}
+        for name in names[at:at + step]:
+            cu = out / f"{name}.cu"
+            cu.write_text(srcs[name])
+            jobs[name] = subprocess.Popen(
+                [_build.nvcc(), *_build.NVCC_FLAGS, "-o",
+                 str(out / f"{name}.so"), str(cu)], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        for name, proc in jobs.items():
+            _, err = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed on {name}:\n{err}")
 
 
 def main() -> int:
