@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's alignment (engine and `align` CLI), PairHMM
-and edit-distance paths once on one CUDA card.
+"""Drive the PyTorch port's alignment (engine and `align` CLI), PairHMM,
+edit-distance, NW, SW and MSA paths once on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -125,6 +125,34 @@ Run from the root of a checkout.  Phases, one line each:
             over launches of 830 (the align CLI's) to 65,536 pairs (the
             sweep that decides whether SCORE16 may be the default), and
             the engine's pairs/s.
+
+Then the NW, SW and MSA apps (`apps`), phases 3-5 of their own:
+3. parity   nw_app at N = 1, 31, 33 and 257 (tile edges), sw_app at
+            sw_edges (one window, windows shorter than L, a one-base and
+            an empty fragment, two columns a thread; the row in shared
+            memory and in the scratch), the MSA fill and backtrack at
+            msa_edges (one sequence, identical sequences, sequences longer
+            and shorter than the center, one of length 1, a protein table;
+            the host gold too, msa() on the card == on the CPU), msa() in
+            chunks of 16 pairs == one call;
+4. apps     nw.run(N=4,096) against nw_cpu and N=32,768 torch.equal to
+            the plain version; sw.align of a 1,000 bp fragment against
+            300,000 bp holding a mutated copy, and its first 200 bp in
+            windows of 45,000 (rows past sw.SHARED_ROW_BYTES: the global
+            scratch), against golds.sw_best_alignment; msa() and `python -m
+            genomics_tpu_torch msa` over run_all.py's 2,048 x 120, 1,024
+            sequences of about 1,500 bp with substitutions and indels (a
+            9.2 GB cube) and 512 x ~300 protein sequences under a synthetic
+            NCBI matrix (the subcommand drops -p, as the JAX one does: its
+            file is held to msa() without it), each fill and backtrack held
+            to the plain version
+            and 16 pairs to the host backtrack; every launch count set to 0
+            before and read after;
+5. timings  each app kernel and its plain version at those sizes (SW's
+            wide windows too), with
+            nw_app's launches a call and their host overhead (beside a
+            CUDA graph's replay), the backtrack's steps, words read and
+            sector floor, NW / SW cells/s and MSA seqs/s.
 
 Then one JSON line with the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  With --profile, phases 3-5 give way to
@@ -494,7 +522,7 @@ def run_cli(argv) -> str:
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         if cli.main(argv) != 0:
-            raise AssertionError(f"align {argv} returned non-zero")
+            raise AssertionError(f"{argv[0]} {argv} returned non-zero")
     return out.getvalue()
 
 
@@ -954,6 +982,140 @@ def lane_share(work: torch.Tensor, warp: int = 32) -> float:
     return float(w.sum() / (most * lanes).sum())
 
 
+# -- the NW, SW and MSA apps (models/nw.py, sw.py, msa.py) -----------------
+# NW: one tile, a tile's edge from either side, nine tiles; nw.run's
+# check against nw_cpu, and benchmarks/nw_scaling.py's top size (CDP/NW's
+# plot_execution_times.py runs 2^5 .. 2^15)
+NW_EDGE_N = (1, 31, 33, 257)
+NW_RUN_N, NW_BIG_N = 4096, 32768
+# SW: a 1,000 bp fragment against 300,000 bp, the app's default windows
+# (3 x 1,000 with an overlap of 1,000: 100 windows, the first 201,000 bp)
+SW_X, SW_Y, SW_PLANT = 1000, 300_000, 123_457
+# and the fragment's first 200 bp in windows of 45,000 (`sw -w 45000`):
+# 7 windows whose rows (45,001 int32) pass sw.SHARED_ROW_BYTES, so
+# sw_app keeps them in its global scratch
+SW_WIDE_X, SW_WIDE = 200, 45_000
+# MSA: run_all.py's bench_msa (2,048 x 120, substitutions only), 1,024
+# sequences of about 1,500 bp with substitutions and indels, 512 protein
+# sequences of about 300 under a synthetic NCBI matrix
+MSA_RUN_ALL, MSA_LONG, MSA_PROTEIN = (2048, 120), (1024, 1500), (512, 300)
+MSA_GOLD = 16   # pairs of each MSA set held to the host backtrack
+DNA, PROTEIN = "ACGT", "ACDEFGHIKLMNPQRSTVWY"
+# one int op per add, max, compare or select of each kernel's cell (a
+# walk step for the backtrack), as their sources write them: NW 3 adds, a
+# compare, a select, 2 max; SW 4 adds, a compare, a select, 3 max in the
+# three passes and the subtract; the MSA fill 11 (nw.cc's three maxima
+# with their 5 adds, the score's compare and select); the backtrack's
+# diagonal test and step (index, compare, add, two decrements, the loop
+# test), about 10
+APP_OPS = {"nw_app": 7, "sw_app": 10, "msa_nw.fill": 11,
+           "msa_nw.backtrack": 10}
+
+
+def random_seq(rng, n: int, letters: str = DNA) -> str:
+    a = np.frombuffer(letters.encode(), np.uint8)
+    return a[rng.integers(0, len(a), n)].tobytes().decode()
+
+
+def mutate(rng, s: str, sub: float, indel: float, letters: str = DNA) -> str:
+    """s with each position substituted at rate `sub`, deleted at indel /
+    2 and preceded by an inserted letter at indel / 2."""
+    a = np.frombuffer(letters.encode(), np.uint8)
+    b = np.frombuffer(s.encode(), np.uint8).copy()
+    flip = rng.random(len(b)) < sub
+    b[flip] = a[rng.integers(0, len(a), int(flip.sum()))]
+    v = rng.random(len(b))
+    new = a[rng.integers(0, len(a), len(b))]
+    # each position's inserted letter (where v < indel / 2), then its
+    # base (unless indel / 2 <= v < indel)
+    keep = np.stack([v < indel / 2, (v < indel / 2) | (v >= indel)], 1)
+    return np.stack([new, b], 1)[keep].tobytes().decode()
+
+
+def ncbi_matrix(rng, letters: str = "ARNDCQEGHILKMFPSTWYVBZX*") -> str:
+    """An NCBI-format substitution matrix over `letters`: symmetric, the
+    diagonal 4..11, elsewhere -4..3 (BLOSUM's ranges), one comment line."""
+    k = len(letters)
+    s = rng.integers(-4, 4, (k, k))
+    s = np.triu(s) + np.triu(s, 1).T
+    s[np.arange(k), np.arange(k)] = rng.integers(4, 12, k)
+    lines = ["# synthetic matrix", "   " + "  ".join(letters)]
+    lines += [c + " " + " ".join(f"{v:2d}" for v in row)
+              for c, row in zip(letters, s)]
+    return "\n".join(lines) + "\n"
+
+
+def sw_edges(rng) -> list:
+    """(label, x, windows) numpy uint8 cases at the SW kernel's edges."""
+    a = np.frombuffer(DNA.encode(), np.uint8)
+    x = a[rng.integers(0, 4, 50)]
+    short = a[rng.integers(0, 4, (5, 150))]
+    for k, n in enumerate((150, 149, 77, 1, 0)):
+        short[k, n:] = 0
+    return [("one window", x, a[rng.integers(0, 4, (1, 150))]),
+            ("windows shorter than L", x, short),
+            ("one-base fragment", x[:1], a[rng.integers(0, 4, (3, 40))]),
+            ("empty fragment", x[:0], a[rng.integers(0, 4, (2, 10))]),
+            # 2 columns a thread, made 3; a copy of x in each window
+            ("two columns a thread", x, np.stack([np.concatenate(
+                [a[rng.integers(0, 4, 200)], x, a[rng.integers(0, 4, 262)]])
+                for _ in range(3)]))]
+
+
+def msa_edges(rng) -> list:
+    """(label, seqs, protein) cases at the MSA kernels' edges."""
+    base = random_seq(rng, 60)
+    prot = random_seq(rng, 40, PROTEIN)
+    return [("one sequence", [base], False),
+            ("identical sequences", [base] * 4, False),
+            ("longer and shorter than the center",
+             [base, base[:30], mutate(rng, base, 0.05, 0.05)
+              + random_seq(rng, 45), base[:59], base + "ACGT"], False),
+            ("a sequence of length 1", [base, "A", mutate(rng, base, 0.05, 0.1)],
+             False),
+            ("protein table", [mutate(rng, prot, 0.1, 0.1, PROTEIN)
+                               for _ in range(6)] + ["W", prot.lower()], True)]
+
+
+def sw_planted(rng) -> tuple[str, str]:
+    """(fragment, sequence): SW_X random bases, and SW_Y random bases
+    with a copy of the fragment (2% substitutions, 1% indels) at SW_PLANT."""
+    x = random_seq(rng, SW_X)
+    y = random_seq(rng, SW_Y)
+    copy = mutate(rng, x, 0.02, 0.01)
+    return x, y[:SW_PLANT] + copy + y[SW_PLANT + len(copy):]
+
+
+def msa_sets(rng, tmpdir: str) -> list:
+    """(label, seqs, matrix path or None) of phase 4: run_all.py's
+    bench_msa set (its own generator, rng(0)), MSA_LONG sequences of a
+    random center with 3% substitutions and 2% indels, and MSA_PROTEIN
+    protein sequences (5% substitutions, 2% indels) under a synthetic
+    NCBI matrix written to tmpdir."""
+    r0 = np.random.default_rng(0)
+    n, L = MSA_RUN_ALL
+    bases = np.array(list(DNA))
+    center = "".join(bases[r0.integers(0, 4, L)])
+    bench = []
+    for _ in range(n):
+        c = np.array(list(center))
+        idx = r0.choice(L, size=r0.integers(0, 8), replace=False)
+        c[idx] = bases[r0.integers(0, 4, len(idx))]
+        bench.append("".join(c))
+    n, L = MSA_LONG
+    base = random_seq(rng, L)
+    long = [mutate(rng, base, 0.03, 0.02) for _ in range(n)]
+    n, L = MSA_PROTEIN
+    base = random_seq(rng, L, PROTEIN)
+    prot = [mutate(rng, base, 0.05, 0.02, PROTEIN) for _ in range(n)]
+    path = os.path.join(tmpdir, "synthetic.txt")
+    with open(path, "w") as fh:
+        fh.write(ncbi_matrix(rng))
+    return [(f"run_all.py's {MSA_RUN_ALL[0]} x {MSA_RUN_ALL[1]}", bench, None),
+            (f"{MSA_LONG[0]} x ~{MSA_LONG[1]} with indels", long, None),
+            (f"{MSA_PROTEIN[0]} x ~{MSA_PROTEIN[1]} protein", prot, path)]
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of fn() over reps launches, after one warm-up."""
     fn()
@@ -988,6 +1150,341 @@ def graph_ms(fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+APP_ROWS = (("nw_app", "nw_app.cu", "genomics_tpu/models/nw.py:51"),
+            ("sw_app", "sw_app.cu", "genomics_tpu/models/sw.py:24"),
+            ("msa_nw.fill", "msa_nw.cu", "genomics_tpu/models/msa.py:103"),
+            ("msa_nw.backtrack", "msa_nw.cu",
+             "genomics_tpu/models/msa.py:160"))
+
+
+def cube_err(got, want, lens=None) -> int:
+    """Largest |got - want| over two [B, R, C] int32 tensors, a slice of
+    rows at a time; with lens [B], only columns <= lens[b] of pair b."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{got.dtype}{tuple(got.shape)} vs "
+                             f"{want.dtype}{tuple(want.shape)}")
+    if lens is None and torch.equal(got, want):
+        return 0
+    B, R, C = got.shape
+    own = (torch.ones((B, 1, C), dtype=torch.bool, device=got.device)
+           if lens is None else (torch.arange(C, device=got.device)[None, :]
+                                 <= lens[:, None])[:, None, :])
+    err, step = 0, max(1, (1 << 27) // max(B * C, 1))
+    for r0 in range(0, R, step):
+        d = (got[:, r0:r0 + step].long() - want[:, r0:r0 + step].long())
+        d = d.abs().masked_fill_(~own, 0)
+        err = max(err, int(d.max()) if d.numel() else 0)
+    return err
+
+
+def msa_kernel_err(dev, seqs, center_idx, table):
+    """(fill err, backtrack err, plain fill ms, plain backtrack ms, the
+    plain backtrack's stats) of the MSA kernels on msa()'s pairs: the
+    fill against the plain version within each pair's length, the
+    backtrack's space and so against the plain version's, and MSA_GOLD
+    of the pairs against the host backtrack (a difference there raises)."""
+    from genomics_tpu_torch.models import msa
+
+    cenc, arr, slens = msa.pack_pairs(seqs, center_idx)
+    c, a, sl = (torch.from_numpy(v).to(dev) for v in (cenc, arr, slens))
+    t = None if table is None else torch.from_numpy(table).to(dev)
+    M = msa.nw_matrices_batch(c, a, t)
+    t0 = time.time()
+    P = msa.nw_matrices_batch_plain(c, a, t)
+    torch.cuda.synchronize()
+    fill_ms = (time.time() - t0) * 1e3
+    fill_err = cube_err(M, P, sl)
+    sp, so = msa.backtrack_batch(M, c, a, sl, t)
+    stats = {}
+    t0 = time.time()
+    want = msa.backtrack_batch_plain(P, c, a, sl, t, stats)
+    torch.cuda.synchronize()
+    bt_ms = (time.time() - t0) * 1e3
+    del P
+    bt_err = max_abs_err([sp, so], want)
+    center = seqs[center_idx]
+    others = [s for k, s in enumerate(seqs) if k != center_idx]
+    for k, s in enumerate(others[:MSA_GOLD]):
+        g_sp, g_so = msa.backtrack(M[k, :, :len(s) + 1].cpu().numpy(), center,
+                                   s, table)
+        if not (np.array_equal(sp[k].cpu().numpy(), g_sp) and np.array_equal(
+                so[k, :len(s) + 1].cpu().numpy(), g_so)):
+            raise AssertionError(f"msa backtrack of pair {k} differs from "
+                                 f"the host gold")
+    return fill_err, bt_err, fill_ms, bt_ms, stats
+
+
+def apps(seed: int, dev, smi: str, peak: float) -> dict:
+    """Phases 3-5 of the NW, SW and MSA apps on the card; returns each
+    kernel's row of the kernels line but its name, route and source."""
+    from genomics_tpu_torch.core import golds
+    from genomics_tpu_torch.core.submat import load_scoring_matrix
+    from genomics_tpu_torch.models import msa, nw, sw
+
+    names = [r[0] for r in APP_ROWS]
+    err = dict.fromkeys(names, 0)
+    rng = np.random.default_rng(seed + 11)
+    tmp = tempfile.TemporaryDirectory()
+
+    # -- 3. the kernels at their edges ------------------------------------
+    for N in NW_EDGE_N:
+        ref = rng.integers(0, 256, N).astype(np.uint8)
+        r = torch.from_numpy(ref).to(dev)
+        q = torch.from_numpy(nw.generate_query(ref, rng)).to(dev)
+        err["nw_app"] = max(err["nw_app"], cube_err(
+            nw.nw_matrix(r, q)[None], nw.nw_matrix_plain(r, q)[None]))
+    for label, x, wins in sw_edges(rng):
+        xd, wd = torch.from_numpy(x).to(dev), torch.from_numpy(wins).to(dev)
+        W, L = wins.shape
+        want = sw.sw_matrix_batch_plain(xd, wd)
+        for scratch in (None, torch.empty((W, L + 1), dtype=torch.int32,
+                                          device=dev)):
+            H = torch.empty((W, len(x) + 1, L + 1), dtype=torch.int32,
+                            device=dev)
+            got = sw.launch_sw(xd, wd, H, torch.empty(W, dtype=torch.int32,
+                                                      device=dev), scratch)
+            err["sw_app"] = max(err["sw_app"], cube_err(got[0], want[0]),
+                                max_abs_err(got[1:], want[1:]))
+    mpath = os.path.join(tmp.name, "edges.txt")
+    with open(mpath, "w") as fh:
+        fh.write(ncbi_matrix(rng))
+    table = load_scoring_matrix(mpath)
+    for label, seqs, protein in msa_edges(rng):
+        fe, be, *_ = msa_kernel_err(dev, seqs, 0, table if protein else None)
+        err["msa_nw.fill"] = max(err["msa_nw.fill"], fe)
+        err["msa_nw.backtrack"] = max(err["msa_nw.backtrack"], be)
+        path = mpath if protein else None
+        if msa.msa(seqs, matrix_path=path, device=dev) != msa.msa(
+                seqs, matrix_path=path, device="cpu"):
+            raise AssertionError(f"msa() on the card differs from the CPU's "
+                                 f"at the edge {label!r}")
+    # the pairs in chunks of 16
+    base = random_seq(rng, 200, PROTEIN)
+    prot = [mutate(rng, base, 0.05, 0.03, PROTEIN) for _ in range(64)]
+    one = msa.msa(prot, matrix_path=mpath, device=dev)
+    rule = msa.pairs_per_call
+    msa.pairs_per_call = lambda dev, m, n: 16
+    try:
+        chunked = msa.msa(prot, matrix_path=mpath, device=dev)
+    finally:
+        msa.pairs_per_call = rule
+    if chunked != one:
+        raise AssertionError("msa() in chunks of 16 pairs differs from one "
+                             "call")
+    if any(err.values()):
+        raise AssertionError(f"app kernels disagree with their plain "
+                             f"versions at their edges: {err}")
+    log("3 parity", f"apps: nw_app at N={NW_EDGE_N}, sw_app at "
+        f"{[lb for lb, *_ in sw_edges(np.random.default_rng(0))]} (rows in "
+        f"shared memory and in the scratch), msa_nw fill and backtrack at "
+        f"{[lb for lb, *_ in msa_edges(np.random.default_rng(0))]} (and the "
+        f"host gold), msa() in chunks of 16 pairs == one call == the CPU's: "
+        f"== plain")
+
+    # -- 4. the apps end to end -------------------------------------------
+    launches, walls = {}, {}
+    zero_counts(nw.LAUNCHES)
+    t0 = time.time()
+    score = nw.run(N=NW_RUN_N, seed=seed, device=dev)   # == nw_cpu
+    walls["nw.run"] = time.time() - t0
+    ref = rng.integers(0, 256, NW_BIG_N).astype(np.uint8)
+    r = torch.from_numpy(ref).to(dev)
+    q = torch.from_numpy(nw.generate_query(ref, rng)).to(dev)
+    big = nw.nw_matrix(r, q)
+    launches["nw_app"] = nw.LAUNCHES["nw_app"]
+    t0 = time.time()
+    big_plain = nw.nw_matrix_plain(r, q)
+    torch.cuda.synchronize()
+    plain_nw = (time.time() - t0) * 1e3
+    if not torch.equal(big, big_plain):
+        err["nw_app"] = cube_err(big[None], big_plain[None])
+    del big_plain
+    log("4 apps", f"nw: run(N={NW_RUN_N}) == nw_cpu, final score {score}, "
+        f"{walls['nw.run']:.3f} s; N={NW_BIG_N} torch.equal to the plain "
+        f"version: {err['nw_app'] == 0}; launches {launches['nw_app']}")
+
+    x, y = sw_planted(rng)
+    zero_counts(sw.LAUNCHES)
+    t0 = time.time()
+    res = sw.align(x, y, device=dev)
+    walls["sw.align"] = time.time() - t0
+    launches["sw_app"] = sw.LAUNCHES["sw_app"]
+    t0 = time.time()
+    gold = golds.sw_best_alignment(x, y)
+    gold_s = time.time() - t0
+    if (res["score"], res["location"], res["window"], res["cigar"]) != gold:
+        raise AssertionError(f"sw.align differs from the gold: {res} vs "
+                             f"{gold}")
+    if sw.shared_row(SW_WIDE):
+        raise AssertionError(f"windows of {SW_WIDE} keep their rows in shared"
+                             f" memory; the wide case needs wider ones")
+    t0 = time.time()
+    wide = sw.align(x[:SW_WIDE_X], y, window_size=SW_WIDE, device=dev)
+    walls["sw.align wide"] = time.time() - t0
+    launches["sw_app"] = sw.LAUNCHES["sw_app"]
+    gold = golds.sw_best_alignment(x[:SW_WIDE_X], y, window_size=SW_WIDE)
+    if (wide["score"], wide["location"], wide["window"],
+            wide["cigar"]) != gold:
+        raise AssertionError(f"sw.align in windows of {SW_WIDE} differs from "
+                             f"the gold: {wide} vs {gold}")
+    log("4 apps", f"sw: {SW_X} bp against {SW_Y} bp (a copy at {SW_PLANT}),"
+        f" {SW_Y // (3 * SW_X)} windows of {3 * SW_X}: score {res['score']} at {res['location']}, "
+        f"window {res['window']}, {res['cigar_compressed'][:40]}...; == "
+        f"golds.sw_best_alignment ({gold_s:.1f} s); {walls['sw.align']:.3f} "
+        f"s; its first {SW_WIDE_X} bp in windows of {SW_WIDE} (rows in the "
+        f"global scratch): score {wide['score']} at {wide['location']}, "
+        f"window {wide['window']}, == the gold, {walls['sw.align wide']:.3f}"
+        f" s; launches {launches['sw_app']}")
+
+    zero_counts(msa.LAUNCHES)
+    sets, runs = msa_sets(rng, tmp.name), []
+    for label, seqs, path in sets:
+        t0 = time.time()
+        aligned, cidx = msa.msa(seqs, matrix_path=path, device=dev)
+        wall = time.time() - t0
+        fa_in = os.path.join(tmp.name, "in.fasta")
+        out = os.path.join(tmp.name, "out.fasta")
+        with open(fa_in, "w") as fh:
+            fh.writelines(f">s{k}\n{s}\n" for k, s in enumerate(seqs))
+        run_cli(["msa", fa_in, out, "--device", str(dev)]
+                + (["-p", path] if path else []))
+        from genomics_tpu_torch.utils.fasta import read_fasta
+        # the subcommand reads -p and drops it, as the JAX package's does
+        if [rec.seq for rec in read_fasta(out)] != (
+                msa.msa(seqs, device=dev)[0] if path else aligned):
+            raise AssertionError(f"msa CLI's file differs from msa() on "
+                                 f"{label}")
+        if len({len(a_) for a_ in aligned}) != 1 or [
+                a_.replace("-", "") for a_ in aligned] != seqs:
+            raise AssertionError(f"msa() rows on {label} are not an "
+                                 f"alignment of the inputs")
+        runs.append((label, seqs, path, cidx, wall))
+    launches["msa_nw.fill"] = msa.LAUNCHES["msa_nw.fill"]
+    launches["msa_nw.backtrack"] = msa.LAUNCHES["msa_nw.backtrack"]
+    for k in names:
+        if not launches[k]:
+            raise AssertionError(f"{k} was not launched by its app")
+    checks = {}
+    for label, seqs, path, cidx, wall in runs:
+        table = load_scoring_matrix(path) if path else None
+        fe, be, f_ms, b_ms, stats = msa_kernel_err(dev, seqs, cidx, table)
+        err["msa_nw.fill"] = max(err["msa_nw.fill"], fe)
+        err["msa_nw.backtrack"] = max(err["msa_nw.backtrack"], be)
+        checks[label] = (f_ms, b_ms, stats)
+        log("4 apps", f"msa {label}: center {cidx}, {len(seqs) / wall:.1f} "
+            f"seqs/s ({wall:.3f} s through msa(), then the CLI's file ==); "
+            f"fill == plain {fe == 0}, backtrack == plain {be == 0}, "
+            f"{MSA_GOLD} pairs == the host gold")
+    log("4 apps", f"launches: {launches}")
+    if any(err.values()):
+        raise AssertionError(f"app kernels disagree with their plain "
+                             f"versions: {err}")
+
+    # -- 5. times ----------------------------------------------------------
+    ms, plain_ms, bounds = {}, {}, {}
+    out = torch.empty_like(big)
+    ms["nw_app"] = cuda_ms(lambda: nw.launch_nw(r, q, out), 3)
+    nw_graph = graph_ms(lambda: nw.launch_nw(r, q, out), 2)
+    n_tl = nw.tile_launches(NW_BIG_N)
+    plain_ms["nw_app"] = plain_nw
+    bounds["nw_app"] = bound(APP_OPS["nw_app"] * NW_BIG_N ** 2,
+                             4 * NW_BIG_N ** 2 + 2 * NW_BIG_N, peak)
+    del big, out
+    log("5 timings", f"nw_app at N={NW_BIG_N}: kernel {ms['nw_app']:.4f} ms "
+        f"({NW_BIG_N ** 2 / ms['nw_app'] / 1e6:.2f} G cells/s), {n_tl} "
+        f"launches a call; replayed from a CUDA graph {nw_graph:.4f} ms, so "
+        f"{(ms['nw_app'] - nw_graph) / n_tl * 1e3:.2f} us a launch of host "
+        f"overhead; plain {plain_ms['nw_app']:.1f} ms; bound "
+        f"{bounds['nw_app'][0]:.4f} ms by {bounds['nw_app'][1]} "
+        f"({APP_OPS['nw_app']} op a cell, the matrix written); on {smi}")
+
+    xd = torch.from_numpy(np.frombuffer(x.encode(), np.uint8).copy()).to(dev)
+    wd = torch.from_numpy(sw.split_windows(y.encode(), SW_X)[2]).to(dev)
+    W, L = wd.shape
+    H = torch.empty((W, SW_X + 1, L + 1), dtype=torch.int32, device=dev)
+    best = torch.empty(W, dtype=torch.int32, device=dev)
+    ms["sw_app"] = cuda_ms(lambda: sw.launch_sw(xd, wd, H, best, None), 5)
+    t0 = time.time()
+    want = sw.sw_matrix_batch_plain(xd, wd)
+    torch.cuda.synchronize()
+    plain_ms["sw_app"] = (time.time() - t0) * 1e3
+    err["sw_app"] = max(err["sw_app"], cube_err(H, want[0]),
+                        max_abs_err([best], want[1:]))
+    del want
+    cells = W * SW_X * L
+    bounds["sw_app"] = bound(APP_OPS["sw_app"] * cells,
+                             4 * W * (SW_X + 1) * (L + 1) + SW_X + W * L
+                             + 4 * W, peak)
+    log("5 timings", f"sw_app at {W} windows of {L} x {SW_X}: kernel "
+        f"{ms['sw_app']:.4f} ms ({cells / ms['sw_app'] / 1e6:.2f} G cells/s"
+        f"), 1 launch a call; plain {plain_ms['sw_app']:.1f} ms; bound "
+        f"{bounds['sw_app'][0]:.4f} ms by {bounds['sw_app'][1]}; the app "
+        f"{SW_Y * SW_X / walls['sw.align'] / 1e9:.2f} G cells/s of "
+        f"sequence x fragment through sw.align; on {smi}")
+    # the wide case's launch: rows in the global scratch
+    xw = xd[:SW_WIDE_X].clone()
+    ww = torch.from_numpy(sw.split_windows(y.encode(), SW_WIDE_X,
+                                           SW_WIDE)[2]).to(dev)
+    Ww, Lw = ww.shape
+    Hw = torch.empty((Ww, SW_WIDE_X + 1, Lw + 1), dtype=torch.int32,
+                     device=dev)
+    bw = torch.empty(Ww, dtype=torch.int32, device=dev)
+    scratch = torch.empty((Ww, Lw + 1), dtype=torch.int32, device=dev)
+    wide_ms = cuda_ms(lambda: sw.launch_sw(xw, ww, Hw, bw, scratch), 3)
+    want = sw.sw_matrix_batch_plain(xw, ww)
+    err["sw_app"] = max(err["sw_app"], cube_err(Hw, want[0]),
+                        max_abs_err([bw], want[1:]))
+    wide_bound = bound(APP_OPS["sw_app"] * Ww * SW_WIDE_X * Lw,
+                       4 * Ww * (SW_WIDE_X + 1) * (Lw + 1) + SW_WIDE_X
+                       + Ww * Lw + 4 * Ww, peak)
+    log("5 timings", f"sw_app at {Ww} windows of {Lw} x {SW_WIDE_X} (rows in "
+        f"the global scratch): kernel {wide_ms:.4f} ms "
+        f"({Ww * SW_WIDE_X * Lw / wide_ms / 1e6:.2f} G cells/s), bound "
+        f"{wide_bound[0]:.4f} ms by {wide_bound[1]}; on {smi}")
+    del want, Hw, H
+
+    for label, seqs, path, cidx, wall in runs:
+        cenc, arr, slens = msa.pack_pairs(seqs, cidx)
+        c, a, sl = (torch.from_numpy(v).to(dev) for v in (cenc, arr, slens))
+        t = (None if path is None
+             else torch.from_numpy(load_scoring_matrix(path)).to(dev))
+        fa = msa.fill_args(c, a, t)
+        f_ms = cuda_ms(lambda: msa.launch_fill(fa), 3)
+        M = msa.launch_fill(fa)
+        ba = msa.backtrack_args(M, c, a, sl, t)
+        b_ms = cuda_ms(lambda: msa.launch_backtrack(ba), 3)
+        p_f, p_b, stats = checks[label]
+        m, B = len(cenc), len(slens)
+        own = int(slens.astype(np.int64).sum())
+        f_bound = bound(APP_OPS["msa_nw.fill"] * m * own,
+                        4 * ((m + 1) * (own + B)) + arr.size + m + 4 * B,
+                        peak)
+        b_bound = bound(APP_OPS["msa_nw.backtrack"] * stats["steps"],
+                        4 * stats["reads"] + 4 * B * (m + arr.shape[1] + 3),
+                        peak)
+        floor = 32 * stats["reads"] / HBM_BYTES_PER_S * 1e3
+        log("5 timings", f"msa_nw at {label}: fill {f_ms:.4f} ms "
+            f"({m * own / f_ms / 1e6:.2f} G cells/s; {4 * (m + 1) * (own + B) / 1e9:.2f}"
+            f" GB of matrices), plain {p_f:.1f} ms, bound {f_bound[0]:.4f} ms "
+            f"by {f_bound[1]}; backtrack {b_ms:.4f} ms, plain {p_b:.1f} ms, "
+            f"{stats['steps']} steps, {stats['reads']} words read: sector "
+            f"floor {floor:.4f} ms, bound {b_bound[0]:.4f} ms by "
+            f"{b_bound[1]}; 1 launch each a call; msa() {len(seqs) / wall:.1f}"
+            f" seqs/s; on {smi}")
+        if label == runs[1][0]:   # the 1,024 x ~1,500 set: the kernels line
+            ms["msa_nw.fill"], ms["msa_nw.backtrack"] = f_ms, b_ms
+            plain_ms["msa_nw.fill"], plain_ms["msa_nw.backtrack"] = p_f, p_b
+            bounds["msa_nw.fill"], bounds["msa_nw.backtrack"] = f_bound, b_bound
+        del M, ba, fa
+    tmp.cleanup()
+    if any(err.values()):
+        raise AssertionError(f"app kernels disagree with their plain "
+                             f"versions at the timed launches: {err}")
+    return {k: dict(launches=launches[k], max_abs_err=err[k], ms=ms[k],
+                    plain_ms=plain_ms[k], bound_ms=bounds[k][0],
+                    bound_by=bounds[k][1]) for k in names}
 
 
 def main() -> int:
@@ -2651,6 +3148,10 @@ def main() -> int:
         f"plain {ed_plain:.2f} ms, bound {ed_bound[0]:.4f} ms by "
         f"{ed_bound[1]} ({ed_steps} steps), == plain; on {smi}")
 
+    # the NW, SW and MSA apps: their kernels at the edges, the apps end to
+    # end, their times (phases 3-5 of the apps)
+    app_rows = apps(args.seed, dev, smi, peak)
+
     src = "genomics_tpu_torch/csrc/"
     rows = [
         ("local_sw.score", "local_sw.cu",
@@ -2705,7 +3206,10 @@ def main() -> int:
          "max_abs_err": err[name], "ms": ms[name],
          "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
-        for name, f, rep in rows]}), flush=True)
+        for name, f, rep in rows] + [
+        {"name": name, "route": "cuda", "source": src + f, "replaces": rep,
+         **app_rows[name], "library_ms": None}
+        for name, f, rep in APP_ROWS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

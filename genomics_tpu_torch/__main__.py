@@ -1,5 +1,8 @@
 """Command-line entry points of the port:
 
+    python -m genomics_tpu_torch nw      -N 256 [--seed 0] [--device cuda|cpu]
+    python -m genomics_tpu_torch sw      -s small.txt -l large.txt [-w W]
+                                         [-o OVL] [--device cuda|cpu]
     python -m genomics_tpu_torch align   -q q.fasta -t t.fasta [-y local]
                                          [--tb] [-s] [--second-best]
                                          [-x HEAD TAIL] [-k K] [--limit N]
@@ -7,11 +10,16 @@
                                          [--device cuda|cpu]
     python -m genomics_tpu_torch pairhmm dataset.txt [--fakesize N] [--exact]
                                                      [--device cuda|cpu]
+    python -m genomics_tpu_torch msa     in.fasta out.fasta [-p matrix.txt]
+                                         [--device cuda|cpu]
 
-The counterparts of `genomics_tpu/__main__.py`'s `align` and `pairhmm`
-subcommands, with their arguments and their output lines; `--device`
-(default the card) picks the plain PyTorch versions with `cpu`.  The
-other subcommands of the JAX package are not ported yet."""
+The counterparts of `genomics_tpu/__main__.py`'s `nw`, `sw`, `align`,
+`pairhmm` and `msa` subcommands, with their arguments and their output
+lines; `--device` (default the card) picks the plain PyTorch versions
+with `cpu`.  `msa` reads `-p` and does not pass it on, as the JAX
+package's subcommand does, so its file is byte for byte that one's;
+`models.msa.msa(seqs, matrix_path=)` scores with a matrix.  The other
+subcommands of the JAX package are not ported yet."""
 from __future__ import annotations
 
 import argparse
@@ -21,6 +29,20 @@ import sys
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="genomics_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("nw", help="NW demo app (random ref + mutated query)")
+    p.add_argument("-N", type=int, default=256)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu for the plain version")
+
+    p = sub.add_parser("sw", help="windowed Smith-Waterman")
+    p.add_argument("-s", "--smallfile", required=True)
+    p.add_argument("-l", "--largefile", required=True)
+    p.add_argument("-w", "--windowsize", type=int, default=0)
+    p.add_argument("-o", "--overlap", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu for the plain version")
 
     p = sub.add_parser("align", help="GASAL2-class batched aligner")
     p.add_argument("-q", "--query", required=True)
@@ -56,9 +78,33 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain version")
 
+    p = sub.add_parser("msa", help="center-star MSA")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("-p", "--matrix", default=None,
+                   help="read and not used, as in the JAX package's msa")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu for the plain versions")
+
     args = ap.parse_args(argv)
 
-    if args.cmd == "align":
+    if args.cmd == "nw":
+        from genomics_tpu_torch.models import nw
+
+        score = nw.run(N=args.N, seed=args.seed, device=args.device)
+        print(f"Verification succeeded; final score {score}")
+    elif args.cmd == "sw":
+        from genomics_tpu_torch.models import sw
+
+        with open(args.smallfile) as fh:
+            x = fh.readline().strip()
+        with open(args.largefile) as fh:
+            y = fh.readline().strip()
+        res = sw.align(x, y, window_size=args.windowsize or None,
+                       overlap=args.overlap or None, device=args.device)
+        print(f"Best alignment found at {res['location']}")
+        print(f"score {res['score']} cigar {res['cigar_compressed']}")
+    elif args.cmd == "align":
         from genomics_tpu_torch.core.scoring import (
             AlignmentParams, AlgoType, SemiGlobalSkip,
         )
@@ -96,6 +142,12 @@ def main(argv=None):
                                   exact=args.exact, device=args.device)
         print(f"  i=0  {res.likelihoods[0]:e}")
         print(f"GCUPS: {res.gcups:f}")
+    elif args.cmd == "msa":
+        from genomics_tpu_torch.models import msa
+
+        aligned, cidx = msa.run_file(args.input, args.output,
+                                     device=args.device)
+        print(f"center sequence index: {cidx}; wrote {len(aligned)} rows")
     return 0
 
 

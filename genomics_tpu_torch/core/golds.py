@@ -1,6 +1,7 @@
 """CPU golds for the LOCAL, GLOBAL, SEMI_GLOBAL, BANDED and KSW paths —
 pure-Python emulations of the GASAL2 kernels and of its traceback
-decoder, copied from `genomics_tpu/core/golds.py`.
+decoder, and of the NW and SW apps, copied from
+`genomics_tpu/core/golds.py`.
 
 They are independent of every torch and CUDA code path of this package,
 so they are the oracles that `chip_smoke.py` spot-checks the card
@@ -14,6 +15,8 @@ against on a machine without JAX.  References (CDP/GASAL2/src/kernels/):
 - banded_align:     banded.h:10-140
 - ksw_align:        ksw_kernel_template.h:46-203
 - decode_tb:        get_tb.h:5-149
+- nw_cpu:           CDP/NW/main.cu:10-27
+- sw_align_window:  CDP/SW/main.cu:117-173 (sw_best_alignment :256-334)
 - pairhmm_forward:  Non-CDP/PairHMM warp_based.cu:84-174 (GATK's forward
                     algorithm, f32 with the reference's __fmaf_rn sites)
 """
@@ -795,6 +798,140 @@ def cigar_to_string(cigar_bytes: np.ndarray) -> str:
         if cnt:
             parts.append(f"{cnt}{op}")
     return "".join(parts)
+
+
+# ---------------------------------------------------------------------------
+# NW application (CDP/NW)
+# ---------------------------------------------------------------------------
+
+
+def nw_cpu(reference: np.ndarray, query: np.ndarray) -> np.ndarray:
+    """The NW app's gold DP (CDP/NW/main.cu:10-27): square NxN matrix,
+    linear gaps, MATCH=+1 / MISMATCH=INS=DEL=-1 (common.h:4-7).
+    Returns the full int32 score matrix (row q, col r) — the app verifies
+    the whole matrix elementwise (main.cu:29-39).
+
+    Implemented vectorized over anti-diagonals (the same recurrence, so
+    identical results to the reference's row-major double loop)."""
+    reference = np.asarray(reference)
+    query = np.asarray(query)
+    N = len(reference)
+    assert len(query) == N
+    MATCH, MISMATCH, INSERTION, DELETION = 1, -1, -1, -1
+    m = np.empty((N + 1, N + 1), dtype=np.int32)
+    # boundary: matrix[-1][r] ≡ (r+1)*DELETION, matrix[q][-1] ≡ (q+1)*INSERTION
+    m[0, :] = np.arange(0, N + 1, dtype=np.int32) * DELETION
+    m[:, 0] = np.arange(0, N + 1, dtype=np.int32) * INSERTION
+    sub = np.where(query[:, None] == reference[None, :], MATCH, MISMATCH).astype(
+        np.int32
+    )
+    for q in range(1, N + 1):
+        ins = m[q - 1, 1:] + INSERTION        # top + INSERTION
+        dia = m[q - 1, :-1] + sub[q - 1]      # topleft + sub
+        best = np.maximum(ins, dia)
+        # left + DELETION has a serial dependency along r: prefix-scan it.
+        # m[q,r] = max(best[r], m[q,r-1] + DELETION)
+        #        = max over k<=r of (best[k] + (r-k)*DELETION), seeded by
+        #          m[q,0] + (r+1... ) handled via best[-1] virtual = m[q,0].
+        r_idx = np.arange(1, N + 1, dtype=np.int64)
+        shifted = np.maximum.accumulate(
+            np.maximum(best - r_idx * DELETION, np.concatenate(
+                ([m[q, 0] - 0 * DELETION], np.full(N - 1, np.iinfo(np.int64).min // 2))
+            ))
+        )
+        m[q, 1:] = (shifted + r_idx * DELETION).astype(np.int32)
+    return m[1:, 1:]
+
+
+# ---------------------------------------------------------------------------
+# SW application (CDP/SW)
+# ---------------------------------------------------------------------------
+
+
+def sw_align_window(x: bytes, y: bytes, start: int, end: int):
+    """CDP/SW/main.cu alignKernel (:117-173): one window of the large
+    sequence ``y[start:end]`` aligned to ``x``; match=+1 mismatch=0
+    (delta macro, :12), linear gap -1, floor 0.  Greedy traceback prefers
+    M, then I (up / consumes x), then D (left / consumes y).
+
+    Returns (score, location, cigar_string) where location = yCord+start+1
+    after the walk (main.cu:169) and the CIGAR is in walk (reverse) order,
+    exactly as the device my_strcat builds it."""
+    if isinstance(x, str):
+        x = x.encode()
+    if isinstance(y, str):
+        y = y.encode()
+    n = len(x)
+    length = end - start
+    # NOTE: the reference allocates (lenX+1)*(windowSize+1) ints but indexes
+    # with stride `length`; we replicate the *intended* DP on an
+    # (n+1)x(length+1) matrix which is what the index arithmetic walks for
+    # in-bounds cells.
+    m = np.zeros((n + 1, length + 1), dtype=np.int64)
+    xa = np.frombuffer(x, dtype=np.uint8).astype(np.int32)
+    ya = np.frombuffer(y[start:end], dtype=np.uint8).astype(np.int32)
+    sub = (xa[:, None] == ya[None, :]).astype(np.int64)  # delta: 1/0
+    best = 0
+    bi = bj = 0
+    for i in range(1, n + 1):
+        up = m[i - 1, 1:] - 1
+        dia = m[i - 1, :-1] + sub[i - 1]
+        b = np.maximum(np.maximum(up, dia), 0)
+        # left-gap prefix scan: m[i,j] = max(b[j], m[i,j-1]-1)
+        jj = np.arange(1, length + 1, dtype=np.int64)
+        m[i, 1:] = np.maximum.accumulate(b + jj) - jj
+        rmax = int(m[i, 1:].max(initial=0))
+        if rmax > best:
+            best = rmax
+            # reference keeps the *last* strictly-greater cell in row-major
+            # scan: within a row, the first j attaining the row max after a
+            # strict global increase.  Row-major: earlier rows win; within
+            # a row the first j with the new max.
+            bi = i
+            bj = int(np.argmax(m[i, 1:] == rmax)) + 1
+    # replicate exact reference max tracking (val > max, row-major order)
+    # done above: first row reaching the final best, first column in it.
+    xc, yc = bi, bj
+    cig = []
+    while m[xc, yc] > 0 and yc > 0:
+        if xc > 0 and yc > 0 and m[xc, yc] == m[xc - 1, yc - 1] + sub[xc - 1, yc - 1]:
+            cig.append("M")
+            xc -= 1
+            yc -= 1
+        elif xc > 0 and m[xc, yc] == m[xc - 1, yc] - 1:
+            cig.append("I")
+            xc -= 1
+        elif m[xc, yc] == m[xc, yc - 1] - 1:
+            cig.append("D")
+            yc -= 1
+        else:  # reference would loop forever; cannot happen for valid DP
+            break
+    return best, yc + start + 1, "".join(cig)
+
+
+def sw_best_alignment(x, y, window_size: int | None = None, overlap: int | None = None):
+    """CDP/SW/main.cu driver (:256-334): split y into windows, align each,
+    return (best_score, location, window_index, window_cigar)."""
+    if isinstance(x, str):
+        x = x.encode()
+    if isinstance(y, str):
+        y = y.encode()
+    lenX, lenY = len(x), len(y)
+    overlap = overlap or lenX
+    window_size = window_size or 3 * lenX
+    n_windows = (lenY + window_size - 1) // window_size
+    results = []
+    prev_start = 0
+    for i in range(n_windows):
+        s = 0 if i == 0 else prev_start - overlap + window_size
+        prev_start = s
+        e = min(s + window_size, lenY)
+        results.append((s,) + sw_align_window(x, y, s, e))
+    best, loc, idx, cig = 0, 0, 0, ""
+    for i, (s, sc, lo, cg) in enumerate(results):
+        if sc > best:
+            best, loc, idx, cig = sc, lo, i, cg
+    return best, loc, idx, cig
 
 
 # ---------------------------------------------------------------------------

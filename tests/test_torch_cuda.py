@@ -17,17 +17,24 @@ import pytest
 import torch
 
 from chip_smoke import (
+    NW_EDGE_N,
     PAIRHMM_EDGE_B,
     PAIRHMM_SHAPES,
     band_windows,
+    msa_edges,
+    mutate,
+    ncbi_matrix,
     pairhmm_edges,
+    random_seq,
+    sw_edges,
     walk_edges,
 )
 
 from genomics_tpu_torch import AlgoType, AlignEngine, AlignmentParams
 from genomics_tpu_torch.core import golds
 from genomics_tpu_torch.core.scoring import SemiGlobalSkip
-from genomics_tpu_torch.models import pairhmm
+from genomics_tpu_torch.core.submat import load_scoring_matrix
+from genomics_tpu_torch.models import msa, nw, pairhmm, sw
 from genomics_tpu_torch.ops import (
     cuda_align,
     cuda_pairhmm,
@@ -1415,3 +1422,108 @@ def test_split_launches_refuse_other_groups(cuda):
         args[2] = g
         with pytest.raises(RuntimeError, match="local_sw_launch failed"):
             cuda_align.launch_local(tuple(args))
+
+
+# -- the NW, SW and MSA apps' kernels --------------------------------------
+
+
+@pytest.mark.parametrize("N", [*NW_EDGE_N, 1000])
+def test_nw_kernel_matches_plain(cuda, N):
+    rng = np.random.default_rng(N)
+    ref = rng.integers(0, 256, N).astype(np.uint8)
+    qry = nw.generate_query(ref, rng)
+    r, q = torch.from_numpy(ref).to(cuda), torch.from_numpy(qry).to(cuda)
+    before = nw.LAUNCHES["nw_app"]
+    got = nw.nw_matrix(r, q)
+    assert nw.LAUNCHES["nw_app"] == before + 1
+    assert torch.equal(got, nw.nw_matrix_plain(r, q))
+    if N <= 257:
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      golds.nw_cpu(ref, qry))
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_sw_kernel_matches_plain(cuda, monkeypatch, shared):
+    """The edges of chip_smoke.sw_edges and a mid size (6 windows of 900
+    against 300 bases), the row in shared memory and in the scratch."""
+    if not shared:
+        monkeypatch.setattr(sw, "SHARED_ROW_BYTES", 0)
+    rng = np.random.default_rng(5)
+    cases = sw_edges(rng) + [("mid", rng.integers(65, 69, 300).astype(
+        np.uint8), rng.integers(65, 69, (6, 900)).astype(np.uint8))]
+    for label, x, wins in cases:
+        xd, wd = torch.from_numpy(x).to(cuda), torch.from_numpy(wins).to(cuda)
+        H, best = sw.sw_matrix_batch(xd, wd)
+        want_H, want_best = sw.sw_matrix_batch_plain(xd, wd)
+        assert torch.equal(H, want_H), label
+        assert torch.equal(best, want_best), label
+
+
+def test_sw_align_on_the_card_matches_cpu_and_gold(cuda):
+    rng = np.random.default_rng(6)
+    x = random_seq(rng, 120)
+    y = random_seq(rng, 1500) + mutate(rng, x, 0.03, 0.02) + random_seq(
+        rng, 2000)
+    got = sw.align(x, y, device=cuda)
+    assert got == sw.align(x, y, device="cpu")
+    assert (got["score"], got["location"], got["window"], got["cigar"]) == \
+        golds.sw_best_alignment(x, y)
+
+
+def _msa_kernels_match(cuda, seqs, table):
+    """Fill (within each pair's length) and backtrack, kernel == plain ==
+    the host gold, at center 0."""
+    cenc, arr, slens = msa.pack_pairs(seqs, 0)
+    c, a, sl = (torch.from_numpy(v).to(cuda) for v in (cenc, arr, slens))
+    t = None if table is None else torch.from_numpy(table).to(cuda)
+    M = msa.nw_matrices_batch(c, a, t)
+    want = msa.nw_matrices_batch_plain(c, a, t)
+    for k, n in enumerate(slens):
+        assert torch.equal(M[k, :, :n + 1], want[k, :, :n + 1])
+    sp, so = msa.backtrack_batch(M, c, a, sl, t)
+    w_sp, w_so = msa.backtrack_batch_plain(want, c, a, sl, t)
+    assert torch.equal(sp, w_sp) and torch.equal(so, w_so)
+    for k, s in enumerate(seqs[1:]):
+        g_sp, g_so = msa.backtrack(M[k, :, :len(s) + 1].cpu().numpy(),
+                                   seqs[0], s, table)
+        np.testing.assert_array_equal(sp[k].cpu().numpy(), g_sp)
+        np.testing.assert_array_equal(so[k, :len(s) + 1].cpu().numpy(), g_so)
+
+
+@pytest.fixture
+def matrix_path(tmp_path):
+    path = tmp_path / "synthetic.txt"
+    path.write_text(ncbi_matrix(np.random.default_rng(8)))
+    return str(path)
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_msa_kernels_at_the_edges_match_plain(cuda, case, matrix_path):
+    label, seqs, protein = msa_edges(np.random.default_rng(0))[case]
+    table = load_scoring_matrix(matrix_path) if protein else None
+    _msa_kernels_match(cuda, seqs, table)
+    path = matrix_path if protein else None
+    assert msa.msa(seqs, matrix_path=path, device=cuda) == msa.msa(
+        seqs, matrix_path=path, device="cpu"), label
+
+
+@pytest.mark.parametrize("letters", ["ACGT", "ACDEFGHIKLMNPQRSTVWY",
+                                     "ACDEFGHIKLMNPQRSTVWYacdefghiklmnpqrstvwy"])
+def test_msa_kernels_at_a_mid_size_match_plain(cuda, letters, matrix_path):
+    """300 sequences of about 200 with substitutions and indels: DNA, and
+    protein under the table (lower-case letters are bytes the matrix does
+    not name, scoring 0: 41 codes with the pad)."""
+    rng = np.random.default_rng(9)
+    base = random_seq(rng, 200, letters)
+    seqs = [mutate(rng, base, 0.05, 0.03, letters) for _ in range(300)]
+    _msa_kernels_match(cuda, seqs, None if letters == "ACGT"
+                       else load_scoring_matrix(matrix_path))
+
+
+def test_msa_in_chunks_on_the_card_matches_one_call(cuda, monkeypatch):
+    rng = np.random.default_rng(10)
+    base = random_seq(rng, 90)
+    seqs = [mutate(rng, base, 0.05, 0.05) for _ in range(70)]
+    one = msa.msa(seqs, device=cuda)
+    monkeypatch.setattr(msa, "pairs_per_call", lambda dev, m, n: 16)
+    assert msa.msa(seqs, device=cuda) == one == msa.msa(seqs, device="cpu")

@@ -24,6 +24,8 @@ def test_imports_with_jax_blocked():
         "from genomics_tpu_torch.ops import scan_align_full\n"
         "from genomics_tpu_torch.ops import cuda_pairhmm, myers, scan_pairhmm\n"
         "from genomics_tpu_torch.models import aligner, pairhmm\n"
+        "from genomics_tpu_torch.models import msa, nw, sw\n"
+        "from genomics_tpu_torch.core import submat\n"
         "from genomics_tpu_torch.core import batch\n"
         "from genomics_tpu_torch.utils import fasta\n"
         "from genomics_tpu_torch import __main__\n"
@@ -43,7 +45,9 @@ def test_every_module_is_checked_for_jax_imports():
     names = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
     assert {"__main__.py", "device.py", "models/pairhmm.py",
             "ops/cuda_pairhmm.py", "ops/myers.py", "ops/scan_pairhmm.py",
-            "models/aligner.py", "core/batch.py", "utils/fasta.py"} <= names
+            "models/aligner.py", "core/batch.py", "utils/fasta.py",
+            "models/nw.py", "models/sw.py", "models/msa.py",
+            "core/submat.py"} <= names
 
 
 @pytest.mark.parametrize(
@@ -79,6 +83,7 @@ def test_every_entry_point_signature_matches_its_source():
     import re
 
     from genomics_tpu_torch import _build
+    from genomics_tpu_torch.models import msa, nw, sw
     from genomics_tpu_torch.ops import cuda_align, cuda_pairhmm, myers, tb_walk
 
     sigs = dict(cuda_align._SIGNATURES)
@@ -88,6 +93,10 @@ def test_every_entry_point_signature_matches_its_source():
     sigs["pairhmm_wavefront", "pairhmm_wavefront_launch"] = \
         cuda_pairhmm._WAVEFRONT_ARGS
     sigs["myers", "myers_launch"] = myers._ARGS
+    sigs["nw_app", "nw_app_launch"] = nw._ARGS
+    sigs["sw_app", "sw_app_launch"] = sw._ARGS
+    sigs["msa_nw", "msa_nw_launch"] = msa._FILL_ARGS
+    sigs["msa_nw", "msa_nw_backtrack_launch"] = msa._BACKTRACK_ARGS
     assert {lib for lib, _ in sigs} == set(_build.KERNELS)
     for (lib, sym), argtypes in sigs.items():
         src = (_build.CSRC / f"{lib}.cu").read_text()
