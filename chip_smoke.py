@@ -127,7 +127,12 @@ Run from the root of a checkout.  Phases, one line each:
             the engine's pairs/s.
 
 Then the NW, SW and MSA apps (`apps`), phases 3-5 of their own:
-3. parity   nw_app at N = 1, 31, 33 and 257 (tile edges), sw_app at
+3. parity   nw_app at N = 1, 31, 33 and 257, at its stripe's height and
+            one row more or less, and on grids of fewer warps than stripes
+            (nw_stripe_edges: warps take a second ticket); the MSA fill at
+            fill_edges (a strip's and a round's height +- 1, pair counts
+            around the 8-pair sector group, 40,000 pairs, ragged lengths
+            with 0, protein bytes the matrix does not name); sw_app at
             sw_edges (one window, windows shorter than L, a one-base and
             an empty fragment, two columns a thread; the row in shared
             memory and in the scratch), the MSA fill and backtrack at
@@ -149,10 +154,11 @@ Then the NW, SW and MSA apps (`apps`), phases 3-5 of their own:
             and 16 pairs to the host backtrack; every launch count set to 0
             before and read after;
 5. timings  each app kernel and its plain version at those sizes (SW's
-            wide windows too), with
-            nw_app's launches a call and their host overhead (beside a
-            CUDA graph's replay), the backtrack's steps, words read and
-            sector floor, NW / SW cells/s and MSA seqs/s.
+            wide windows too; NW also at nw.run's 4,096), with
+            nw_app's CUDA launches a call (beside a CUDA graph's replay),
+            the fill's G cells/s and GB written, the backtrack's steps,
+            words read and sector floor, each beside its bound, NW / SW
+            cells/s and MSA seqs/s.
 
 Then one JSON line with the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  With --profile, phases 3-5 give way to
@@ -983,7 +989,7 @@ def lane_share(work: torch.Tensor, warp: int = 32) -> float:
 
 
 # -- the NW, SW and MSA apps (models/nw.py, sw.py, msa.py) -----------------
-# NW: one tile, a tile's edge from either side, nine tiles; nw.run's
+# NW: one row, a warp's rows and one more or less, two stripes; nw.run's
 # check against nw_cpu, and benchmarks/nw_scaling.py's top size (CDP/NW's
 # plot_execution_times.py runs 2^5 .. 2^15)
 NW_EDGE_N = (1, 31, 33, 257)
@@ -1075,6 +1081,48 @@ def msa_edges(rng) -> list:
              False),
             ("protein table", [mutate(rng, prot, 0.1, 0.1, PROTEIN)
                                for _ in range(6)] + ["W", prot.lower()], True)]
+
+
+def nw_stripe_edges(stripe: int) -> tuple:
+    """(N, grid) launches at the edges of nw_app.cu's stripes of `stripe`
+    rows (nw.STRIPE): a stripe and one row more or less, two stripes but a
+    row, and grids of fewer warps than stripes, so that warps take more
+    than one ticket (grid None: the card's resident blocks)."""
+    return ((stripe - 1, None), (stripe, None), (stripe + 1, None),
+            (2 * stripe - 1, None), (1000, 1), (1000, 3), (2049, 5))
+
+
+def fill_edges(rng) -> list:
+    """(label, center [m] uint8, seqs [B, n] uint8 with ragged lengths, 0
+    among them, protein) cases at the edges of msa_nw.cu's fill: a strip's
+    height and one row more or less, a round's (msa.FILL_ROUND_ROWS) the
+    same, pair counts around the sector group (msa.FILL_PAIRS), and 40,000
+    pairs, many waves of blocks."""
+    from genomics_tpu_torch.models import msa
+
+    def case(m, B, n, letters=DNA):
+        a = np.frombuffer(letters.encode(), np.uint8)
+        c = a[rng.integers(0, len(a), m)]
+        # bytes of the center, a fifth of them any letter, to ragged lengths
+        seqs = np.where(rng.random((B, n)) < 0.2,
+                        a[rng.integers(0, len(a), (B, n))],
+                        c[rng.integers(0, m, (B, n))])
+        lens = rng.integers(0, n + 1, B)
+        lens[: min(B, 1)] = n
+        if B > 2:
+            lens[2] = 0
+        seqs[np.arange(n)[None, :] >= lens[:, None]] = 0
+        return c, seqs.astype(np.uint8)
+
+    h, r, g = msa.FILL_ROWS, msa.FILL_ROUND_ROWS, msa.FILL_PAIRS
+    out = [(f"m = {m}", *case(m, 9, 40), False) for m in (h - 1, h, h + 1)]
+    out += [(f"m = {m}", *case(m, 9, 60), False) for m in (r - 1, r, r + 1)]
+    out += [(f"B = {B}", *case(50, B, 45), False)
+            for B in (1, g - 1, g, g + 1, 2 * g - 1, 2 * g + 1)]
+    out.append(("40,000 pairs", *case(20, 40000, 20), False))
+    out.append(("protein, bytes the matrix does not name",
+                *case(70, 17, 80, PROTEIN + "JOU09"), True))
+    return out
 
 
 def sw_planted(rng) -> tuple[str, str]:
@@ -1235,6 +1283,17 @@ def apps(seed: int, dev, smi: str, peak: float) -> dict:
         q = torch.from_numpy(nw.generate_query(ref, rng)).to(dev)
         err["nw_app"] = max(err["nw_app"], cube_err(
             nw.nw_matrix(r, q)[None], nw.nw_matrix_plain(r, q)[None]))
+    # the stripes' edges and fewer warps than stripes; the fill's edges (a
+    # generator of their own, so that the timed sets stay as they were)
+    erng = np.random.default_rng(seed + 15)
+    for N, grid in nw_stripe_edges(nw.STRIPE):
+        ref = erng.integers(0, 256, N).astype(np.uint8)
+        r = torch.from_numpy(ref).to(dev)
+        q = torch.from_numpy(nw.generate_query(ref, erng)).to(dev)
+        got = nw.launch_nw(r, q, torch.empty((N, N), dtype=torch.int32,
+                                             device=dev), grid=grid)
+        err["nw_app"] = max(err["nw_app"], cube_err(
+            got[None], nw.nw_matrix_plain(r, q)[None]))
     for label, x, wins in sw_edges(rng):
         xd, wd = torch.from_numpy(x).to(dev), torch.from_numpy(wins).to(dev)
         W, L = wins.shape
@@ -1251,6 +1310,16 @@ def apps(seed: int, dev, smi: str, peak: float) -> dict:
     with open(mpath, "w") as fh:
         fh.write(ncbi_matrix(rng))
     table = load_scoring_matrix(mpath)
+    fill_labels = []
+    for label, cenc, seqs, protein in fill_edges(erng):
+        c, a = (torch.from_numpy(v).to(dev) for v in (cenc, seqs))
+        t = torch.from_numpy(table).to(dev) if protein else None
+        fa = msa.fill_args(c, a, t)
+        err["msa_nw.fill"] = max(err["msa_nw.fill"], cube_err(
+            msa.launch_fill(fa), msa.nw_matrices_batch_plain(c, a, t),
+            fa[2][:fa[9]]))
+        fill_labels.append(label)
+        del fa
     for label, seqs, protein in msa_edges(rng):
         fe, be, *_ = msa_kernel_err(dev, seqs, 0, table if protein else None)
         err["msa_nw.fill"] = max(err["msa_nw.fill"], fe)
@@ -1276,7 +1345,9 @@ def apps(seed: int, dev, smi: str, peak: float) -> dict:
     if any(err.values()):
         raise AssertionError(f"app kernels disagree with their plain "
                              f"versions at their edges: {err}")
-    log("3 parity", f"apps: nw_app at N={NW_EDGE_N}, sw_app at "
+    log("3 parity", f"apps: nw_app at N={NW_EDGE_N} and (N, grid) "
+        f"{nw_stripe_edges(nw.STRIPE)}, msa_nw fill at {fill_labels}, "
+        f"sw_app at "
         f"{[lb for lb, *_ in sw_edges(np.random.default_rng(0))]} (rows in "
         f"shared memory and in the scratch), msa_nw fill and backtrack at "
         f"{[lb for lb, *_ in msa_edges(np.random.default_rng(0))]} (and the "
@@ -1385,20 +1456,41 @@ def apps(seed: int, dev, smi: str, peak: float) -> dict:
     # -- 5. times ----------------------------------------------------------
     ms, plain_ms, bounds = {}, {}, {}
     out = torch.empty_like(big)
-    ms["nw_app"] = cuda_ms(lambda: nw.launch_nw(r, q, out), 3)
-    nw_graph = graph_ms(lambda: nw.launch_nw(r, q, out), 2)
-    n_tl = nw.tile_launches(NW_BIG_N)
+    flags = torch.empty(nw.flag_words(NW_BIG_N), dtype=torch.int32,
+                        device=dev)
+    ms["nw_app"] = cuda_ms(lambda: nw.launch_nw(r, q, out, flags), 5)
+    nw_graph = graph_ms(lambda: nw.launch_nw(r, q, out, flags), 3)
+    if not torch.equal(out, big):
+        err["nw_app"] = max(err["nw_app"], cube_err(out[None], big[None]))
     plain_ms["nw_app"] = plain_nw
     bounds["nw_app"] = bound(APP_OPS["nw_app"] * NW_BIG_N ** 2,
                              4 * NW_BIG_N ** 2 + 2 * NW_BIG_N, peak)
     del big, out
-    log("5 timings", f"nw_app at N={NW_BIG_N}: kernel {ms['nw_app']:.4f} ms "
-        f"({NW_BIG_N ** 2 / ms['nw_app'] / 1e6:.2f} G cells/s), {n_tl} "
-        f"launches a call; replayed from a CUDA graph {nw_graph:.4f} ms, so "
-        f"{(ms['nw_app'] - nw_graph) / n_tl * 1e3:.2f} us a launch of host "
-        f"overhead; plain {plain_ms['nw_app']:.1f} ms; bound "
-        f"{bounds['nw_app'][0]:.4f} ms by {bounds['nw_app'][1]} "
-        f"({APP_OPS['nw_app']} op a cell, the matrix written); on {smi}")
+    # and nw.run's size, N = 4,096
+    rs = torch.from_numpy(rng.integers(0, 256, NW_RUN_N).astype(
+        np.uint8)).to(dev)
+    qs = torch.from_numpy(nw.generate_query(rs.cpu().numpy(), rng)).to(dev)
+    out_s = torch.empty((NW_RUN_N, NW_RUN_N), dtype=torch.int32, device=dev)
+    run_ms = cuda_ms(lambda: nw.launch_nw(rs, qs, out_s, flags), 20)
+    run_graph = graph_ms(lambda: nw.launch_nw(rs, qs, out_s, flags), 20)
+    err["nw_app"] = max(err["nw_app"], cube_err(
+        out_s[None], nw.nw_matrix_plain(rs, qs)[None]))
+    run_bound = bound(APP_OPS["nw_app"] * NW_RUN_N ** 2,
+                      4 * NW_RUN_N ** 2 + 2 * NW_RUN_N, peak)
+    del out_s
+    for N, k_ms, g_ms, bd in ((NW_BIG_N, ms["nw_app"], nw_graph,
+                               bounds["nw_app"]),
+                              (NW_RUN_N, run_ms, run_graph, run_bound)):
+        log("5 timings", f"nw_app at N={N}: kernel {k_ms:.4f} ms "
+            f"({N ** 2 / k_ms / 1e6:.2f} G cells/s), "
+            f"{nw.launches_per_call(N)} CUDA launches a call (the flags' "
+            f"memset and one kernel, {-(-N // nw.STRIPE)} stripes of "
+            f"{nw.STRIPE} rows); replayed from a CUDA graph {g_ms:.4f} ms; "
+            f"bound {bd[0]:.4f} ms by {bd[1]} ({N ** 2 / bd[0] / 1e6:.2f} G "
+            f"cells/s; {APP_OPS['nw_app']} op a cell, the matrix written), "
+            f"{k_ms / bd[0]:.2f} x the bound"
+            + (f"; plain {plain_ms['nw_app']:.1f} ms" if N == NW_BIG_N
+               else "") + f"; on {smi}")
 
     xd = torch.from_numpy(np.frombuffer(x.encode(), np.uint8).copy()).to(dev)
     wd = torch.from_numpy(sw.split_windows(y.encode(), SW_X)[2]).to(dev)
@@ -1467,8 +1559,12 @@ def apps(seed: int, dev, smi: str, peak: float) -> dict:
         floor = 32 * stats["reads"] / HBM_BYTES_PER_S * 1e3
         log("5 timings", f"msa_nw at {label}: fill {f_ms:.4f} ms "
             f"({m * own / f_ms / 1e6:.2f} G cells/s; {4 * (m + 1) * (own + B) / 1e9:.2f}"
-            f" GB of matrices), plain {p_f:.1f} ms, bound {f_bound[0]:.4f} ms "
-            f"by {f_bound[1]}; backtrack {b_ms:.4f} ms, plain {p_b:.1f} ms, "
+            f" GB of matrices written, "
+            f"{4 * (m + 1) * (own + B) / f_ms / 1e6:.1f} GB/s), plain "
+            f"{p_f:.1f} ms, bound {f_bound[0]:.4f} ms "
+            f"by {f_bound[1]} ({m * own / f_bound[0] / 1e6:.2f} G cells/s), "
+            f"{f_ms / f_bound[0]:.2f} x the bound; backtrack {b_ms:.4f} ms, "
+            f"plain {p_b:.1f} ms, "
             f"{stats['steps']} steps, {stats['reads']} words read: sector "
             f"floor {floor:.4f} ms, bound {b_bound[0]:.4f} ms by "
             f"{b_bound[1]}; 1 launch each a call; msa() {len(seqs) / wall:.1f}"

@@ -1,6 +1,6 @@
 // Center-star MSA's pairwise NW (CDP/STAR): the affine fill of every
-// (center, sequence) pair and its backtrack to gap counts, one thread a
-// pair, for Hopper (sm_90a).
+// (center, sequence) pair, many threads a pair, and its backtrack to gap
+// counts, one thread a pair, for Hopper (sm_90a).
 //
 // Fill: replaces the jnp nw_matrices_batch of genomics_tpu/models/msa.py:103
 // (jnp, not Pallas), the reference's cuda_nw_3d (CDP/STAR/cuda-nw.cu:117-187)
@@ -14,13 +14,36 @@
 // 0 is MIN_SCORE and X[i][0] is MIN_SCORE (Y's column 0 is never read).
 // The JAX function's x-chain as a prefix scan is this recurrence
 // rewritten (GSE <= GAP_EXTEND lets M's x-term absorb), so the values are
-// equal.  Each thread fills its pair only to the pair's own length; the
-// cells past it are never read.  The matrices are laid out pair-innermost,
-// M [m+1][n_pad+1][B], so a warp's 32 stores at one (i, j) are one 128-byte
-// line (the reference's per-thread pitched slab makes each store its own
-// sector); the Y row lives in an [n_pad+1][B] scratch laid out the same way,
-// L2-resident.  Loads of the row above, Y and the sequence's bytes run
-// kAhead columns ahead of the cells that use them.
+// equal.  The matrices are laid out pair-innermost, M [m+1][n_pad+1][B],
+// the layout the backtrack reads; each pair is filled only to its own
+// length, and the cells past it are never written.  The wrapper pads B to
+// a multiple of 8 with pairs of length 0 (models/msa.py fill_args).
+//
+// The fill's design.  A block takes kPairs = 8 pairs, and cuts each
+// pair's m rows into strips of kRows rows, one thread a strip.  A warp
+// holds 8 pairs x 4 strips (lane = 8 g + p: strip g, pair p), so at every
+// (i, j) its 8 lanes of one strip store 8 neighbouring words, one whole
+// aligned 32-byte sector (with B odd, groups that straddle two sectors
+// made the fill 3.5x slower on an H100: PERF.md).  The strips run
+// as a skewed wavefront along the columns: strip g of warp w computes
+// column t + 1 - (w kLag + g) at step t, its kRows cells top to bottom.
+// Y and the cell above run down the column in registers; each row's X
+// and left cell stay in the thread's registers from column to column.
+// The strip's last row (M, Y) and the column's sequence code go to the
+// strip below: inside a warp by __shfl_up_sync one step later, and from
+// a warp's strip 3 to the next warp's strip 0 through a ring of 2 kChunk
+// steps in shared memory, one chunk later (the block meets at a barrier
+// every kChunk steps, so kLag = kChunk + 3).  Warp 0's strip 0 reads the
+// ring that the block's first 8 kChunk threads fill a chunk ahead: the
+// sequence bytes (read once) and the row above, MIN_SCORE in row 0.  So
+// the fill keeps no Y scratch and loads no row above per cell: global
+// memory sees the M stores, the sequence bytes, the center's codes once
+// a strip, and the compact table through __ldg.  A block runs up to
+// kMaxStrips strips at once; a longer center runs in rounds of `strips`
+// strips, each round starting from the cube's row above it, which the
+// round before wrote: with GAP_START >= 0 a cell's Y never exceeds its
+// M, so the row below it has Y = GSE + M whatever the Y above, and the
+// round's first strip takes Y above = M above (one row of reads a round).
 //
 // Scores: DNA compares the bytes.  With a table, the wrapper maps the
 // bytes that occur in the call (every one, padding and bytes the matrix
@@ -40,15 +63,17 @@
 // k GAP_EXTEND == M[i][j], tested first) or a horizontal one, adding k to
 // so[j] (vertical) or space[i] (horizontal).  The first hit in that order is
 // the JAX kv <= kh rule.  It reads the matrices in place (no transposed
-// copy, msa.py:178-179); a walk that finds no run at any k stops (no
-// matrix of the fill leads there).
+// copy, msa.py:178-179), the wrapper's pads included; a walk that finds
+// no run at any k stops (only a pad's walk from (m, 0) does, after m
+// reads).
 //
 // Bounds: the fill writes the pairs' own cells, sum over pairs of (m+1)
 // (slen+1) 4 bytes, over 3.35 TB/s (its 11 integer operations a cell over
-// the INT32 peak are below that); the backtrack is a chain of dependent
-// scattered reads, one 32-byte sector a word, so its floor is the words
-// read over 3.35 TB/s at 32 bytes each.  One thread a pair in 32-thread
-// blocks spreads the pairs over the SMs: 1,024 pairs fill 32 of 132 SMs.
+// the INT32 peak are below that); the wavefront's ramp adds (strips / 4 -
+// 1) kLag + 3 steps to the n steps of a round.  The backtrack is a chain
+// of dependent scattered reads, one 32-byte sector a word, so its floor
+// is the words read over 3.35 TB/s at 32 bytes each; it runs one thread a
+// pair in 32-thread blocks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,83 +84,140 @@ constexpr int kMatch = 0, kMismatch = -1;
 constexpr int kGapStart = 0, kGapExtend = -1;
 constexpr int kGSE = kGapStart + kGapExtend;
 constexpr int kMinScore = -32700;
-constexpr int kThreads = 32;   // pairs a block
-constexpr int kAhead = 8;      // columns loaded ahead
+constexpr int kThreads = 32;     // the backtrack: pairs a block
+constexpr int kPairs = 8;        // the fill: pairs a block, a sector of int32
+constexpr int kGroups = 32 / kPairs;   // strips a warp
+constexpr int kRows = 8;         // rows a strip
+constexpr int kChunk = 8;        // steps between the block's barriers
+constexpr int kMaxStrips = 96;   // strips a round: 768 threads, 80 registers
+constexpr int kLag = kChunk + kGroups - 1;   // warp w + 1 behind warp w
+static_assert(kGapStart >= 0, "a round starts from the M row above it");
+
+// the fill's shared rings: warp w's strip 0 reads ring w, written by warp
+// w - 1's strip 3 (ring 0: by the loaders); [warps][2 kChunk][kPairs] each
+struct Rings {
+  int* m;
+  int* y;
+  int* c;
+  __device__ int at(int w, int step, int p) const {
+    return (w * 2 * kChunk + step % (2 * kChunk)) * kPairs + p;
+  }
+};
 
 template <bool kTable>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPairs * kMaxStrips)
 msa_fill_kernel(const uint8_t* __restrict__ center,
                 const uint8_t* __restrict__ seqs,   // [n_pad][B]
                 const int* __restrict__ slens, const int* __restrict__ table,
-                int A, int* __restrict__ M, int* __restrict__ Y, int m,
-                int n_pad, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int n = slens[b];
+                int A, int* __restrict__ M, int m, int n_pad, int B,
+                int strips, int rounds) {
+  extern __shared__ int smem[];
+  const int warps = strips / kGroups;
+  const int ring_words = warps * 2 * kChunk * kPairs;
+  const Rings ring{smem, smem + ring_words, smem + 2 * ring_words};
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int p = lane % kPairs, g = lane / kPairs;
+  const int strip = w * kGroups + g;
+  const int b0 = blockIdx.x * kPairs, b = b0 + p;
   const size_t sB = static_cast<size_t>(B);
   const size_t rs = static_cast<size_t>(n_pad + 1) * sB;
-  int* Mb = M + b;
-  int* Yb = Y + b;
-  const uint8_t* sb = seqs + b;
+  const int n = b < B ? slens[b] : -1;
+  int nmax = 0;
+  for (int q = 0; q < kPairs && b0 + q < B; ++q)
+    nmax = max(nmax, slens[b0 + q]);
+  const int lag = w * kLag + g;
+  const int steps = nmax + (warps - 1) * kLag + kGroups - 1;
+  const int chunks = (steps + kChunk - 1) / kChunk;
+  // the loaders: the first kPairs kChunk threads, one (pair, step) each,
+  // fill ring 0 a chunk ahead: for step t, column t + 1
+  const bool loader = tid < kPairs * kChunk;
+  const int lp = tid % kPairs, lk = tid / kPairs, lb = b0 + lp;
+  const int ln = loader && lb < B ? slens[lb] : -1;
 
-  Mb[0] = 0;
-  for (int j = 1; j <= n; ++j) {
-    Mb[j * sB] = kMinScore;
-    Yb[j * sB] = kMinScore;
-  }
-  for (int i = 1; i <= m; ++i) {
-    const int ci = center[i - 1];
-    const int* trow = kTable ? table + ci * A : nullptr;
-    const int* up = Mb + (i - 1) * rs;
-    int* cur = Mb + i * rs;
-    int diag = up[0];
-    int left = kMinScore;
-    int x = kMinScore;
-    cur[0] = kMinScore;
-    int nu[kAhead], ny[kAhead];
-    uint8_t ns[kAhead];
-#pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
-      const int j = 1 + k;
-      if (j <= n) {
-        nu[k] = up[j * sB];
-        ny[k] = Yb[j * sB];
-        ns[k] = sb[(j - 1) * sB];
+  for (int r = 0; r < rounds; ++r) {
+    const int top = r * strips * kRows;        // the row above the round
+    const int i0 = top + strip * kRows + 1;    // the strip's first row
+    const bool live = n >= 0 && i0 <= m;
+    auto load = [&](int j, int& lm, int& ly, int& lc) {
+      if (j > ln) return;
+      lc = seqs[(j - 1) * sB + lb];
+      if (r == 0) {
+        lm = ly = kMinScore;
+        M[j * sB + lb] = kMinScore;   // row 0
+      } else {
+        lm = ly = __ldcg(M + top * rs + j * sB + lb);
       }
+    };
+    int lm = 0, ly = 0, lc = 0;
+    if (loader) {
+      load(lk + 1, lm, ly, lc);
+      const int o = ring.at(0, lk + kChunk, lp);
+      ring.m[o] = lm;
+      ring.y[o] = ly;
+      ring.c[o] = lc;
     }
-    for (int jb = 1; jb <= n; jb += kAhead) {
-      int cu[kAhead], cy[kAhead];
-      uint8_t cs[kAhead];
+    int code[kRows], left[kRows], x[kRows];
 #pragma unroll
-      for (int k = 0; k < kAhead; ++k) {
-        cu[k] = nu[k];
-        cy[k] = ny[k];
-        cs[k] = ns[k];
-      }
+    for (int h = 0; h < kRows; ++h) {
+      const int i = i0 + h;
+      code[h] = i <= m ? (kTable ? center[i - 1] * A : center[i - 1]) : 0;
+      left[h] = kMinScore;   // M[i][0]
+      x[h] = kMinScore;      // X[i][0]
+      if (live && i <= m) M[i * rs + b] = kMinScore;
+    }
+    if (r == 0 && strip == 0 && n >= 0) M[b] = 0;
+    int diag = i0 == 1 ? 0 : kMinScore;   // M[i0 - 1][0]
+    int om = 0, oy = 0, oc = 0;   // the strip's last row at the last step
+    __syncthreads();
+    for (int c = 0; c < chunks; ++c) {
+      if (loader) load((c + 1) * kChunk + lk + 1, lm, ly, lc);
 #pragma unroll
-      for (int k = 0; k < kAhead; ++k) {
-        const int j = jb + kAhead + k;
-        if (j <= n) {
-          nu[k] = up[j * sB];
-          ny[k] = Yb[j * sB];
-          ns[k] = sb[(j - 1) * sB];
+      for (int k = 0; k < kChunk; ++k) {
+        const int t = c * kChunk + k;
+        int im = __shfl_up_sync(0xffffffffu, om, kPairs);
+        int iy = __shfl_up_sync(0xffffffffu, oy, kPairs);
+        int ic = __shfl_up_sync(0xffffffffu, oc, kPairs);
+        if (g == 0) {
+          const int o = ring.at(w, t + kChunk, p);
+          im = ring.m[o];
+          iy = ring.y[o];
+          ic = ring.c[o];
+        }
+        const int j = t + 1 - lag;
+        if (live && j >= 1 && j <= n) {
+          int* cell = M + static_cast<size_t>(i0) * rs + j * sB + b;
+          int up = im, y = iy, d = diag;
+#pragma unroll
+          for (int h = 0; h < kRows; ++h) {
+            const int s = kTable ? __ldg(table + code[h] + ic)
+                                 : (ic == code[h] ? kMatch : kMismatch);
+            y = max(kGSE + up, kGapExtend + y);
+            x[h] = max(kGSE + left[h], kGapExtend + x[h]);
+            const int v = max(max(d + s, x[h]), y);
+            d = left[h];
+            left[h] = v;
+            up = v;
+            if (i0 + h <= m) cell[h * rs] = v;
+          }
+          diag = im;
+          om = up;
+          oy = y;
+          oc = ic;
+        }
+        if (g == kGroups - 1 && w + 1 < warps) {
+          const int o = ring.at(w + 1, t, p);
+          ring.m[o] = om;
+          ring.y[o] = oy;
+          ring.c[o] = oc;
         }
       }
-#pragma unroll
-      for (int k = 0; k < kAhead; ++k) {
-        const int j = jb + k;
-        if (j <= n) {
-          const int y = max(kGSE + cu[k], kGapExtend + cy[k]);
-          x = max(kGSE + left, kGapExtend + x);
-          const int s = kTable ? __ldg(trow + cs[k])
-                               : (cs[k] == ci ? kMatch : kMismatch);
-          const int v = max(max(diag + s, y), x);
-          cur[j * sB] = v;
-          Yb[j * sB] = y;
-          diag = cu[k];
-          left = v;
-        }
+      if (loader) {
+        const int o = ring.at(0, c * kChunk + lk, lp);
+        ring.m[o] = lm;
+        ring.y[o] = ly;
+        ring.c[o] = lc;
       }
+      __syncthreads();
     }
   }
 }
@@ -203,23 +285,36 @@ msa_backtrack_kernel(const int* __restrict__ M,
 
 }  // namespace
 
+// The fill: rounds of `strips` strips (a multiple of 4, at least kChunk
+// so that the loaders exist), as few rounds as kMaxStrips allows, the
+// strips shared evenly between them; ceil(B / 8) blocks of 8 strips
+// threads.
 extern "C" int msa_nw_launch(const void* center, const void* seqs,
                              const void* slens, const void* table, int A,
-                             void* M, void* Y, int m, int n_pad, int B,
-                             void* stream) {
+                             void* M, int m, int n_pad, int B, void* stream) {
+  if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = (B + kThreads - 1) / kThreads;
+  const int need = max(1, (m + kRows - 1) / kRows);
+  const int rounds = (need + kMaxStrips - 1) / kMaxStrips;
+  int strips = max((need + rounds - 1) / rounds, kChunk);
+  strips = (strips + kGroups - 1) / kGroups * kGroups;
+  const int smem = static_cast<int>(sizeof(int)) * 3 * (strips / kGroups) *
+                   2 * kChunk * kPairs;
+  const int blocks = (B + kPairs - 1) / kPairs;
   const uint8_t* c = static_cast<const uint8_t*>(center);
   const uint8_t* q = static_cast<const uint8_t*>(seqs);
   const int* sl = static_cast<const int*>(slens);
   int* Mp = static_cast<int*>(M);
-  int* Yp = static_cast<int*>(Y);
-  if (table == nullptr)
-    msa_fill_kernel<false><<<blocks, kThreads, 0, s>>>(
-        c, q, sl, nullptr, 0, Mp, Yp, m, n_pad, B);
-  else
-    msa_fill_kernel<true><<<blocks, kThreads, 0, s>>>(
-        c, q, sl, static_cast<const int*>(table), A, Mp, Yp, m, n_pad, B);
+  const auto kernel = table == nullptr ? msa_fill_kernel<false>
+                                       : msa_fill_kernel<true>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<blocks, strips * kPairs, smem, s>>>(
+      c, q, sl, static_cast<const int*>(table), A, Mp, m, n_pad, B, strips,
+      rounds);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,8 +21,9 @@ msa.py:103; the backtrack replacing the jnp `backtrack_batch`, msa.py:160)
 for tensors on a CUDA device; any other device raises.
 
 The matrices are laid out pair-innermost, [m+1][n+1][B] in memory, and
-handed out as the [B, m+1, n+1] view of the JAX function: the kernels'
-threads, one a pair, then touch neighbouring words at one (i, j).
+handed out as the [B, m+1, n+1] view of the JAX function: the fill's
+threads, 8 pairs x 4 row strips a warp, then store whole 32-byte sectors
+at each (i, j), and the backtrack's, one a pair, read neighbouring words.
 """
 from __future__ import annotations
 
@@ -40,14 +41,17 @@ MATCH, MISMATCH = 0, -1
 GAP_START, GAP_EXTEND = 0, -1
 MIN_SCORE = -32700
 FREE_SHARE = 0.8   # a chunk's matrices take at most this share of free memory
+# csrc/msa_nw.cu's fill: pairs a block (one 32-byte sector of int32 at each
+# cell), rows a strip (a thread), rows a round (kRows x kMaxStrips)
+FILL_PAIRS, FILL_ROWS, FILL_ROUND_ROWS = 8, 8, 768
 
 # Kernel launches; each wrapper adds one where it launches its kernel.
 LAUNCHES = {"msa_nw.fill": 0, "msa_nw.backtrack": 0}
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
-# center, seqs [n_pad, B], slens, table, A, M, Y scratch, m, n_pad, B,
-# stream
-_FILL_ARGS = (_vp, _vp, _vp, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _vp)
+# center, seqs [n_pad, P], slens, table, A, M, m, n_pad, P (the pairs
+# padded to whole sectors), stream
+_FILL_ARGS = (_vp, _vp, _vp, _vp, _ci, _vp, _ci, _ci, _ci, _vp)
 # M, center, seqs [n_pad, B], slens, table, A, space, so, m, n_pad, B,
 # stream
 _BACKTRACK_ARGS = (_vp, _vp, _vp, _vp, _vp, _ci, _vp, _vp, _ci, _ci, _ci,
@@ -177,9 +181,11 @@ def nw_matrices_batch(center: torch.Tensor, seqs: torch.Tensor,
     sub_table: optional [256, 256] int32 char-indexed scores (protein
     matrices via core.submat; default MATCH/MISMATCH DNA scoring).
     Returns M: [B, m+1, n_pad+1] int32 (nw.cc matrix), on the inputs'
-    device, stored pair-innermost.  The plain version computes the padded
-    width; the kernel fills each pair only to its own length (the last
-    column not 0) — callers read each pair's own n+1 columns."""
+    device, stored pair-innermost (on the card a view of [m+1, n_pad+1,
+    P] storage, P = B rounded up to a multiple of FILL_PAIRS).  The plain
+    version computes the padded width; the kernel fills each pair only to
+    its own length (the last column not 0) — callers read each pair's own
+    n+1 columns."""
     _check_pairs(center, seqs, sub_table)
     if on_cpu(center):
         return nw_matrices_batch_plain(center, seqs, sub_table)
@@ -188,36 +194,40 @@ def nw_matrices_batch(center: torch.Tensor, seqs: torch.Tensor,
 
 def fill_args(center, seqs, sub_table) -> tuple:
     """The fill kernel's arguments for checked inputs on the card, in the
-    order of `msa_nw_launch` but the stream: the center's and the
-    sequences' bytes (compact codes under a table), the sequences
-    transposed to [n_pad, B], each row's length (to its last nonzero
-    byte), the table and its side A (None, 0 for DNA), the [m+1, n_pad+1,
-    B] matrices, the [n_pad+1, B] Y scratch, m, n_pad, B."""
+    order of `msa_nw_launch` but the stream, then the call's pair count
+    B: the center's and the sequences' bytes (compact codes under a
+    table), the sequences transposed to [n_pad, P], each row's length (to
+    its last nonzero byte), the table and its side A (None, 0 for DNA),
+    the [m+1, n_pad+1, P] matrices, m, n_pad, P, B.  P is B rounded up to
+    whole sectors (FILL_PAIRS): the pads are pairs of length 0, so that
+    each (i, j)'s 8-pair groups start on a 32-byte boundary."""
     m = center.shape[0]
     B, n = seqs.shape
     dev = center.device
+    P = -(-B // FILL_PAIRS) * FILL_PAIRS
+    seqs = torch.cat([seqs, seqs.new_zeros((P - B, n))])
     cols = torch.arange(n + 1, dtype=torch.int32, device=dev)
-    slens = torch.where(torch.cat([seqs.new_ones((B, 1)), seqs], 1) != 0,
+    slens = torch.where(torch.cat([seqs.new_ones((P, 1)), seqs], 1) != 0,
                         cols, 0).amax(1)
     table, A = None, 0
     if sub_table is not None:
         center, seqs, table = compact_table(center, seqs, sub_table)
         A = table.shape[0]
-    M = torch.empty((m + 1, n + 1, B), dtype=torch.int32, device=dev)
-    Y = torch.empty((n + 1, B), dtype=torch.int32, device=dev)
+    M = torch.empty((m + 1, n + 1, P), dtype=torch.int32, device=dev)
     return (center.contiguous(), seqs.T.contiguous(),
-            slens.to(torch.int32).contiguous(), table, A, M, Y, m, n, B)
+            slens.to(torch.int32).contiguous(), table, A, M, m, n, P, B)
 
 
 def launch_fill(args: tuple) -> torch.Tensor:
     """Launch csrc/msa_nw.cu's fill on `fill_args` (B > 0 launches) and
-    count it; returns M as [B, m+1, n_pad+1]."""
-    M = args[5]
-    if args[9]:
+    count it; returns M as the [B, m+1, n_pad+1] view of its [m+1,
+    n_pad+1, P] storage."""
+    M, B = args[5], args[9]
+    if B:
         _build.launch("msa_nw", "msa_nw_launch", _FILL_ARGS, M.device,
-                      *args)
+                      *args[:9])
         LAUNCHES["msa_nw.fill"] += 1
-    return M.permute(2, 0, 1)
+    return M.permute(2, 0, 1)[:B]
 
 
 # ---------------------------------------------------------------------------
@@ -324,33 +334,44 @@ def backtrack_batch(Ms: torch.Tensor, cenc: torch.Tensor, seqs: torch.Tensor,
 
 def backtrack_args(Ms, cenc, seqs, slens, sub_table) -> tuple:
     """The backtrack kernel's arguments for checked inputs on the card, in
-    the order of `msa_nw_backtrack_launch` but the stream: the matrices'
-    [m+1, n_pad+1, B] storage (copied only where they are not stored
-    so), the center's and the sequences' bytes (compact codes under a
-    table, the sequences as [n_pad, B]), the lengths, the table and its
-    side (None, 0 for DNA), the zeroed space [B, m+1] and so [B,
-    n_pad+1], m, n_pad, B."""
+    the order of `msa_nw_backtrack_launch` but the stream, then the call's
+    pair count B: the matrices' [m+1, n_pad+1, P] storage, the center's
+    and the sequences' bytes (compact codes under a table, the sequences
+    as [n_pad, P]), the lengths, the table and its side (None, 0 for DNA),
+    the zeroed space [P, m+1] and so [P, n_pad+1], m, n_pad, P, B.  Where
+    Ms is the view `nw_matrices_batch` hands out, P is its storage's pair
+    pitch and the pads (pairs of length 0) walk too; else P = B, the
+    matrices copied where they are not stored [m+1][n_pad+1][B]."""
     B, m1, n1 = Ms.shape
     dev = Ms.device
+    P = Ms.stride(2)
+    if 0 < B < P and Ms.stride() == (1, n1 * P, P):
+        store = torch.as_strided(Ms, (m1, n1, P), (n1 * P, P, 1))
+        seqs = torch.cat([seqs, seqs.new_zeros((P - B, n1 - 1))])
+        slens = torch.cat([slens, slens.new_zeros(P - B)])
+    else:
+        P = B
+        store = Ms.permute(1, 2, 0).contiguous()
     table, A = None, 0
     if sub_table is not None:
         cenc, seqs, table = compact_table(cenc, seqs, sub_table)
         A = table.shape[0]
-    return (Ms.permute(1, 2, 0).contiguous(), cenc.contiguous(),
-            seqs.T.contiguous(), slens.contiguous(), table, A,
-            torch.zeros((B, m1), dtype=torch.int32, device=dev),
-            torch.zeros((B, n1), dtype=torch.int32, device=dev),
-            m1 - 1, n1 - 1, B)
+    return (store, cenc.contiguous(), seqs.T.contiguous(),
+            slens.contiguous(), table, A,
+            torch.zeros((P, m1), dtype=torch.int32, device=dev),
+            torch.zeros((P, n1), dtype=torch.int32, device=dev),
+            m1 - 1, n1 - 1, P, B)
 
 
 def launch_backtrack(args: tuple):
     """Launch csrc/msa_nw.cu's backtrack on `backtrack_args` (B > 0
-    launches) and count it; returns (space, so)."""
-    if args[10]:
+    launches) and count it; returns (space [B, m+1], so [B, n_pad+1])."""
+    B = args[11]
+    if B:
         _build.launch("msa_nw", "msa_nw_backtrack_launch", _BACKTRACK_ARGS,
-                      args[0].device, *args)
+                      args[0].device, *args[:11])
         LAUNCHES["msa_nw.backtrack"] += 1
-    return args[6], args[7]
+    return args[6][:B], args[7][:B]
 
 
 def backtrack(M: np.ndarray, center: str, seq: str, sub_table=None):
@@ -390,15 +411,17 @@ def backtrack(M: np.ndarray, center: str, seq: str, sub_table=None):
 
 
 def pairs_per_call(dev: torch.device, m: int, n_pad: int) -> int:
-    """Pairs whose matrices, Y scratch and gap counts fit in FREE_SHARE of
-    the card's free memory (what the caching allocator holds unused
+    """Pairs whose matrices and gap counts fit in FREE_SHARE of the
+    card's free memory (what the caching allocator holds unused
     counts as free); every pair on the CPU."""
     if dev.type == "cpu":
         return 1 << 62
     free = (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
             - torch.cuda.memory_allocated(dev))
-    per_pair = 4 * ((m + 2) * (n_pad + 1) + m + 2) + 2 * n_pad
-    return max(1, int(FREE_SHARE * free) // per_pair)
+    per_pair = 4 * ((m + 1) * (n_pad + 1) + m + n_pad + 2) + 3 * n_pad
+    fits = int(FREE_SHARE * free) // per_pair
+    # whole sector groups: the fill pads a call to a multiple of FILL_PAIRS
+    return max(1, fits - fits % FILL_PAIRS if fits >= FILL_PAIRS else fits)
 
 
 def gap_counts(cenc: np.ndarray, arr: np.ndarray, slens: np.ndarray,

@@ -5,10 +5,11 @@ counterpart of `genomics_tpu/models/nw.py`.
 `nw_matrix` takes the plain version (a row scan, the left-gap chain a
 `torch.cummax`, line for line `nw.py:51-86`) for tensors on the CPU and
 launches `csrc/nw_app.cu` (replacing the jnp `nw_matrix`, nw.py:51) for
-tensors on a CUDA device; any other device raises.  The kernel is a
-tiled anti-diagonal wavefront, as the reference's kernels 1-3 are: one
-launch per diagonal of 32 x 32 tiles, so a call makes 2 ceil(N / 32) - 1
-launches (`tile_launches`).
+tensors on a CUDA device; any other device raises.  The kernel cuts the
+rows into stripes of STRIPE rows, one warp a stripe walking the columns
+left to right, each stripe waiting on a progress flag of the one above
+(stripes taken from an atomic ticket): a call is one memset of the flags
+and one kernel launch, whatever N (`launches_per_call`).
 
 Also the app's query generator (main.cu:41-62 mutation model), verify
 (main.cu:29-39) and driver.
@@ -25,15 +26,15 @@ from genomics_tpu_torch.core import golds
 from genomics_tpu_torch.device import checked_device, on_cpu
 
 MATCH, MISMATCH, INSERTION, DELETION = 1, -1, -1, -1
-TILE = 32   # csrc/nw_app.cu's kTile
+STRIPE = 128   # csrc/nw_app.cu's kStripe: rows a warp
 
 # Kernel launches; the wrapper adds one where it calls the kernel's entry
-# point, which launches one kernel per tile diagonal.
+# point, which makes `launches_per_call` CUDA launches.
 LAUNCHES = {"nw_app": 0}
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
-# reference, query, out, N, stream
-_ARGS = (_vp, _vp, _vp, _ci, _vp)
+# reference, query, out, flags [stripes + 1], N, max_grid, stream
+_ARGS = (_vp, _vp, _vp, _vp, _ci, _ci, _vp)
 
 
 def generate_query(reference: np.ndarray, rng: np.random.Generator):
@@ -59,11 +60,10 @@ def generate_query(reference: np.ndarray, rng: np.random.Generator):
     return out
 
 
-def tile_launches(N: int) -> int:
-    """CUDA launches of one `nw_matrix` call on the card: one per
-    diagonal of TILE x TILE tiles."""
-    nt = -(-N // TILE)
-    return max(2 * nt - 1, 0)
+def launches_per_call(N: int) -> int:
+    """CUDA launches of one `nw_matrix` call on the card: the flags'
+    memset and the kernel (none at N = 0)."""
+    return 2 if N else 0
 
 
 def nw_matrix_plain(reference: torch.Tensor, query: torch.Tensor):
@@ -115,13 +115,25 @@ def nw_matrix(reference: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def launch_nw(reference, query, out):
+def launch_nw(reference, query, out, flags=None, grid=None):
     """Call csrc/nw_app.cu's entry point (N > 0) on contiguous inputs and
-    count it; fills `out`."""
+    count it; fills `out`.  `flags`, an int32 buffer of `flag_words(N)`
+    (allocated here if None), is zeroed by the call; `grid` caps the
+    kernel's blocks, one warp each (card tests: fewer warps than stripes,
+    so that warps take more than one ticket)."""
+    N = reference.shape[0]
+    if flags is None:
+        flags = torch.empty(flag_words(N), dtype=torch.int32,
+                            device=out.device)
     _build.launch("nw_app", "nw_app_launch", _ARGS, out.device, reference,
-                  query, out, reference.shape[0])
+                  query, out, flags, N, grid or 0)
     LAUNCHES["nw_app"] += 1
     return out
+
+
+def flag_words(N: int) -> int:
+    """The kernel's flags: the stripes' ticket and each stripe's progress."""
+    return -(-N // STRIPE) + 1
 
 
 def verify(matrix_cpu: np.ndarray, matrix_gpu: np.ndarray) -> bool:

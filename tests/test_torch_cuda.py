@@ -21,9 +21,12 @@ from chip_smoke import (
     PAIRHMM_EDGE_B,
     PAIRHMM_SHAPES,
     band_windows,
+    cube_err,
+    fill_edges,
     msa_edges,
     mutate,
     ncbi_matrix,
+    nw_stripe_edges,
     pairhmm_edges,
     random_seq,
     sw_edges,
@@ -1440,6 +1443,39 @@ def test_nw_kernel_matches_plain(cuda, N):
     if N <= 257:
         np.testing.assert_array_equal(got.cpu().numpy(),
                                       golds.nw_cpu(ref, qry))
+
+
+@pytest.mark.parametrize("N,grid", nw_stripe_edges(nw.STRIPE))
+def test_nw_kernel_at_the_stripe_edges(cuda, N, grid):
+    """A stripe's height and one row more or less, and launches with fewer
+    warps than stripes (each warp takes several tickets)."""
+    rng = np.random.default_rng(N + (grid or 0))
+    ref = rng.integers(0, 256, N).astype(np.uint8)
+    r = torch.from_numpy(ref).to(cuda)
+    q = torch.from_numpy(nw.generate_query(ref, rng)).to(cuda)
+    out = torch.empty((N, N), dtype=torch.int32, device=cuda)
+    before = nw.LAUNCHES["nw_app"]
+    nw.launch_nw(r, q, out, grid=grid)
+    assert nw.LAUNCHES["nw_app"] == before + 1
+    assert torch.equal(out, nw.nw_matrix_plain(r, q))
+
+
+@pytest.mark.parametrize("case", range(len(fill_edges(
+    np.random.default_rng(0)))))
+def test_fill_kernel_at_its_edges(cuda, case, matrix_path):
+    """msa_nw.cu's fill at a strip's and a round's height +- 1, pair
+    counts around the sector group, 40,000 pairs (many waves of blocks),
+    ragged lengths with 0, protein bytes the matrix does not name."""
+    label, cenc, seqs, protein = fill_edges(np.random.default_rng(1))[case]
+    c, a = torch.from_numpy(cenc).to(cuda), torch.from_numpy(seqs).to(cuda)
+    t = (torch.from_numpy(load_scoring_matrix(matrix_path)).to(cuda)
+         if protein else None)
+    before = msa.LAUNCHES["msa_nw.fill"]
+    M = msa.nw_matrices_batch(c, a, t)
+    assert msa.LAUNCHES["msa_nw.fill"] == before + 1
+    want = msa.nw_matrices_batch_plain(c, a, t)
+    assert cube_err(M, want, msa.fill_args(c, a, None)[2][:len(seqs)]) == 0, \
+        label
 
 
 @pytest.mark.parametrize("shared", [True, False])

@@ -10,6 +10,7 @@ plain version counts.  The CUDA kernels are held to these plain versions
 on the card (tests/test_torch_cuda.py)."""
 import contextlib
 import io
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -288,4 +289,248 @@ def test_the_table_staging_variant_applies_to_the_fill():
 
     src = (_build.CSRC / "msa_nw.cu").read_text()
     out = edits(src, SHARED_TABLE)
-    assert "__ldg(trow" not in out and out.count("__ldg(") == 1
+    assert "__ldg(table + code" not in out and out.count("__ldg(") == 1
+    assert "stab[code[h] + ic]" in out
+
+
+# -- csrc/msa_nw.cu's fill: its strip schedule, emulated -------------------
+
+UNSET = np.iinfo(np.int64).min
+
+
+def _fill_constants() -> dict:
+    from genomics_tpu_torch import _build
+
+    src = (_build.CSRC / "msa_nw.cu").read_text()
+    return {k: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+            for k, name in (("pairs", "kPairs"), ("rows", "kRows"),
+                            ("chunk", "kChunk"), ("max_strips", "kMaxStrips"))}
+
+
+def _emulate_fill(cenc, seqs, slens, table, pairs, rows, chunk, max_strips):
+    """csrc/msa_nw.cu's fill, step by step, on compact codes (table [A, A]
+    or None for DNA): blocks of `pairs` pairs, rounds of `strips` strips of
+    `rows` rows, strip g of warp w at column t + 1 - (w (chunk + 3) + g)
+    at step t, the strip's last row handed on one step later inside a
+    warp and through a ring of 2 chunk steps between warps, the ring of
+    warp 0 filled a chunk ahead.  Every value a strip takes carries the
+    column it belongs to and, from a ring, the chunk that wrote it, and
+    the emulation asserts that these are the strip's column and an earlier
+    chunk; a round reads only the row the round before wrote.  Returns (M
+    [m+1, n_pad+1, B] int64, UNSET where never written, rounds)."""
+    m = len(cenc)
+    B, n_pad = seqs.shape
+    groups = 32 // pairs
+    lag_w = chunk + groups - 1
+    need = max(1, -(-m // rows))
+    rounds = -(-need // max_strips)
+    strips = max(-(-need // rounds), chunk)
+    strips = -(-strips // groups) * groups
+    warps = strips // groups
+    M = np.full((m + 1, n_pad + 1, B), UNSET, np.int64)
+    by_round = np.full(M.shape, -1)
+
+    def store(i, j, b, v, r):
+        assert M[i, j, b] == UNSET, (i, j, b)
+        M[i, j, b], by_round[i, j, b] = v, r
+
+    def score(ci, c):
+        if table is not None:
+            return int(table[ci, c])
+        return msa.MATCH if ci == c else msa.MISMATCH
+
+    GSE = msa.GAP_START + msa.GAP_EXTEND
+    GE, MIN = msa.GAP_EXTEND, msa.MIN_SCORE
+    for b0 in range(0, B, pairs):
+        n = [int(slens[b0 + p]) if b0 + p < B else -1 for p in range(pairs)]
+        steps = max(n) + (warps - 1) * lag_w + groups - 1
+        for r in range(rounds):
+            top = r * strips * rows
+            # ring[w][slot][p]: (M, Y, code, column, chunk that wrote it)
+            ring = [[[(0, 0, 0, -1, -9)] * pairs for _ in range(2 * chunk)]
+                    for _ in range(warps)]
+
+            def load(j, p, c):
+                b = b0 + p
+                if j > n[p]:
+                    return None
+                code = int(seqs[b, j - 1])
+                if r == 0:
+                    store(0, j, b, MIN, r)
+                    return (MIN, MIN, code, j, c)
+                assert 0 <= by_round[top, j, b] < r
+                v = int(M[top, j, b])
+                return (v, v, code, j, c)
+
+            for lk in range(chunk):
+                for p in range(pairs):
+                    e = load(lk + 1, p, -1)
+                    if e:
+                        ring[0][(lk + chunk) % (2 * chunk)][p] = e
+            i0 = [top + s * rows + 1 for s in range(strips)]
+            live = [[n[p] >= 0 and i0[s] <= m for p in range(pairs)]
+                    for s in range(strips)]
+            left = [[[MIN] * rows for _ in range(pairs)]
+                    for _ in range(strips)]
+            x = [[[MIN] * rows for _ in range(pairs)] for _ in range(strips)]
+            diag = [[0 if i0[s] == 1 else MIN] * pairs for s in range(strips)]
+            out = [[(0, 0, 0, -1)] * pairs for _ in range(strips)]
+            for s in range(strips):
+                for p in range(pairs):
+                    if live[s][p]:
+                        for i in range(i0[s], min(i0[s] + rows, m + 1)):
+                            store(i, 0, b0 + p, MIN, r)
+            if r == 0:
+                for p in range(pairs):
+                    if n[p] >= 0:
+                        store(0, 0, b0 + p, 0, r)
+            for c in range(-(-steps // chunk)):
+                loads = [[load((c + 1) * chunk + lk + 1, p, c)
+                          for p in range(pairs)] for lk in range(chunk)]
+                for k in range(chunk):
+                    t = c * chunk + k
+                    prev = [row[:] for row in out]   # the shuffle's sources
+                    for s in range(strips):
+                        w, g = divmod(s, groups)
+                        j = t + 1 - (w * lag_w + g)
+                        for p in range(pairs):
+                            if g == 0:
+                                e = ring[w][(t + chunk) % (2 * chunk)][p]
+                                im, iy, ic, col, wrote = e
+                            else:
+                                im, iy, ic, col = prev[s - 1][p]
+                                wrote = -1
+                            if live[s][p] and 1 <= j <= n[p]:
+                                assert col == j and wrote < c, (s, p, t)
+                                up, y, d = im, iy, diag[s][p]
+                                L, X = left[s][p], x[s][p]
+                                for h in range(rows):
+                                    i = i0[s] + h
+                                    ci = int(cenc[i - 1]) if i <= m else 0
+                                    y = max(GSE + up, GE + y)
+                                    X[h] = max(GSE + L[h], GE + X[h])
+                                    v = max(d + score(ci, ic), X[h], y)
+                                    d, L[h], up = L[h], v, v
+                                    if i <= m:
+                                        store(i, j, b0 + p, v, r)
+                                diag[s][p] = im
+                                out[s][p] = (up, y, ic, j)
+                            if g == groups - 1 and w + 1 < warps:
+                                ring[w + 1][t % (2 * chunk)][p] = (
+                                    *out[s][p], c)
+                for lk in range(chunk):
+                    for p in range(pairs):
+                        if loads[lk][p]:
+                            ring[0][(c * chunk + lk) % (2 * chunk)][p] = \
+                                loads[lk][p]
+    return M, rounds
+
+
+def _fill_case(case, matrix_path):
+    """(cenc, seqs [B, n_pad], sub_table [256, 256] or None) of a case."""
+    rng = np.random.default_rng(len(case))
+    dna = np.frombuffer(b"ACGT", np.uint8)
+    kind, m, lens = case
+    if kind == "protein":
+        # letters the matrix names, and J, O, U and digits it does not
+        letters = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWYJOU09", np.uint8)
+        table = load_scoring_matrix(matrix_path)
+    else:
+        letters, table = dna, None
+    cenc = letters[rng.integers(0, len(letters), m)]
+    seqs = np.zeros((len(lens), max(max(lens), 1)), np.uint8)
+    for k, n in enumerate(lens):
+        base = cenc[rng.integers(0, m, n)] if m else letters[:1].repeat(n)
+        flip = rng.random(n) < 0.3
+        base[flip] = letters[rng.integers(0, len(letters), int(flip.sum()))]
+        seqs[k, :n] = base
+    return cenc, seqs, table
+
+
+def _lens(B, lo, hi, seed, zero=True):
+    lens = list(np.random.default_rng(seed).integers(lo, hi + 1, B))
+    if zero and B > 2:
+        lens[1] = 0
+    return lens
+
+
+# (kind, m, the sequences' lengths, (rows, chunk, max_strips) or None for
+# the kernel's constants): m below one strip; m not a multiple of the
+# strip; 1, 7, 9 and 33 pairs, ragged lengths with 0; protein with bytes
+# the matrix does not name; strips of a second warp (m > 4 strips); and
+# rounds (2 rows a strip, 8 strips a round)
+FILL_CASES = [
+    ("dna", 5, _lens(7, 1, 12, 1), None),
+    ("dna", 19, [16], None),
+    ("dna", 45, _lens(9, 0, 30, 2), None),
+    ("dna", 11, _lens(33, 1, 14, 3), None),
+    ("protein", 35, _lens(9, 3, 17, 4), None),
+    ("dna", 37, _lens(7, 5, 20, 5), (2, 8, 8)),
+    ("protein", 40, _lens(9, 0, 9, 6), (2, 4, 8)),
+]
+
+
+@pytest.mark.parametrize("kind,m,lens,shape", FILL_CASES)
+def test_fill_strip_schedule_matches_plain_and_jax(kind, m, lens, shape,
+                                                   matrix_path):
+    const = _fill_constants()
+    rows, chunk, max_strips = shape or (const["rows"], const["chunk"],
+                                        const["max_strips"])
+    cenc, seqs, table = _fill_case((kind, m, lens), matrix_path)
+    c, s = torch.from_numpy(cenc), torch.from_numpy(seqs)
+    t = None if table is None else torch.from_numpy(table)
+    args = msa.fill_args(c, s, t)   # the launch's own inputs, on the CPU
+    B, P = len(lens), args[8]
+    assert args[9] == B and P % const["pairs"] == 0 and 0 <= P - B < 8
+    compact = None if table is None else args[3].numpy()
+    got, rounds = _emulate_fill(args[0].numpy(), args[1].numpy().T,
+                                args[2].numpy(), compact, const["pairs"],
+                                rows, chunk, max_strips)
+    assert not args[2][B:].any()   # the pads: pairs of length 0
+    # the pads: column 0 written, nothing past it
+    assert (got[:, 0, B:] != UNSET).all() and (got[:, 1:, B:] == UNSET).all()
+    assert rounds == -(-max(1, -(-m // rows)) // max_strips)
+    if shape:
+        assert rounds > 1
+    want = msa.nw_matrices_batch_plain(c, s, t).numpy()
+    jt = None if table is None else jnp.asarray(table)
+    jax_M = np.asarray(jmsa.nw_matrices_batch(jnp.asarray(cenc),
+                                              jnp.asarray(seqs), jt))
+    got = got.transpose(2, 0, 1)
+    assert list(args[2][:B].numpy()) == lens
+    for k, n in enumerate(lens):   # each pair within its own length only
+        np.testing.assert_array_equal(got[k, :, :n + 1], want[k, :, :n + 1])
+        np.testing.assert_array_equal(got[k, :, :n + 1], jax_M[k, :, :n + 1])
+        assert (got[k, :, n + 1:] == UNSET).all()
+
+
+def test_fill_constants_are_the_wrappers():
+    const = _fill_constants()
+    assert (msa.FILL_PAIRS, msa.FILL_ROWS) == (const["pairs"], const["rows"])
+    assert msa.FILL_ROUND_ROWS == const["rows"] * const["max_strips"]
+    assert 4 * msa.FILL_PAIRS == 32   # a warp: 8 pairs x 4 strips
+
+
+def test_backtrack_args_read_the_padded_storage_in_place():
+    """The fill's [m+1, n_pad+1, P] storage (P: B rounded up to whole
+    sectors) goes to the backtrack as it is, the pads as pairs of length
+    0; any other layout is copied to [m+1, n_pad+1, B]; no pairs, no
+    pads."""
+    seqs = _dna_set(13, n=10, L=20)
+    cenc, arr, slens = msa.pack_pairs(seqs, 0)
+    c, a, sl = (torch.from_numpy(v) for v in (cenc, arr, slens))
+    B, (m1, n1) = len(slens), (len(cenc) + 1, arr.shape[1] + 1)
+    want = msa.nw_matrices_batch_plain(c, a)
+    P = -(-B // msa.FILL_PAIRS) * msa.FILL_PAIRS
+    store = torch.zeros((m1, n1, P), dtype=torch.int32)
+    store[:, :, :B] = want.permute(1, 2, 0)
+    view = store.permute(2, 0, 1)[:B]
+    args = msa.backtrack_args(view, c, a, sl, None)
+    assert args[0].data_ptr() == store.data_ptr() and args[10:] == (P, B)
+    assert args[2].shape == (n1 - 1, P) and not args[3][B:].any()
+    assert args[6].shape == (P, m1) and args[7].shape == (P, n1)
+    args = msa.backtrack_args(want, c, a, sl, None)
+    assert args[10:] == (B, B) and args[0].is_contiguous()
+    assert torch.equal(args[0], want.permute(1, 2, 0))
+    empty = msa.backtrack_args(view[:0], c, a[:0], sl[:0], None)
+    assert empty[10:] == (0, 0)

@@ -1,13 +1,24 @@
-"""The schedule of csrc/nw_app.cu, emulated in numpy on the CPU: one
-launch per diagonal of kTile x kTile tiles, one warp a tile, thread t of
-a tile owning its row t and computing column s - t at step s.  The
-emulation stamps every cell of the output with the launch that wrote it
-and every cell of a tile with the step that computed it, and shows that a
-tile reads from global memory only cells that tiles of earlier diagonals
-wrote (its edges), and that a step reads from the shared tile only cells
-of earlier steps; its matrix equals the gold and the plain version at
-sizes around the tile's edges.  The kernel itself runs only on the card
-(tests/test_torch_cuda.py holds it to the plain version)."""
+"""The schedule of csrc/nw_app.cu, emulated in numpy on the CPU: the rows
+cut into stripes of 32 kRows rows, one warp a stripe taken from an atomic
+ticket, lane t computing column s - t of its kRows rows at step s, the
+cells staged in a ring of kRing columns and written out a chunk of kChunk
+columns at a time, each chunk published in the stripe's progress flag,
+and lane 0 waiting on the flag of the stripe above before the warp loads
+the next 32 columns of that stripe's last row, kLead steps before their
+use.
+
+The warps run as generators that a seeded random scheduler interleaves
+step by step, with fewer resident warps than stripes where a case says
+so (the ticket then hands the later stripes to warps that finished).  The
+emulation stamps every output cell with the (stripe, chunk) that wrote
+it, and shows that a stripe reads only cells of the row above that the
+stripe above has written and published, that every value a lane takes
+from the lane before it (or lane 0 from the row above) is of the column
+it computes, and that a chunk's write-out reads the ring's cells of that
+chunk; its matrix equals the gold and the plain version at N = 1, at the
+stripe height +- 1 and at a chunk width that does not divide N.  The
+kernel itself runs only on the card (tests/test_torch_cuda.py holds it to
+the plain version)."""
 import re
 
 import numpy as np
@@ -21,97 +32,152 @@ from genomics_tpu_torch.models import nw
 MATCH, MISMATCH, INS, DEL = 1, -1, -1, -1
 
 
-def _tile_side() -> int:
+def _constants() -> dict:
     src = (_build.CSRC / "nw_app.cu").read_text()
-    return int(re.search(r"constexpr int kTile = (\d+);", src).group(1))
+    return {k: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+            for k, name in (("rows", "kRows"), ("chunk", "kChunk"),
+                            ("ring", "kRing"), ("lead", "kLead"))}
 
 
-def _emulate(ref, qry, T):
-    """nw_app_launch's launches over N = len(ref): returns (out, the
-    number of launches)."""
+def _emulate(ref, qry, rows, chunk, ring, lead, resident, seed):
+    """nw_app_launch's kernel over N = len(ref) with `resident` warps:
+    returns (out, each cell's stripe, each cell's chunk, the stripes each
+    warp took)."""
     N = len(ref)
-    nt = -(-N // T)
+    stripe = 32 * rows
+    stripes = -(-N // stripe)
     out = np.zeros((N, N), np.int64)
-    written = np.full((N, N), -1)   # the launch that wrote each cell
+    by_stripe = np.full((N, N), -1)
+    by_chunk = np.full((N, N), -1)
+    flags = [0] * (stripes + 1)   # the ticket, then each stripe's progress
+    t = np.arange(32)
 
-    def read(q, r, d):
-        assert 0 <= written[q, r] < d, (q, r, d, written[q, r])
-        return out[q, r]
+    def warp(taken):
+        while True:
+            k = flags[0]           # atomicAdd: no yield in between
+            flags[0] += 1
+            if k >= stripes:
+                return
+            taken.append(k)
+            q0 = k * stripe
+            qt = q0 + t * rows
+            qc = np.array([[qry[q] if q < N else 0 for q in qt + h]
+                           for h in range(rows)]).T   # [32, rows]
+            left = np.zeros((32, rows), np.int64)
+            staged = np.zeros((stripe, ring), np.int64)
+            staged_col = np.full((stripe, ring), -1)
 
-    launches = 0
-    for d in range(2 * nt - 1):
-        launches += 1
-        for a in range(max(0, d - nt + 1), min(d, nt - 1) + 1):
-            b = d - a
-            q0, r0 = a * T, b * T
-            t = np.arange(T)
-            q, r = q0 + t, r0 + t
-            # the edges, from global memory or the boundary
-            top = np.zeros(T + 1, np.int64)
-            for c in range(T):
+            def wait_for(cols):
+                while k > 0 and flags[k] < cols:
+                    yield
+
+            def above(c):
+                """(M[q0 - 1][c], ref[c], c) for c < N."""
+                if c >= N:
+                    return (0, 0, -1)
                 if q0 == 0:
-                    top[1 + c] = (r[c] + 1) * DEL
-                elif r[c] < N:
-                    top[1 + c] = read(q0 - 1, r[c], d)
-            if r0 == 0:
-                top[0] = q0 * INS
-            elif q0 == 0:
-                top[0] = r0 * DEL
-            else:
-                top[0] = read(q0 - 1, r0 - 1, d)
-            left_edge = np.zeros(T, np.int64)
-            for k in range(T):
-                if r0 == 0:
-                    left_edge[k] = (q[k] + 1) * INS
-                elif q[k] < N:
-                    left_edge[k] = read(q[k], r0 - 1, d)
-            rseg = np.where(r < N, ref[np.minimum(r, N - 1)], 0)
-            qc = np.where(q < N, qry[np.minimum(q, N - 1)], 0)
-            tile = np.zeros((T, T), np.int64)
-            step_of = np.full((T, T), -1)
-            left = left_edge.copy()
-            for s in range(2 * T - 1):
-                for th in range(T):
-                    c = s - th
-                    if not 0 <= c < T:
+                    return ((c + 1) * DEL, int(ref[c]), c)
+                assert by_stripe[q0 - 1, c] == k - 1 and c < flags[k], (k, c)
+                return (int(out[q0 - 1, c]), int(ref[c]), c)
+
+            yield from wait_for(min(32, N))
+            cur = [above(c) for c in range(32)]
+            nxt = None
+            carry = [(0, 0, -1)] * 32       # (M, ref byte, column) a lane
+            diag = np.zeros(32, np.int64)
+            for s in range(N + 31):
+                if s % 32 == 0 and s:
+                    cur = nxt
+                if s % 32 == 32 - lead and s + lead < N:
+                    yield from wait_for(min(s + lead + 32, N))
+                    nxt = [above(s + lead + c) for c in range(32)]
+                got = [cur[s % 32]] + carry[:31]   # lane 0: the row above
+                for lane in range(32):
+                    j = s - lane
+                    if not 0 <= j < N:
                         continue
-                    if th == 0:
-                        up, dg = top[c + 1], top[c]
-                    else:
-                        assert 0 <= step_of[th - 1, c] < s
-                        up = tile[th - 1, c]
-                        if c == 0:
-                            dg = left_edge[th - 1]
-                        else:
-                            assert 0 <= step_of[th - 1, c - 1] < s
-                            dg = tile[th - 1, c - 1]
-                    sub = MATCH if rseg[c] == qc[th] else MISMATCH
-                    v = max(up + INS, dg + sub, left[th] + DEL)
-                    tile[th, c], step_of[th, c] = v, s
-                    left[th] = v
-            rows = min(T, N - q0)
-            cols = min(T, N - r0)
-            out[q0:q0 + rows, r0:r0 + cols] = tile[:rows, :cols]
-            written[q0:q0 + rows, r0:r0 + cols] = d
-    assert (written >= 0).all()
-    return out, launches
+                    up0, rc, col = got[lane]
+                    assert col == j, (k, s, lane, col)
+                    if j == 0:
+                        diag[lane] = qt[lane] * INS
+                        left[lane] = (qt[lane] + np.arange(rows) + 1) * INS
+                    d, up = diag[lane], up0
+                    for h in range(rows):
+                        sub = MATCH if rc == qc[lane, h] else MISMATCH
+                        v = max(d + sub, left[lane, h] + DEL, up + INS)
+                        d, left[lane, h], up = left[lane, h], v, v
+                        staged[lane * rows + h, j % ring] = v
+                        staged_col[lane * rows + h, j % ring] = j
+                    diag[lane] = up0
+                    carry[lane] = (up, rc, j)
+                done = s - 31
+                if 0 <= done < N and ((done + 1) % chunk == 0
+                                      or done == N - 1):
+                    c0 = done - done % chunk
+                    for r in range(min(stripe, N - q0)):
+                        for c in range(c0, done + 1):
+                            assert staged_col[r, c % ring] == c
+                            assert by_stripe[q0 + r, c] == -1
+                            out[q0 + r, c] = staged[r, c % ring]
+                            by_stripe[q0 + r, c] = k
+                            by_chunk[q0 + r, c] = c // chunk
+                    flags[k + 1] = done + 1
+                yield
+
+    rng = np.random.default_rng(seed)
+    taken = [[] for _ in range(resident)]
+    live = [warp(taken[w]) for w in range(resident)]
+    while live:
+        w = int(rng.integers(len(live)))
+        try:
+            next(live[w])
+        except StopIteration:
+            live.pop(w)
+    return out, by_stripe, by_chunk, taken
 
 
-@pytest.mark.parametrize("N,T", [(1, None), (9, None), (33, None),
-                                 (70, None), (23, 8)])
-def test_tile_schedule_reads_only_earlier_diagonals(N, T):
-    T = T or _tile_side()
+# (N, rows, chunk, lead, resident warps): N = 1; the stripe's height +- 1
+# at the kernel's own constants; stripes of 32 rows with chunks of 16 and
+# 8 that do not divide N, the row above loaded 32 and 1 steps ahead, fewer
+# resident warps than stripes
+CASES = [(1, None, None, None, 1), (-1, None, None, None, 2),
+         (+1, None, None, None, 1), (70, 1, 16, None, 2),
+         (100, 1, 8, 32, 2), (33, 1, 32, 1, 3), (97, 1, 16, 1, 3)]
+
+
+@pytest.mark.parametrize("N,rows,chunk,lead,resident", CASES)
+def test_stripes_read_only_published_rows(N, rows, chunk, lead, resident):
+    const = _constants()
+    if N in (-1, +1):   # the kernel's stripe height -+ 1
+        N += 32 * const["rows"]
+    rows = rows or const["rows"]
+    chunk = chunk or const["chunk"]
+    lead = lead or const["lead"]
     rng = np.random.default_rng(N)
     ref = rng.integers(0, 4, N).astype(np.uint8)
     qry = nw.generate_query(ref, rng) % 4
-    got, launches = _emulate(ref, qry, T)
-    assert launches == 2 * -(-N // T) - 1
-    if T == nw.TILE:
-        assert launches == nw.tile_launches(N)
+    got, by_stripe, by_chunk, taken = _emulate(ref, qry, rows, chunk,
+                                               const["ring"], lead, resident,
+                                               N)
+    stripe = 32 * rows
+    q = np.arange(N)
+    np.testing.assert_array_equal(by_stripe, np.repeat(q[:, None] // stripe,
+                                                       N, 1))
+    np.testing.assert_array_equal(by_chunk, np.repeat(q[None, :] // chunk,
+                                                      N, 0))
+    stripes = -(-N // stripe)
+    assert sorted(sum(taken, [])) == list(range(stripes))
+    if stripes > resident:   # the ticket gave a warp a second stripe
+        assert max(len(x) for x in taken) > 1
     np.testing.assert_array_equal(got, golds.nw_cpu(ref, qry))
     np.testing.assert_array_equal(
         got, nw.nw_matrix(torch.from_numpy(ref), torch.from_numpy(qry)).numpy())
 
 
-def test_tile_side_is_the_wrappers():
-    assert _tile_side() == nw.TILE
+def test_stripe_height_is_the_wrappers():
+    const = _constants()
+    assert 32 * const["rows"] == nw.STRIPE
+    assert const["ring"] >= const["chunk"] + 31 and const["chunk"] % 4 == 0
+    assert 1 <= const["lead"] <= 32
+    assert nw.flag_words(1) == 2 and nw.flag_words(nw.STRIPE + 1) == 3
+    assert [nw.launches_per_call(N) for N in (0, 1, 32768)] == [0, 2, 2]

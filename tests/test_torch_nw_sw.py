@@ -49,8 +49,13 @@ def test_generate_query_and_run_match_jax():
 
 
 def test_nw_tile_launches():
-    assert [nw.tile_launches(N) for N in (0, 1, 32, 33, 257, 32768)] == [
-        0, 1, 1, 3, 17, 2047]
+    """A call's CUDA launches no longer grow with N: the flags' memset and
+    one kernel (the tile-diagonal schedule made 2 ceil(N / 32) - 1)."""
+    assert [nw.launches_per_call(N) for N in (0, 1, 32, 33, 257, 32768)] == [
+        0, 2, 2, 2, 2, 2]
+    S = nw.STRIPE
+    assert [nw.flag_words(N) for N in (1, S, S + 1, 32768)] == [
+        2, 2, 3, 32768 // S + 1]
 
 
 def _sw_cases():
