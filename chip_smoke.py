@@ -134,17 +134,23 @@ Then the NW, SW and MSA apps (`apps`), phases 3-5 of their own:
             around the 8-pair sector group, 40,000 pairs, ragged lengths
             with 0, protein bytes the matrix does not name); sw_app at
             sw_edges (one window, windows shorter than L, a one-base and
-            an empty fragment, two columns a thread; the row in shared
-            memory and in the scratch), the MSA fill and backtrack at
-            msa_edges (one sequence, identical sequences, sequences longer
-            and shorter than the center, one of length 1, a protein table;
-            the host gold too, msa() on the card == on the CPU), msa() in
-            chunks of 16 pairs == one call;
+            an empty fragment, two columns a thread) and at
+            sw_stripe_edges (n = 0 and 1, a stripe's height +- 1, a tile's
+            width +- 1 and below it, one window, windows shorter than L,
+            a copy across a tile's edge; each on the card's resident
+            blocks and on a grid of fewer blocks than stripes), the MSA
+            fill and backtrack at msa_edges (one sequence, identical
+            sequences, sequences longer and shorter than the center, one
+            of length 1, a protein table; the host gold too, msa() on the
+            card == on the CPU) and at backtrack_edges (a sequence of
+            length 1, gap runs past a round's 32 lanes, ties of a vertical
+            and a horizontal run, the fill's pitch not the pair count),
+            msa() in chunks of 16 pairs == one call;
 4. apps     nw.run(N=4,096) against nw_cpu and N=32,768 torch.equal to
             the plain version; sw.align of a 1,000 bp fragment against
             300,000 bp holding a mutated copy, and its first 200 bp in
-            windows of 45,000 (rows past sw.SHARED_ROW_BYTES: the global
-            scratch), against golds.sw_best_alignment; msa() and `python -m
+            windows of 45,000 (7 windows: the rows of each spread over 17
+            stripes), against golds.sw_best_alignment; msa() and `python -m
             genomics_tpu_torch msa` over run_all.py's 2,048 x 120, 1,024
             sequences of about 1,500 bp with substitutions and indels (a
             9.2 GB cube) and 512 x ~300 protein sequences under a synthetic
@@ -155,10 +161,11 @@ Then the NW, SW and MSA apps (`apps`), phases 3-5 of their own:
             before and read after;
 5. timings  each app kernel and its plain version at those sizes (SW's
             wide windows too; NW also at nw.run's 4,096), with
-            nw_app's CUDA launches a call (beside a CUDA graph's replay),
-            the fill's G cells/s and GB written, the backtrack's steps,
-            words read and sector floor, each beside its bound, NW / SW
-            cells/s and MSA seqs/s.
+            nw_app's and sw_app's CUDA launches a call (NW beside a CUDA
+            graph's replay), the fill's G cells/s and GB written, the
+            backtrack's steps, rounds, words loaded against the words a
+            one-thread walk needs and sector floor, each beside its bound,
+            NW / SW cells/s and MSA seqs/s.
 
 Then one JSON line with the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  With --profile, phases 3-5 give way to
@@ -998,8 +1005,8 @@ NW_RUN_N, NW_BIG_N = 4096, 32768
 # (3 x 1,000 with an overlap of 1,000: 100 windows, the first 201,000 bp)
 SW_X, SW_Y, SW_PLANT = 1000, 300_000, 123_457
 # and the fragment's first 200 bp in windows of 45,000 (`sw -w 45000`):
-# 7 windows whose rows (45,001 int32) pass sw.SHARED_ROW_BYTES, so
-# sw_app keeps them in its global scratch
+# 7 windows of 22 tiles, the wide case (one block a window left 125 of
+# 132 SMs idle there)
 SW_WIDE_X, SW_WIDE = 200, 45_000
 # MSA: run_all.py's bench_msa (2,048 x 120, substitutions only), 1,024
 # sequences of about 1,500 bp with substitutions and indels, 512 protein
@@ -1068,6 +1075,37 @@ def sw_edges(rng) -> list:
                 for _ in range(3)]))]
 
 
+def sw_stripe_edges(rng) -> list:
+    """(label, x, windows, grid) numpy uint8 cases at the edges of
+    sw_app.cu's stripes of sw.ROWS rows and tiles of sw.TILE columns: n =
+    0 and 1, n at a stripe's height +- 1, L at a tile's width +- 1 and
+    below it, one window, windows shorter than L (0 pads, one empty) and
+    a copy of x across a tile's edge.  `grid`: fewer blocks than the
+    case's stripes, so that blocks take more than one ticket."""
+    from genomics_tpu_torch.models import sw
+
+    R, T = sw.ROWS, sw.TILE
+    a = np.frombuffer(DNA.encode(), np.uint8)
+    shapes = [("n = 0", 0, 50, 2), ("n = 1", 1, 30, 3),
+              ("n = R - 1", R - 1, T + 1, 2), ("n = R + 1", R + 1, T + 1, 2),
+              ("L = T - 1", R + 3, T - 1, 2), ("L = T + 1", 2 * R, T + 1, 3),
+              ("L < T", R + 2, T // 2 + 3, 3),
+              ("one window", 3 * R + 1, T + 7, 1),
+              ("windows shorter than L", R + 1, T + 5, 5),
+              ("a copy across a tile's edge", 40, T + 100, 2)]
+    out = []
+    for label, n, L, W in shapes:
+        x = a[rng.integers(0, 4, n)]
+        wins = a[rng.integers(0, 4, (W, L))]
+        if label == "windows shorter than L":
+            for k, m in enumerate(rng.integers(0, L, W)):
+                wins[k, (0 if k == 1 else m):] = 0
+        if label == "a copy across a tile's edge":
+            wins[1, T - 20:T + 20] = x   # columns T - 19 .. T + 20
+        out.append((label, x, wins, max(1, W * sw.stripes(n) - 1)))
+    return out
+
+
 def msa_edges(rng) -> list:
     """(label, seqs, protein) cases at the MSA kernels' edges."""
     base = random_seq(rng, 60)
@@ -1081,6 +1119,31 @@ def msa_edges(rng) -> list:
              False),
             ("protein table", [mutate(rng, prot, 0.1, 0.1, PROTEIN)
                                for _ in range(6)] + ["W", prot.lower()], True)]
+
+
+def backtrack_edges(rng) -> list:
+    """(label, seqs, protein) cases at the edges of msa_nw.cu's backtrack,
+    the center first: a sequence of length 1; gap runs longer than a
+    round's 32 lanes (sequences much shorter and much longer than the
+    center, a deletion of 42); ties between a vertical and a horizontal
+    run at equal k (the walks of the last two sequences meet one); and
+    pair counts whose fill pitch is not the count (9 pairs: pitch 16;
+    one protein pair: pitch 8)."""
+    base = random_seq(rng, 80)
+    prot = random_seq(rng, 50, PROTEIN)
+    return [("a sequence of length 1",
+             [base, "A", "G", mutate(rng, base, 0.05, 0.05)], False),
+            ("gap runs longer than 32",
+             [base, base[:10], base[:20] + base[62:],
+              base + random_seq(rng, 70), random_seq(rng, 5) + base[45:]],
+             False),
+            ("ties at equal k", ["CGTTAATTACTC", "GTAATTAC", "CTGTACTATAC",
+                                 "CAGTTAATGATCT"], False),
+            ("9 pairs: pitch 16",
+             [base] + [mutate(rng, base, 0.05, 0.05) for _ in range(9)],
+             False),
+            ("one protein pair: pitch 8",
+             [prot, mutate(rng, prot, 0.1, 0.1, PROTEIN)[:20]], True)]
 
 
 def nw_stripe_edges(stripe: int) -> tuple:
@@ -1294,18 +1357,21 @@ def apps(seed: int, dev, smi: str, peak: float) -> dict:
                                              device=dev), grid=grid)
         err["nw_app"] = max(err["nw_app"], cube_err(
             got[None], nw.nw_matrix_plain(r, q)[None]))
-    for label, x, wins in sw_edges(rng):
+    # sw_edges, then the stripes' and tiles' edges on the card's resident
+    # blocks and on fewer blocks than stripes (a generator of their own)
+    srng = np.random.default_rng(seed + 16)
+    sw_cases = [(*c, None) for c in sw_edges(rng)]
+    for label, x, wins, grid in sw_stripe_edges(srng):
+        sw_cases += [(label, x, wins, None), (label, x, wins, grid)]
+    for label, x, wins, grid in sw_cases:
         xd, wd = torch.from_numpy(x).to(dev), torch.from_numpy(wins).to(dev)
         W, L = wins.shape
         want = sw.sw_matrix_batch_plain(xd, wd)
-        for scratch in (None, torch.empty((W, L + 1), dtype=torch.int32,
-                                          device=dev)):
-            H = torch.empty((W, len(x) + 1, L + 1), dtype=torch.int32,
-                            device=dev)
-            got = sw.launch_sw(xd, wd, H, torch.empty(W, dtype=torch.int32,
-                                                      device=dev), scratch)
-            err["sw_app"] = max(err["sw_app"], cube_err(got[0], want[0]),
-                                max_abs_err(got[1:], want[1:]))
+        H = torch.empty((W, len(x) + 1, L + 1), dtype=torch.int32, device=dev)
+        got = sw.launch_sw(xd, wd, H, torch.empty(W, dtype=torch.int32,
+                                                  device=dev), grid=grid)
+        err["sw_app"] = max(err["sw_app"], cube_err(got[0], want[0]),
+                            max_abs_err(got[1:], want[1:]))
     mpath = os.path.join(tmp.name, "edges.txt")
     with open(mpath, "w") as fh:
         fh.write(ncbi_matrix(rng))
@@ -1321,6 +1387,16 @@ def apps(seed: int, dev, smi: str, peak: float) -> dict:
         fill_labels.append(label)
         del fa
     for label, seqs, protein in msa_edges(rng):
+        fe, be, *_ = msa_kernel_err(dev, seqs, 0, table if protein else None)
+        err["msa_nw.fill"] = max(err["msa_nw.fill"], fe)
+        err["msa_nw.backtrack"] = max(err["msa_nw.backtrack"], be)
+        path = mpath if protein else None
+        if msa.msa(seqs, matrix_path=path, device=dev) != msa.msa(
+                seqs, matrix_path=path, device="cpu"):
+            raise AssertionError(f"msa() on the card differs from the CPU's "
+                                 f"at the edge {label!r}")
+    # the backtrack's edges: the fill's pitch apart from the pair count
+    for label, seqs, protein in backtrack_edges(srng):
         fe, be, *_ = msa_kernel_err(dev, seqs, 0, table if protein else None)
         err["msa_nw.fill"] = max(err["msa_nw.fill"], fe)
         err["msa_nw.backtrack"] = max(err["msa_nw.backtrack"], be)
@@ -1348,11 +1424,14 @@ def apps(seed: int, dev, smi: str, peak: float) -> dict:
     log("3 parity", f"apps: nw_app at N={NW_EDGE_N} and (N, grid) "
         f"{nw_stripe_edges(nw.STRIPE)}, msa_nw fill at {fill_labels}, "
         f"sw_app at "
-        f"{[lb for lb, *_ in sw_edges(np.random.default_rng(0))]} (rows in "
-        f"shared memory and in the scratch), msa_nw fill and backtrack at "
-        f"{[lb for lb, *_ in msa_edges(np.random.default_rng(0))]} (and the "
-        f"host gold), msa() in chunks of 16 pairs == one call == the CPU's: "
-        f"== plain")
+        f"{[lb for lb, *_ in sw_edges(np.random.default_rng(0))]} and "
+        f"{[lb for lb, *_ in sw_stripe_edges(np.random.default_rng(0))]} "
+        f"(each also on fewer blocks than stripes), msa_nw fill and "
+        f"backtrack at "
+        f"{[lb for lb, *_ in msa_edges(np.random.default_rng(0))]} and "
+        f"{[lb for lb, *_ in backtrack_edges(np.random.default_rng(0))]} "
+        f"(and the host gold), msa() in chunks of 16 pairs == one call == "
+        f"the CPU's: == plain")
 
     # -- 4. the apps end to end -------------------------------------------
     launches, walls = {}, {}
@@ -1388,9 +1467,6 @@ def apps(seed: int, dev, smi: str, peak: float) -> dict:
     if (res["score"], res["location"], res["window"], res["cigar"]) != gold:
         raise AssertionError(f"sw.align differs from the gold: {res} vs "
                              f"{gold}")
-    if sw.shared_row(SW_WIDE):
-        raise AssertionError(f"windows of {SW_WIDE} keep their rows in shared"
-                             f" memory; the wide case needs wider ones")
     t0 = time.time()
     wide = sw.align(x[:SW_WIDE_X], y, window_size=SW_WIDE, device=dev)
     walls["sw.align wide"] = time.time() - t0
@@ -1404,8 +1480,8 @@ def apps(seed: int, dev, smi: str, peak: float) -> dict:
         f" {SW_Y // (3 * SW_X)} windows of {3 * SW_X}: score {res['score']} at {res['location']}, "
         f"window {res['window']}, {res['cigar_compressed'][:40]}...; == "
         f"golds.sw_best_alignment ({gold_s:.1f} s); {walls['sw.align']:.3f} "
-        f"s; its first {SW_WIDE_X} bp in windows of {SW_WIDE} (rows in the "
-        f"global scratch): score {wide['score']} at {wide['location']}, "
+        f"s; its first {SW_WIDE_X} bp in windows of {SW_WIDE}: score "
+        f"{wide['score']} at {wide['location']}, "
         f"window {wide['window']}, == the gold, {walls['sw.align wide']:.3f}"
         f" s; launches {launches['sw_app']}")
 
@@ -1492,50 +1568,41 @@ def apps(seed: int, dev, smi: str, peak: float) -> dict:
             + (f"; plain {plain_ms['nw_app']:.1f} ms" if N == NW_BIG_N
                else "") + f"; on {smi}")
 
+    # sw_app at the app's default windows (the kernels line's shape) and
+    # at the wide case's, one path
     xd = torch.from_numpy(np.frombuffer(x.encode(), np.uint8).copy()).to(dev)
-    wd = torch.from_numpy(sw.split_windows(y.encode(), SW_X)[2]).to(dev)
-    W, L = wd.shape
-    H = torch.empty((W, SW_X + 1, L + 1), dtype=torch.int32, device=dev)
-    best = torch.empty(W, dtype=torch.int32, device=dev)
-    ms["sw_app"] = cuda_ms(lambda: sw.launch_sw(xd, wd, H, best, None), 5)
-    t0 = time.time()
-    want = sw.sw_matrix_batch_plain(xd, wd)
-    torch.cuda.synchronize()
-    plain_ms["sw_app"] = (time.time() - t0) * 1e3
-    err["sw_app"] = max(err["sw_app"], cube_err(H, want[0]),
-                        max_abs_err([best], want[1:]))
-    del want
-    cells = W * SW_X * L
-    bounds["sw_app"] = bound(APP_OPS["sw_app"] * cells,
-                             4 * W * (SW_X + 1) * (L + 1) + SW_X + W * L
-                             + 4 * W, peak)
-    log("5 timings", f"sw_app at {W} windows of {L} x {SW_X}: kernel "
-        f"{ms['sw_app']:.4f} ms ({cells / ms['sw_app'] / 1e6:.2f} G cells/s"
-        f"), 1 launch a call; plain {plain_ms['sw_app']:.1f} ms; bound "
-        f"{bounds['sw_app'][0]:.4f} ms by {bounds['sw_app'][1]}; the app "
-        f"{SW_Y * SW_X / walls['sw.align'] / 1e9:.2f} G cells/s of "
-        f"sequence x fragment through sw.align; on {smi}")
-    # the wide case's launch: rows in the global scratch
-    xw = xd[:SW_WIDE_X].clone()
-    ww = torch.from_numpy(sw.split_windows(y.encode(), SW_WIDE_X,
-                                           SW_WIDE)[2]).to(dev)
-    Ww, Lw = ww.shape
-    Hw = torch.empty((Ww, SW_WIDE_X + 1, Lw + 1), dtype=torch.int32,
-                     device=dev)
-    bw = torch.empty(Ww, dtype=torch.int32, device=dev)
-    scratch = torch.empty((Ww, Lw + 1), dtype=torch.int32, device=dev)
-    wide_ms = cuda_ms(lambda: sw.launch_sw(xw, ww, Hw, bw, scratch), 3)
-    want = sw.sw_matrix_batch_plain(xw, ww)
-    err["sw_app"] = max(err["sw_app"], cube_err(Hw, want[0]),
-                        max_abs_err([bw], want[1:]))
-    wide_bound = bound(APP_OPS["sw_app"] * Ww * SW_WIDE_X * Lw,
-                       4 * Ww * (SW_WIDE_X + 1) * (Lw + 1) + SW_WIDE_X
-                       + Ww * Lw + 4 * Ww, peak)
-    log("5 timings", f"sw_app at {Ww} windows of {Lw} x {SW_WIDE_X} (rows in "
-        f"the global scratch): kernel {wide_ms:.4f} ms "
-        f"({Ww * SW_WIDE_X * Lw / wide_ms / 1e6:.2f} G cells/s), bound "
-        f"{wide_bound[0]:.4f} ms by {wide_bound[1]}; on {smi}")
-    del want, Hw, H
+    for n, wsize in ((SW_X, None), (SW_WIDE_X, SW_WIDE)):
+        xs = xd[:n].clone()
+        wd = torch.from_numpy(sw.split_windows(y.encode(), n,
+                                               wsize)[2]).to(dev)
+        W, L = wd.shape
+        H = torch.empty((W, n + 1, L + 1), dtype=torch.int32, device=dev)
+        best = torch.empty(W, dtype=torch.int32, device=dev)
+        flags = torch.empty(sw.flag_words(n, W), dtype=torch.int32,
+                            device=dev)
+        k_ms = cuda_ms(lambda: sw.launch_sw(xs, wd, H, best, flags), 5)
+        t0 = time.time()
+        want = sw.sw_matrix_batch_plain(xs, wd)
+        torch.cuda.synchronize()
+        p_ms = (time.time() - t0) * 1e3
+        err["sw_app"] = max(err["sw_app"], cube_err(H, want[0]),
+                            max_abs_err([best], want[1:]))
+        del want, H
+        cells = W * n * L
+        bd = bound(APP_OPS["sw_app"] * cells,
+                   4 * W * (n + 1) * (L + 1) + n + W * L + 4 * W, peak)
+        log("5 timings", f"sw_app at {W} windows of {L} x {n}: kernel "
+            f"{k_ms:.4f} ms ({cells / k_ms / 1e6:.2f} G cells/s), "
+            f"{sw.launches_per_call(W)} CUDA launches a call (the flags' "
+            f"memset and one kernel; {W * sw.stripes(n)} stripes of "
+            f"{sw.ROWS} rows, {-(-L // sw.TILE)} tiles of {sw.TILE} "
+            f"columns); plain {p_ms:.1f} ms; bound {bd[0]:.4f} ms by "
+            f"{bd[1]}, {k_ms / bd[0]:.2f} x the bound"
+            + (f"; the app {SW_Y * SW_X / walls['sw.align'] / 1e9:.2f} G "
+               f"cells/s of sequence x fragment through sw.align"
+               if wsize is None else "") + f"; on {smi}")
+        if wsize is None:
+            ms["sw_app"], plain_ms["sw_app"], bounds["sw_app"] = k_ms, p_ms, bd
 
     for label, seqs, path, cidx, wall in runs:
         cenc, arr, slens = msa.pack_pairs(seqs, cidx)
@@ -1565,7 +1632,11 @@ def apps(seed: int, dev, smi: str, peak: float) -> dict:
             f"by {f_bound[1]} ({m * own / f_bound[0] / 1e6:.2f} G cells/s), "
             f"{f_ms / f_bound[0]:.2f} x the bound; backtrack {b_ms:.4f} ms, "
             f"plain {p_b:.1f} ms, "
-            f"{stats['steps']} steps, {stats['reads']} words read: sector "
+            f"{stats['steps']} steps in {stats['rounds']} rounds of "
+            f"{msa.BACKTRACK_DIAG} diagonal words or {msa.BACKTRACK_RUN} gap "
+            f"lengths ({stats['max_rounds']} the most of a pair), "
+            f"{stats['loaded']} words loaded for the {stats['reads']} a "
+            f"one-thread walk needs: sector "
             f"floor {floor:.4f} ms, bound {b_bound[0]:.4f} ms by "
             f"{b_bound[1]}; 1 launch each a call; msa() {len(seqs) / wall:.1f}"
             f" seqs/s; on {smi}")

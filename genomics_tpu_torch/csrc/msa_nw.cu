@@ -1,6 +1,6 @@
 // Center-star MSA's pairwise NW (CDP/STAR): the affine fill of every
 // (center, sequence) pair, many threads a pair, and its backtrack to gap
-// counts, one thread a pair, for Hopper (sm_90a).
+// counts, a warp a pair, for Hopper (sm_90a).
 //
 // Fill: replaces the jnp nw_matrices_batch of genomics_tpu/models/msa.py:103
 // (jnp, not Pallas), the reference's cuda_nw_3d (CDP/STAR/cuda-nw.cu:117-187)
@@ -62,18 +62,42 @@
 // else the least k = 1, 2, ... of a vertical run (M[i-k][j] + GAP_START +
 // k GAP_EXTEND == M[i][j], tested first) or a horizontal one, adding k to
 // so[j] (vertical) or space[i] (horizontal).  The first hit in that order is
-// the JAX kv <= kh rule.  It reads the matrices in place (no transposed
-// copy, msa.py:178-179), the wrapper's pads included; a walk that finds
-// no run at any k stops (only a pad's walk from (m, 0) does, after m
-// reads).
+// the JAX kv <= kh rule; a walk that finds no run at any k stops.  It reads
+// the fill's matrices in place, [m+1][n_pad+1][P] with the pair pitch P
+// passed apart from the pair count B, so the fill's pad pairs are never
+// walked.
+//
+// The backtrack's design.  A walk is a chain of dependent reads, each word
+// in a sector of its own (the cube is pair-innermost), so it is bound by
+// the latency of a load, not by bytes.  kLanes lanes take a pair and walk
+// it in rounds of parallel loads.  A diagonal round: lane t, for t <
+// kDiag and t <= min(i, j), takes the cell (i-t, j-t) that t diagonal
+// steps would reach and loads its diagonal word d_t (where t < min(i, j))
+// with the two bytes of its score, and its k = 1 vertical and horizontal
+// words.  Lane t's diagonal holds where s_t + d_t == d_{t-1} (d_{-1} the
+// current cell, d_{t-1} from lane t - 1 by shuffle); a ballot's first
+// failure f gives the diagonal steps taken, and lane f's k = 1 tests,
+// against d_{f-1}, give the gap step there in the same round (with
+// GAP_START = 0 every gap of a fill's matrix is a chain of k = 1 steps).
+// So a round takes up to kDiag diagonal steps and the gap step that ends
+// them, one load's latency.  Only where k = 1 fails do gap rounds follow:
+// lane t tests k = base + t + 1 (base from 1) for t < kRun, vertical and
+// horizontal words at once; two ballots give the least k, vertical first
+// at equal k; a longer run takes further rounds (base += kRun), and a
+// search past max(i, j) ends the walk.  Lane 0 alone updates so and space.
+// The groups of a warp run their rounds in lockstep, each on its own
+// pair.  Rounds a pair: about its gap events + its diagonal steps / kDiag;
+// the words a round loads past its first failure are loaded in vain
+// (chip_smoke.py prints the words loaded beside the words a one-thread
+// walk needs).
 //
 // Bounds: the fill writes the pairs' own cells, sum over pairs of (m+1)
 // (slen+1) 4 bytes, over 3.35 TB/s (its 11 integer operations a cell over
 // the INT32 peak are below that); the wavefront's ramp adds (strips / 4 -
-// 1) kLag + 3 steps to the n steps of a round.  The backtrack is a chain
-// of dependent scattered reads, one 32-byte sector a word, so its floor
-// is the words read over 3.35 TB/s at 32 bytes each; it runs one thread a
-// pair in 32-thread blocks.
+// 1) kLag + 3 steps to the n steps of a round.  The backtrack's floor is
+// the words a one-thread walk reads over 3.35 TB/s at 32 bytes each (one
+// sector a word); its critical path is the most rounds of any pair, a
+// load latency each.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,7 +108,10 @@ constexpr int kMatch = 0, kMismatch = -1;
 constexpr int kGapStart = 0, kGapExtend = -1;
 constexpr int kGSE = kGapStart + kGapExtend;
 constexpr int kMinScore = -32700;
-constexpr int kThreads = 32;     // the backtrack: pairs a block
+constexpr int kLanes = 32;       // the backtrack: lanes a pair
+constexpr int kDiag = 32;        // diagonal words a round (lanes 0 .. kDiag-1)
+constexpr int kRun = 32;         // gap lengths k a round (lanes 0 .. kRun-1)
+constexpr int kWalkThreads = 256;   // the backtrack's block
 constexpr int kPairs = 8;        // the fill: pairs a block, a sector of int32
 constexpr int kGroups = 32 / kPairs;   // strips a warp
 constexpr int kRows = 8;         // rows a strip
@@ -92,6 +119,9 @@ constexpr int kChunk = 8;        // steps between the block's barriers
 constexpr int kMaxStrips = 96;   // strips a round: 768 threads, 80 registers
 constexpr int kLag = kChunk + kGroups - 1;   // warp w + 1 behind warp w
 static_assert(kGapStart >= 0, "a round starts from the M row above it");
+static_assert(32 % kLanes == 0 && kDiag <= kLanes && kRun <= kLanes &&
+                  kWalkThreads % 32 == 0,
+              "a pair's lanes in one warp");
 
 // the fill's shared rings: warp w's strip 0 reads ring w, written by warp
 // w - 1's strip 3 (ring 0: by the loaders); [warps][2 kChunk][kPairs] each
@@ -223,63 +253,115 @@ msa_fill_kernel(const uint8_t* __restrict__ center,
 }
 
 template <bool kTable>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWalkThreads)
 msa_backtrack_kernel(const int* __restrict__ M,
                      const uint8_t* __restrict__ center,
                      const uint8_t* __restrict__ seqs,   // [n_pad][B]
                      const int* __restrict__ slens,
                      const int* __restrict__ table, int A,
                      int* __restrict__ space, int* __restrict__ so, int m,
-                     int n_pad, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const size_t sB = static_cast<size_t>(B);
-  const size_t rs = static_cast<size_t>(n_pad + 1) * sB;
+                     int n_pad, int P, int B) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int u = lane % kLanes, g0 = lane - u;   // lane in the group, its first
+  const unsigned group = (kLanes == 32 ? kAll : (1u << (kLanes & 31)) - 1)
+                         << g0;
+  const int b = (blockIdx.x * kWalkThreads + threadIdx.x) / kLanes;
+  const size_t sP = static_cast<size_t>(P), sB = static_cast<size_t>(B);
+  const size_t rs = static_cast<size_t>(n_pad + 1) * sP;
   const int* Mb = M + b;
   int* sp = space + b * static_cast<size_t>(m + 1);
   int* sob = so + b * static_cast<size_t>(n_pad + 1);
-  int i = m, j = slens[b];
-  int cur = Mb[i * rs + j * sB];
-  while (i != 0 || j != 0) {
-    if (i > 0 && j > 0) {
-      const int ci = center[i - 1];
-      const int sj = seqs[(j - 1) * sB + b];
-      const int s = kTable ? __ldg(table + ci * A + sj)
-                           : (ci == sj ? kMatch : kMismatch);
-      const int d = Mb[(i - 1) * rs + (j - 1) * sB];
-      if (s + d == cur) {
-        --i;
-        --j;
-        cur = d;
-        continue;
+  int i = m, j = 0, cur = 0, base = 0;
+  bool diag = true, live = b < B;
+  if (live) {
+    j = slens[b];
+    cur = Mb[i * rs + j * sP];
+    live = i != 0 || j != 0;
+  }
+  while (__any_sync(kAll, live)) {
+    // the round's loads.  Diagonal: lane u at the cell (i-u, j-u) that u
+    // diagonal steps reach, the diagonal word d (v0) and its score, and
+    // the k = 1 vertical (v1) and horizontal (v2) words there.  Gap: the
+    // vertical (v1) and horizontal (v2) words of k = base + u + 1.
+    int v0 = 0, v1 = 0, v2 = 0, s = 0;
+    bool p0 = false, p1 = false, p2 = false;
+    const int mn = min(i, j);
+    const int k = diag ? 1 : base + u + 1;
+    const int iu = diag ? i - u : i, ju = diag ? j - u : j;
+    const int run = kGapStart + kGapExtend * k;
+    if (live && (diag ? u < kDiag && u <= mn : u < kRun)) {
+      if (diag && u < mn) {
+        const int ci = center[iu - 1];
+        const int sj = seqs[(ju - 1) * sB + b];
+        s = kTable ? __ldg(table + ci * A + sj)
+                   : (ci == sj ? kMatch : kMismatch);
+        v0 = Mb[(iu - 1) * rs + (ju - 1) * sP];
+        p0 = true;
+      }
+      if (k <= iu) {
+        v1 = Mb[(iu - k) * rs + ju * sP];
+        p1 = true;
+      }
+      if (k <= ju) {
+        v2 = Mb[iu * rs + (ju - k) * sP];
+        p2 = true;
       }
     }
-    const int kmax = max(i, j);
-    bool moved = false;
-    for (int k = 1; k <= kmax; ++k) {
-      const int run = kGapStart + kGapExtend * k;
-      if (i >= k) {
-        const int v = Mb[(i - k) * rs + j * sB];
-        if (v + run == cur) {
-          sob[j] += k;
-          i -= k;
-          cur = v;
-          moved = true;
-          break;
+    // the cell's own score: the current one, or lane u - 1's diagonal word
+    const int left = __shfl_up_sync(kAll, v0, 1, kLanes);
+    const int here = diag && u > 0 ? left : cur;
+    p0 = p0 && s + v0 == here;
+    p1 = p1 && v1 + run == here;
+    p2 = p2 && v2 + run == here;
+    const unsigned b0 = (__ballot_sync(kAll, p0) & group) >> g0;
+    const unsigned b1 = (__ballot_sync(kAll, p1) & group) >> g0;
+    const unsigned b2 = (__ballot_sync(kAll, p2) & group) >> g0;
+    // diagonal: the steps that held (f), then lane f's k = 1 gap step;
+    // gap: the least k, vertical first
+    const int f = ~b0 ? __ffs(~b0) - 1 : 32;
+    const unsigned hit = b1 | b2;
+    const int q = diag ? f : (hit ? __ffs(hit) - 1 : 0);
+    const int dv = __shfl_sync(kAll, v0, g0 + max(f, 1) - 1);
+    const int gv = __shfl_sync(kAll, p1 ? v1 : v2, g0 + min(q, kLanes - 1));
+    if (!live) continue;
+    if (diag) {
+      if (f > 0) {
+        i -= f;
+        j -= f;
+        cur = dv;
+      }
+      if (f < kDiag) {   // the diagonal failed at (i, j): lane f's k = 1
+        if ((b1 >> f) & 1) {
+          if (u == 0) sob[j] += 1;
+          i -= 1;
+          cur = gv;
+        } else if ((b2 >> f) & 1) {
+          if (u == 0) sp[i] += 1;
+          j -= 1;
+          cur = gv;
+        } else {   // k >= 2 in gap rounds, or no run at all
+          diag = false;
+          base = 1;
+          if (base >= max(i, j)) live = false;
         }
       }
-      if (j >= k) {
-        const int h = Mb[i * rs + (j - k) * sB];
-        if (h + run == cur) {
-          sp[i] += k;
-          j -= k;
-          cur = h;
-          moved = true;
-          break;
-        }
+    } else if (hit) {
+      const int kk = base + q + 1;
+      if ((b1 >> q) & 1) {
+        if (u == 0) sob[j] += kk;
+        i -= kk;
+      } else {
+        if (u == 0) sp[i] += kk;
+        j -= kk;
       }
+      cur = gv;
+      diag = true;
+    } else {
+      base += kRun;
+      if (base >= max(i, j)) live = false;   // no run at any k
     }
-    if (!moved) break;
+    live = live && (i != 0 || j != 0);
   }
 }
 
@@ -318,13 +400,18 @@ extern "C" int msa_nw_launch(const void* center, const void* seqs,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The backtrack: B pairs, kLanes lanes each, in blocks of kWalkThreads;
+// M's pair pitch P (>= B) apart from B, so pads are never walked.
 extern "C" int msa_nw_backtrack_launch(const void* M, const void* center,
                                        const void* seqs, const void* slens,
                                        const void* table, int A, void* space,
-                                       void* so, int m, int n_pad, int B,
-                                       void* stream) {
+                                       void* so, int m, int n_pad, int P,
+                                       int B, void* stream) {
+  if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = (B + kThreads - 1) / kThreads;
+  const long threads = static_cast<long>(B) * kLanes;
+  const int blocks = static_cast<int>((threads + kWalkThreads - 1) /
+                                      kWalkThreads);
   const int* Mp = static_cast<const int*>(M);
   const uint8_t* c = static_cast<const uint8_t*>(center);
   const uint8_t* q = static_cast<const uint8_t*>(seqs);
@@ -332,11 +419,11 @@ extern "C" int msa_nw_backtrack_launch(const void* M, const void* center,
   int* sp = static_cast<int*>(space);
   int* sop = static_cast<int*>(so);
   if (table == nullptr)
-    msa_backtrack_kernel<false><<<blocks, kThreads, 0, s>>>(
-        Mp, c, q, sl, nullptr, 0, sp, sop, m, n_pad, B);
+    msa_backtrack_kernel<false><<<blocks, kWalkThreads, 0, s>>>(
+        Mp, c, q, sl, nullptr, 0, sp, sop, m, n_pad, P, B);
   else
-    msa_backtrack_kernel<true><<<blocks, kThreads, 0, s>>>(
+    msa_backtrack_kernel<true><<<blocks, kWalkThreads, 0, s>>>(
         Mp, c, q, sl, static_cast<const int*>(table), A, sp, sop, m, n_pad,
-        B);
+        P, B);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,10 +20,14 @@ vectorised over the batch) for tensors on the CPU and launch
 msa.py:103; the backtrack replacing the jnp `backtrack_batch`, msa.py:160)
 for tensors on a CUDA device; any other device raises.
 
-The matrices are laid out pair-innermost, [m+1][n+1][B] in memory, and
-handed out as the [B, m+1, n+1] view of the JAX function: the fill's
-threads, 8 pairs x 4 row strips a warp, then store whole 32-byte sectors
-at each (i, j), and the backtrack's, one a pair, read neighbouring words.
+The matrices are laid out pair-innermost, [m+1][n+1][P] in memory (P:
+the pairs padded to whole sectors), and handed out as the [B, m+1, n+1]
+view of the JAX function: the fill's threads, 8 pairs x 4 row strips a
+warp, then store whole 32-byte sectors at each (i, j).  The backtrack
+reads that storage in place, a warp a pair walking in rounds of
+parallel loads (BACKTRACK_DIAG diagonal steps and the k = 1 gap step
+after them, or BACKTRACK_RUN gap lengths, a round), and walks the B
+pairs only.
 """
 from __future__ import annotations
 
@@ -44,6 +48,9 @@ FREE_SHARE = 0.8   # a chunk's matrices take at most this share of free memory
 # csrc/msa_nw.cu's fill: pairs a block (one 32-byte sector of int32 at each
 # cell), rows a strip (a thread), rows a round (kRows x kMaxStrips)
 FILL_PAIRS, FILL_ROWS, FILL_ROUND_ROWS = 8, 8, 768
+# csrc/msa_nw.cu's backtrack: diagonal words (kDiag) and gap lengths k
+# (kRun) a round of a pair's lanes
+BACKTRACK_DIAG, BACKTRACK_RUN = 32, 32
 
 # Kernel launches; each wrapper adds one where it launches its kernel.
 LAUNCHES = {"msa_nw.fill": 0, "msa_nw.backtrack": 0}
@@ -52,10 +59,10 @@ _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # center, seqs [n_pad, P], slens, table, A, M, m, n_pad, P (the pairs
 # padded to whole sectors), stream
 _FILL_ARGS = (_vp, _vp, _vp, _vp, _ci, _vp, _ci, _ci, _ci, _vp)
-# M, center, seqs [n_pad, B], slens, table, A, space, so, m, n_pad, B,
-# stream
+# M [m+1, n_pad+1, P], center, seqs [n_pad, B], slens, table, A, space,
+# so, m, n_pad, P (M's pair pitch), B, stream
 _BACKTRACK_ARGS = (_vp, _vp, _vp, _vp, _vp, _ci, _vp, _vp, _ci, _ci, _ci,
-                   _vp)
+                   _ci, _vp)
 
 
 # ---------------------------------------------------------------------------
@@ -239,13 +246,25 @@ def backtrack_batch_plain(Ms, cenc, seqs, slens, sub_table=None, stats=None):
     """The plain version of `backtrack_batch`, on the inputs' device: one
     step of every unfinished pair at a time (msa.py:160-222).  A pair
     that finds no run at any k stops (no matrix of `nw_matrices_batch`
-    leads there).  `stats`, a dict, receives the steps taken and the
-    matrix words a one-thread-a-pair walk reads: the start's, then at each
-    step the diagonal's where i, j > 0 and, without a diagonal step, each
-    k's vertical word (i >= k) and horizontal word (j >= k) up to the hit,
-    the horizontal one at the hit only where the vertical one missed."""
+    leads there).  `stats`, a dict, receives the steps taken, the matrix
+    words a one-thread-a-pair walk reads (`reads`: the start's, then at
+    each step the diagonal's where i, j > 0 and, without a diagonal step,
+    each k's vertical word (i >= k) and horizontal word (j >= k) up to the
+    hit, the horizontal one at the hit only where the vertical one
+    missed), and what csrc/msa_nw.cu's rounds take: `rounds` summed over
+    the pairs and `max_rounds` of one pair (a run of r diagonal steps
+    takes r // BACKTRACK_DIAG + 1 rounds where a gap follows, the last
+    of them also taking a gap of k = 1, and ceil(r / BACKTRACK_DIAG)
+    where the walk ends; a gap of k >= 2 then takes ceil((k - 1) /
+    BACKTRACK_RUN) rounds more, a search that finds none ceil((max(i, j)
+    - 1) / BACKTRACK_RUN)) and the words those rounds load (`loaded`:
+    the start's; a diagonal round's lane t, for t <= min(i, j), its
+    diagonal word where t < min(i, j) and its k = 1 vertical and
+    horizontal words inside the matrix; each gap round's vertical and
+    horizontal words inside it)."""
     B, m1, n1 = Ms.shape
     dev = Ms.device
+    n_diag, n_run = BACKTRACK_DIAG, BACKTRACK_RUN
     space = torch.zeros((B, m1), dtype=torch.int32, device=dev)
     so = torch.zeros((B, n1), dtype=torch.int32, device=dev)
     i = torch.full((B,), m1 - 1, dtype=torch.int64, device=dev)
@@ -253,12 +272,20 @@ def backtrack_batch_plain(Ms, cenc, seqs, slens, sub_table=None, stats=None):
     cur = Ms[torch.arange(B, device=dev), i, j]
     cenc, seqs = cenc.long(), seqs.long()
     steps, reads = 0, B
+    # each pair's rounds and words loaded; its diagonal steps since its
+    # last gap and min(i, j) where they began
+    rounds = torch.zeros(B, dtype=torch.int64, device=dev)
+    loaded = torch.ones(B, dtype=torch.int64, device=dev)
+    streak = torch.zeros(B, dtype=torch.int64, device=dev)
+    smin = torch.zeros(B, dtype=torch.int64, device=dev)
     while True:
         live = ((i != 0) | (j != 0)).nonzero().flatten()
         if live.numel() == 0:
             break
         bi, bj, Mij = i[live], j[live], cur[live]
         steps += live.numel()
+        fresh = live[streak[live] == 0]
+        smin[fresh] = torch.minimum(i[fresh], j[fresh])
         ci = cenc[(bi - 1).clamp_min(0)]
         sj = seqs[live, (bj - 1).clamp_min(0)]
         s = (torch.where(ci == sj, MATCH, MISMATCH) if sub_table is None
@@ -268,6 +295,7 @@ def backtrack_batch_plain(Ms, cenc, seqs, slens, sub_table=None, stats=None):
         diag = inner & (s + d == Mij)
         reads += int(inner.sum())
         ni, nj, ncur = bi - 1, bj - 1, d
+        streak[live[diag]] += 1
         g = (~diag).nonzero().flatten()
         if g.numel():
             # the least k of a vertical or a horizontal run; vertical
@@ -294,9 +322,29 @@ def backtrack_batch_plain(Ms, cenc, seqs, slens, sub_table=None, stats=None):
             ncur[g] = Ms[gb, gi2, gj2]
             reads += int((torch.minimum(gi, k) + torch.minimum(gj, k - 1)
                           + h.long())[found].sum())
+            # the rounds: the diagonal run's, its failing one included
+            # (which tests k = 1 too: a lane's diagonal word, and its
+            # vertical and horizontal words at k = 1, to the cell t steps
+            # down the diagonal), then gap rounds from k = 2 up to the hit
+            # or past max(i, j)
+            q = streak[gb] // n_diag + 1
+            a, off = smin[gb], (gi != gj).long()
+            ends = torch.where(found, k, torch.maximum(gi, gj))
+            span = -(-(ends - 1) // n_run) * n_run
+            rounds[gb] += q + span // n_run
+            loaded[gb] += (2 * torch.minimum(a, q * n_diag)
+                           + torch.minimum(a + off, q * n_diag)
+                           + torch.minimum(gi, span + 1) - gi.clamp(max=1)
+                           + torch.minimum(gj, span + 1) - gj.clamp(max=1))
+            streak[gb] = 0
         i[live], j[live], cur[live] = ni, nj, ncur
+    # each walk's last diagonal run, ending at (0, 0): three words a step
+    rounds += -(-streak // n_diag)
+    loaded += 3 * streak
     if stats is not None:
         stats["steps"], stats["reads"] = steps, reads
+        stats["rounds"], stats["loaded"] = int(rounds.sum()), int(loaded.sum())
+        stats["max_rounds"] = int(rounds.max()) if B else 0
     return space, so
 
 
@@ -334,21 +382,20 @@ def backtrack_batch(Ms: torch.Tensor, cenc: torch.Tensor, seqs: torch.Tensor,
 
 def backtrack_args(Ms, cenc, seqs, slens, sub_table) -> tuple:
     """The backtrack kernel's arguments for checked inputs on the card, in
-    the order of `msa_nw_backtrack_launch` but the stream, then the call's
-    pair count B: the matrices' [m+1, n_pad+1, P] storage, the center's
-    and the sequences' bytes (compact codes under a table, the sequences
-    as [n_pad, P]), the lengths, the table and its side (None, 0 for DNA),
-    the zeroed space [P, m+1] and so [P, n_pad+1], m, n_pad, P, B.  Where
-    Ms is the view `nw_matrices_batch` hands out, P is its storage's pair
-    pitch and the pads (pairs of length 0) walk too; else P = B, the
+    the order of `msa_nw_backtrack_launch` but the stream: the matrices'
+    [m+1, n_pad+1, P] storage, the center's and the sequences' bytes
+    (compact codes under a table, the sequences as [n_pad, B]), the
+    lengths, the table and its side (None, 0 for DNA), the zeroed space
+    [B, m+1] and so [B, n_pad+1], m, n_pad, M's pair pitch P and the
+    pair count B.  Where Ms is the view `nw_matrices_batch` hands out, P
+    is its storage's pitch (B padded to whole sectors) and the storage is
+    read in place; the kernel walks the B pairs only.  Else P = B, the
     matrices copied where they are not stored [m+1][n_pad+1][B]."""
     B, m1, n1 = Ms.shape
     dev = Ms.device
     P = Ms.stride(2)
     if 0 < B < P and Ms.stride() == (1, n1 * P, P):
         store = torch.as_strided(Ms, (m1, n1, P), (n1 * P, P, 1))
-        seqs = torch.cat([seqs, seqs.new_zeros((P - B, n1 - 1))])
-        slens = torch.cat([slens, slens.new_zeros(P - B)])
     else:
         P = B
         store = Ms.permute(1, 2, 0).contiguous()
@@ -358,20 +405,19 @@ def backtrack_args(Ms, cenc, seqs, slens, sub_table) -> tuple:
         A = table.shape[0]
     return (store, cenc.contiguous(), seqs.T.contiguous(),
             slens.contiguous(), table, A,
-            torch.zeros((P, m1), dtype=torch.int32, device=dev),
-            torch.zeros((P, n1), dtype=torch.int32, device=dev),
+            torch.zeros((B, m1), dtype=torch.int32, device=dev),
+            torch.zeros((B, n1), dtype=torch.int32, device=dev),
             m1 - 1, n1 - 1, P, B)
 
 
 def launch_backtrack(args: tuple):
     """Launch csrc/msa_nw.cu's backtrack on `backtrack_args` (B > 0
     launches) and count it; returns (space [B, m+1], so [B, n_pad+1])."""
-    B = args[11]
-    if B:
+    if args[11]:
         _build.launch("msa_nw", "msa_nw_backtrack_launch", _BACKTRACK_ARGS,
-                      args[0].device, *args[:11])
+                      args[0].device, *args)
         LAUNCHES["msa_nw.backtrack"] += 1
-    return args[6][:B], args[7][:B]
+    return args[6], args[7]
 
 
 def backtrack(M: np.ndarray, center: str, seq: str, sub_table=None):

@@ -11,7 +11,11 @@ matrix it kept in global memory, CDP/SW/main.cu:152-168).
 `sw_matrix_batch` takes the plain version (a row scan, the left-gap
 chain a `torch.cummax`, as sw.py:24-50) for tensors on the CPU and
 launches `csrc/sw_app.cu` (replacing the jnp `sw_matrix_batch`, sw.py:24)
-for tensors on a CUDA device; any other device raises.
+for tensors on a CUDA device; any other device raises.  The kernel cuts
+each window's rows into stripes of ROWS rows, one block a stripe sweeping
+the columns in tiles of TILE, each stripe waiting on a progress flag of
+the one above (stripes taken from an atomic ticket): a call is one
+memset of the flags and one kernel launch, whatever the shape.
 """
 from __future__ import annotations
 
@@ -23,16 +27,15 @@ import torch
 from genomics_tpu_torch import _build
 from genomics_tpu_torch.device import checked_device, on_cpu
 
-# Kernel launches; the wrapper adds one where it launches its kernel.
+# Kernel launches; the wrapper adds one where it calls the kernel's entry
+# point, which makes `launches_per_call` CUDA launches.
 LAUNCHES = {"sw_app": 0}
-# csrc/sw_app.cu keeps a window's row (L + 1 int32) and its L bytes in
-# shared memory up to this many bytes, else the row in a [W, L + 1] global
-# scratch
-SHARED_ROW_BYTES = 200 * 1024
+# csrc/sw_app.cu's kRows (rows a stripe, a block) and kTile (columns a tile)
+ROWS, TILE = 12, 2048
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
-# x, windows, H, best, row scratch, n, W, L, stream
-_ARGS = (_vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _vp)
+# x, windows, H, best, flags [W stripes + 1], n, W, L, max_grid, stream
+_ARGS = (_vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _vp)
 
 
 def sw_matrix_batch_plain(x: torch.Tensor, windows: torch.Tensor):
@@ -80,24 +83,40 @@ def sw_matrix_batch(x: torch.Tensor, windows: torch.Tensor):
     H = torch.empty((W, n + 1, L + 1), dtype=torch.int32, device=dev)
     best = torch.empty(W, dtype=torch.int32, device=dev)
     if W:
-        scratch = (None if shared_row(L) else
-                   torch.empty((W, L + 1), dtype=torch.int32, device=dev))
-        launch_sw(x.contiguous(), windows.contiguous(), H, best, scratch)
+        launch_sw(x.contiguous(), windows.contiguous(), H, best)
     return H, best
 
 
-def shared_row(L: int) -> bool:
-    """Whether csrc/sw_app.cu keeps a window's row (L + 1 int32) and its
-    L bytes in shared memory: up to SHARED_ROW_BYTES."""
-    return 4 * (L + 1) + L <= SHARED_ROW_BYTES
+def stripes(n: int) -> int:
+    """Stripes a window: ceil(n / ROWS), and one for n = 0 (it writes row
+    0 and the window's best)."""
+    return max(1, -(-n // ROWS))
 
 
-def launch_sw(x, windows, H, best, scratch):
-    """Launch csrc/sw_app.cu (W > 0) on contiguous inputs and count it;
-    `scratch` is None for rows in shared memory, else [W, L + 1] int32."""
+def flag_words(n: int, W: int) -> int:
+    """The kernel's flags: the stripes' ticket and each stripe's progress."""
+    return W * stripes(n) + 1
+
+
+def launches_per_call(W: int) -> int:
+    """CUDA launches of one `sw_matrix_batch` call on the card: the flags'
+    memset and the kernel (none without windows)."""
+    return 2 if W else 0
+
+
+def launch_sw(x, windows, H, best, flags=None, grid=None):
+    """Call csrc/sw_app.cu's entry point (W > 0) on contiguous inputs and
+    count it; fills H and best.  `flags`, an int32 buffer of
+    `flag_words(n, W)` (allocated here if None), is zeroed by the call;
+    `grid` caps the kernel's blocks (card tests: fewer blocks than
+    stripes, so that blocks take more than one ticket)."""
     W, L = windows.shape
+    n = x.shape[0]
+    if flags is None:
+        flags = torch.empty(flag_words(n, W), dtype=torch.int32,
+                            device=H.device)
     _build.launch("sw_app", "sw_app_launch", _ARGS, H.device, x, windows, H,
-                  best, scratch, x.shape[0], W, L)
+                  best, flags, n, W, L, grid or 0)
     LAUNCHES["sw_app"] += 1
     return H, best
 

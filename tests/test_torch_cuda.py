@@ -20,6 +20,7 @@ from chip_smoke import (
     NW_EDGE_N,
     PAIRHMM_EDGE_B,
     PAIRHMM_SHAPES,
+    backtrack_edges,
     band_windows,
     cube_err,
     fill_edges,
@@ -30,6 +31,7 @@ from chip_smoke import (
     pairhmm_edges,
     random_seq,
     sw_edges,
+    sw_stripe_edges,
     walk_edges,
 )
 
@@ -1478,18 +1480,40 @@ def test_fill_kernel_at_its_edges(cuda, case, matrix_path):
         label
 
 
-@pytest.mark.parametrize("shared", [True, False])
-def test_sw_kernel_matches_plain(cuda, monkeypatch, shared):
+@pytest.mark.parametrize("case", range(len(sw_stripe_edges(
+    np.random.default_rng(0)))))
+def test_sw_kernel_matches_plain(cuda, case):
+    """sw_app.cu at the edges of its stripes and tiles
+    (chip_smoke.sw_stripe_edges), through sw_matrix_batch on the card's
+    resident blocks and through launch_sw on fewer blocks than stripes
+    (blocks take more than one ticket)."""
+    label, x, wins, grid = sw_stripe_edges(np.random.default_rng(4))[case]
+    xd, wd = torch.from_numpy(x).to(cuda), torch.from_numpy(wins).to(cuda)
+    W, L = wins.shape
+    want_H, want_best = sw.sw_matrix_batch_plain(xd, wd)
+    before = sw.LAUNCHES["sw_app"]
+    H, best = sw.sw_matrix_batch(xd, wd)
+    assert sw.LAUNCHES["sw_app"] == before + 1
+    assert torch.equal(H, want_H) and torch.equal(best, want_best), label
+    assert grid < W * sw.stripes(len(x))
+    H = torch.full_like(H, -5)
+    best = torch.full((W,), -5, dtype=torch.int32, device=cuda)
+    sw.launch_sw(xd, wd, H, best, grid=grid)
+    assert sw.LAUNCHES["sw_app"] == before + 2
+    assert torch.equal(H, want_H) and torch.equal(best, want_best), label
+
+
+def test_sw_kernel_at_the_app_edges_matches_plain(cuda):
     """The edges of chip_smoke.sw_edges and a mid size (6 windows of 900
-    against 300 bases), the row in shared memory and in the scratch."""
-    if not shared:
-        monkeypatch.setattr(sw, "SHARED_ROW_BYTES", 0)
+    against 300 bases)."""
     rng = np.random.default_rng(5)
     cases = sw_edges(rng) + [("mid", rng.integers(65, 69, 300).astype(
         np.uint8), rng.integers(65, 69, (6, 900)).astype(np.uint8))]
     for label, x, wins in cases:
         xd, wd = torch.from_numpy(x).to(cuda), torch.from_numpy(wins).to(cuda)
+        before = sw.LAUNCHES["sw_app"]
         H, best = sw.sw_matrix_batch(xd, wd)
+        assert sw.LAUNCHES["sw_app"] == before + 1
         want_H, want_best = sw.sw_matrix_batch_plain(xd, wd)
         assert torch.equal(H, want_H), label
         assert torch.equal(best, want_best), label
@@ -1541,6 +1565,34 @@ def test_msa_kernels_at_the_edges_match_plain(cuda, case, matrix_path):
     path = matrix_path if protein else None
     assert msa.msa(seqs, matrix_path=path, device=cuda) == msa.msa(
         seqs, matrix_path=path, device="cpu"), label
+
+
+@pytest.mark.parametrize("case", range(len(backtrack_edges(
+    np.random.default_rng(0)))))
+def test_backtrack_kernel_at_its_edges(cuda, case, matrix_path):
+    """msa_nw.cu's backtrack on the fill's storage, whose pitch P is not
+    the pair count B: a sequence of length 1, gap runs past a round's 32
+    lanes, ties of a vertical and a horizontal run, 9 pairs (pitch 16)
+    and one protein pair (pitch 8); one launch, == plain == the host."""
+    label, seqs, protein = backtrack_edges(np.random.default_rng(2))[case]
+    table = load_scoring_matrix(matrix_path) if protein else None
+    cenc, arr, slens = msa.pack_pairs(seqs, 0)
+    c, a, sl = (torch.from_numpy(v).to(cuda) for v in (cenc, arr, slens))
+    t = None if table is None else torch.from_numpy(table).to(cuda)
+    M = msa.nw_matrices_batch(c, a, t)
+    args = msa.backtrack_args(M, c, a, sl, t)
+    assert args[10] > args[11] == len(seqs) - 1, label   # pitch, count
+    before = msa.LAUNCHES["msa_nw.backtrack"]
+    sp, so = msa.launch_backtrack(args)
+    assert msa.LAUNCHES["msa_nw.backtrack"] == before + 1
+    w_sp, w_so = msa.backtrack_batch_plain(msa.nw_matrices_batch_plain(
+        c, a, t), c, a, sl, t)
+    assert torch.equal(sp, w_sp) and torch.equal(so, w_so), label
+    for k, s in enumerate(seqs[1:]):
+        g_sp, g_so = msa.backtrack(M[k, :, :len(s) + 1].cpu().numpy(),
+                                   seqs[0], s, table)
+        np.testing.assert_array_equal(sp[k].cpu().numpy(), g_sp)
+        np.testing.assert_array_equal(so[k, :len(s) + 1].cpu().numpy(), g_so)
 
 
 @pytest.mark.parametrize("letters", ["ACGT", "ACDEFGHIKLMNPQRSTVWY",

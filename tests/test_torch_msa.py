@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import msa_edges, mutate, ncbi_matrix, random_seq
+from chip_smoke import (backtrack_edges, msa_edges, mutate, ncbi_matrix,
+                        random_seq)
 from genomics_tpu import __main__ as jax_main
 from genomics_tpu.core.submat import load_scoring_matrix as jax_load
 from genomics_tpu.models import msa as jmsa
@@ -193,9 +194,15 @@ def test_msa_subcommand_writes_the_jax_bytes(tmp_path, matrix_path):
     assert jmsa.msa(prot, matrix_path=matrix_path)[0] != jmsa.msa(prot)[0]
 
 
-def _kernel_walk(M, cenc, seq, table):
-    """csrc/msa_nw.cu's backtrack for one pair, word by word: (space, so,
-    steps, matrix words read)."""
+def _score(ci, sj, table):
+    if table is not None:
+        return int(table[ci, sj])
+    return msa.MATCH if ci == sj else msa.MISMATCH
+
+
+def _thread_walk(M, cenc, seq, table):
+    """A one-thread-a-pair walk (nw.cc:96-150), word by word: (space, so,
+    steps, matrix words read), the words the walk needs."""
     m, n = len(cenc), len(seq)
     space, so = np.zeros(m + 1, np.int64), np.zeros(n + 1, np.int64)
     i, j = m, n
@@ -203,9 +210,7 @@ def _kernel_walk(M, cenc, seq, table):
     while i or j:
         steps += 1
         if i > 0 and j > 0:
-            ci, sj = int(cenc[i - 1]), int(seq[j - 1])
-            s = (table[ci, sj] if table is not None
-                 else (msa.MATCH if ci == sj else msa.MISMATCH))
+            s = _score(int(cenc[i - 1]), int(seq[j - 1]), table)
             d = M[i - 1, j - 1]
             reads += 1
             if s + d == cur:
@@ -230,6 +235,105 @@ def _kernel_walk(M, cenc, seq, table):
     return space, so, steps, reads
 
 
+def _walk_constants() -> dict:
+    from genomics_tpu_torch import _build
+
+    src = (_build.CSRC / "msa_nw.cu").read_text()
+    return {k: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+            for k, name in (("lanes", "kLanes"), ("diag", "kDiag"),
+                            ("run", "kRun"))}
+
+
+def _round_walk(M, cenc, seq, table, D, K):
+    """csrc/msa_nw.cu's backtrack for one pair, lane by lane.  Diagonal
+    rounds: lane t < D, t <= min(i, j), at the cell (i-t, j-t), loads its
+    diagonal word d_t (t < min(i, j)) and its k = 1 vertical and
+    horizontal words; its diagonal holds where s_t + d_t == d_{t-1}; the
+    first failure f ends the round's diagonal steps, and lane f's k = 1
+    tests against d_{f-1} take the gap step there.  Where k = 1 fails,
+    gap rounds of K lengths (lane t at k = base + t + 1, base from 1,
+    vertical and horizontal words at once, the least k winning, vertical
+    first).  Returns (space, so, rounds, words loaded, ties of a vertical
+    and a horizontal hit at the winning k, the longest run of gap steps
+    in one direction, the largest k taken)."""
+    m, n = len(cenc), len(seq)
+    space, so = np.zeros(m + 1, np.int64), np.zeros(n + 1, np.int64)
+    i, j = m, n
+    cur, loaded, rounds, ties, longest, kmax = M[i, j], 1, 0, 0, 0, 0
+    diag, base, streak = True, 0, (None, 0)   # the run: direction, length
+    run1 = msa.GAP_START + msa.GAP_EXTEND   # a gap of k = 1
+
+    def gap(vert, horiz, k):
+        """Take the gap step of length k (vertical first)."""
+        nonlocal i, j, cur, ties, kmax, streak, longest
+        ties += vert and horiz
+        kmax = max(kmax, k)
+        way = "v" if vert else "h"
+        streak = (way, k + (streak[1] if streak[0] == way else 0))
+        longest = max(longest, streak[1])
+        if vert:
+            so[j] += k
+            i -= k
+        else:
+            space[i] += k
+            j -= k
+        cur = M[i, j]
+
+    while i or j:
+        rounds += 1
+        if diag:
+            mn = min(i, j)
+            ok, d, vert, horiz = [], [], [], []
+            here = cur   # lane t's cell: cur, then lane t - 1's word
+            for t in range(D):
+                if t > mn:
+                    ok.append(False)
+                    continue
+                it, jt = i - t, j - t
+                v = it >= 1 and M[it - 1, jt] + run1 == here
+                h = jt >= 1 and M[it, jt - 1] + run1 == here
+                loaded += (it >= 1) + (jt >= 1)
+                vert.append(v)
+                horiz.append(h)
+                if t < mn:
+                    d.append(M[it - 1, jt - 1])
+                    loaded += 1
+                    s = _score(int(cenc[it - 1]), int(seq[jt - 1]), table)
+                    ok.append(s + d[t] == here)
+                    here = d[t]
+                else:
+                    ok.append(False)
+            f = ok.index(False) if False in ok else D
+            if f:
+                i, j, cur = i - f, j - f, d[f - 1]
+                streak = (None, 0)
+            if f < D:
+                if vert[f] or horiz[f]:
+                    gap(vert[f], horiz[f], 1)
+                else:
+                    diag, base = False, 1
+                    if base >= max(i, j):
+                        break
+            continue
+        vert, horiz = [], []
+        for t in range(K):
+            k = base + t + 1
+            run = msa.GAP_START + msa.GAP_EXTEND * k
+            loaded += (k <= i) + (k <= j)
+            vert.append(k <= i and M[i - k, j] + run == cur)
+            horiz.append(k <= j and M[i, j - k] + run == cur)
+        hits = [t for t in range(K) if vert[t] or horiz[t]]
+        if not hits:
+            base += K
+            if base >= max(i, j):
+                break
+            continue
+        q = hits[0]
+        gap(vert[q], horiz[q], base + q + 1)
+        diag = True
+    return space, so, rounds, loaded, ties, longest, kmax
+
+
 @pytest.mark.parametrize("protein", [False, True])
 def test_kernel_walk_reads_what_the_plain_version_counts(protein,
                                                          matrix_path):
@@ -242,15 +346,78 @@ def test_kernel_walk_reads_what_the_plain_version_counts(protein,
     sp, so = msa.backtrack_batch_plain(M, torch.from_numpy(cenc),
                                        torch.from_numpy(arr),
                                        torch.from_numpy(slens), t, stats)
-    steps = reads = 0
+    const = _walk_constants()
+    steps = reads = rounds = loaded = most = 0
     for k, n in enumerate(slens):
-        w_sp, w_so, st, rd = _kernel_walk(M[k].numpy(), cenc, arr[k, :n],
+        w_sp, w_so, st, rd = _thread_walk(M[k].numpy(), cenc, arr[k, :n],
                                           table)
         np.testing.assert_array_equal(sp[k].numpy(), w_sp)
         np.testing.assert_array_equal(so[k, :n + 1].numpy(), w_so)
+        *_, ro, ld, _, _, _ = _round_walk(M[k].numpy(), cenc, arr[k, :n], table,
+                                       const["diag"], const["run"])
         steps, reads = steps + st, reads + rd
-    assert stats == {"steps": steps, "reads": reads}
+        rounds, loaded, most = rounds + ro, loaded + ld, max(most, ro)
+    assert stats == {"steps": steps, "reads": reads, "rounds": rounds,
+                     "loaded": loaded, "max_rounds": most}
     assert reads > steps   # the sets hold gaps: some steps search k-runs
+    assert rounds < steps  # a round takes many diagonal steps
+    assert loaded > reads  # and loads words past its first failure
+
+
+def _walk_sets(matrix_path):
+    """(label, seqs, table or None): a DNA and a protein set, the MSA
+    edges and the backtrack's edges."""
+    sets = [("dna", _dna_set(21, n=9, L=90), None),
+            ("protein", _protein_set(22, n=7, L=60),
+             load_scoring_matrix(matrix_path))]
+    edges = (msa_edges(np.random.default_rng(0))
+             + backtrack_edges(np.random.default_rng(1)))
+    sets += [(label, seqs, load_scoring_matrix(matrix_path) if protein
+              else None) for label, seqs, protein in edges]
+    return sets
+
+
+@pytest.mark.parametrize("case", range(12))
+def test_round_walk_matches_plain_jax_and_host(case, matrix_path):
+    """The backtrack's rounds, D diagonal words and K gap lengths a round
+    as csrc/msa_nw.cu declares them, give the gap counts of the plain
+    version, the JAX backtrack_batch and the host backtrack, and the
+    rounds and words the plain version counts."""
+    label, seqs, table = _walk_sets(matrix_path)[case]
+    const = _walk_constants()
+    D, K = const["diag"], const["run"]
+    assert (D, K) == (msa.BACKTRACK_DIAG, msa.BACKTRACK_RUN)
+    cenc, arr, slens = msa.pack_pairs(seqs, 0)
+    c, a, sl = (torch.from_numpy(v) for v in (cenc, arr, slens))
+    t = None if table is None else torch.from_numpy(table)
+    M = msa.nw_matrices_batch(c, a, t)
+    stats = {}
+    sp, so = msa.backtrack_batch_plain(M, c, a, sl, t, stats)
+    jt = None if table is None else jnp.asarray(table)
+    jsp, jso = jmsa.backtrack_batch(jnp.asarray(M.numpy()), jnp.asarray(cenc),
+                                    jnp.asarray(arr), jnp.asarray(slens),
+                                    sub_table=jt, has_sub=table is not None)
+    np.testing.assert_array_equal(sp.numpy(), np.asarray(jsp))
+    np.testing.assert_array_equal(so.numpy(), np.asarray(jso))
+    rounds = loaded = ties = longest = 0
+    for k, s in enumerate(seqs[1:]):
+        n = len(s)
+        w_sp, w_so, ro, ld, ti, lo, _ = _round_walk(M[k].numpy(), cenc,
+                                                 arr[k, :n], table, D, K)
+        h_sp, h_so = msa.backtrack(M[k, :, :n + 1].numpy(), seqs[0], s, table)
+        for got in (w_sp, sp[k].numpy()):
+            np.testing.assert_array_equal(got, h_sp)
+        for got in (w_so, so[k, :n + 1].numpy()):
+            np.testing.assert_array_equal(got, h_so)
+        rounds, loaded = rounds + ro, loaded + ld
+        ties, longest = ties + ti, max(longest, lo)
+    assert (stats["rounds"], stats["loaded"]) == (rounds, loaded), label
+    if label == "a sequence of length 1":
+        assert min(map(len, seqs)) == 1
+    if label == "gap runs longer than 32":
+        assert longest > max(32, K)
+    if label == "ties at equal k":
+        assert ties > 0
 
 
 def test_wrappers_refuse_what_they_lack():
@@ -511,26 +678,103 @@ def test_fill_constants_are_the_wrappers():
     assert 4 * msa.FILL_PAIRS == 32   # a warp: 8 pairs x 4 strips
 
 
-def test_backtrack_args_read_the_padded_storage_in_place():
+def test_round_walk_searches_past_a_round_and_breaks_a_tie():
+    """A hand-made matrix (not a fill's: with GAP_START = 0 a fill's gaps
+    are runs of k = 1) whose walk takes k = 40, past one round of K gap
+    lengths, three times: vertical from (70, 40) where a horizontal run of
+    40 ties with it, horizontal from (30, 40), vertical from (30, 0) to the
+    end; every diagonal test fails.  The rounds, the plain version, the
+    JAX backtrack_batch and the host backtrack agree."""
+    const = _walk_constants()
+    D, K = const["diag"], const["run"]
+    rng = np.random.default_rng(3)
+    m, n = 70, 40
+    dna = np.frombuffer(b"ACGT", np.uint8)
+    cenc, seq = dna[rng.integers(0, 4, m)], dna[rng.integers(0, 4, n)]
+    M = -rng.choice(10 ** 8, (m + 1, n + 1), replace=False).astype(np.int32)
+    M[70, 40], M[30, 40], M[70, 0] = 0, 40, 40   # the tie at k = 40
+    M[30, 0], M[0, 0] = 80, 110
+    w_sp, w_so, rounds, loaded, ties, longest, kmax = _round_walk(
+        M, cenc, seq, None, D, K)
+    assert (ties, kmax) == (1, 40) and kmax > K
+    # three gap events: a diagonal round (k = 1 fails) and ceil(39 / K)
+    # or ceil(29 / K) gap rounds from k = 2 each
+    assert rounds == 3 + 2 * -(-39 // K) + -(-29 // K)
+    h_sp, h_so = msa.backtrack(M, cenc.tobytes().decode(),
+                               seq.tobytes().decode())
+    np.testing.assert_array_equal(w_sp, h_sp)
+    np.testing.assert_array_equal(w_so, h_so)
+    assert (w_so[40], w_sp[30], w_so[0]) == (40, 40, 30)
+    stats = {}
+    sp, so = msa.backtrack_batch_plain(
+        torch.from_numpy(M)[None], torch.from_numpy(cenc),
+        torch.from_numpy(seq)[None], torch.tensor([n], dtype=torch.int32),
+        None, stats)
+    jsp, jso = jmsa.backtrack_batch(jnp.asarray(M)[None], jnp.asarray(cenc),
+                                    jnp.asarray(seq)[None],
+                                    jnp.asarray([n]))
+    for got_sp, got_so in ((sp.numpy(), so.numpy()),
+                           (np.asarray(jsp), np.asarray(jso))):
+        np.testing.assert_array_equal(got_sp[0], h_sp)
+        np.testing.assert_array_equal(got_so[0], h_so)
+    assert (stats["rounds"], stats["loaded"]) == (rounds, loaded)
+
+
+def _launch_walk(args, D, K):
+    """msa_nw_backtrack_launch over `backtrack_args`, on the CPU: each of
+    the launch's B pairs walked by rounds, reading M's storage at pitch
+    P; returns (space, so, the pairs whose words were read)."""
+    store, cenc, seqsT, slens, table, A, space, so, m, n_pad, P, B = args
+    assert store.shape == (m + 1, n_pad + 1, P) and seqsT.shape == (n_pad, B)
+    read = set()
+
+    class Pair:   # M[i, j] of pair b, recording the pair read
+        def __init__(self, b):
+            self.b = b
+
+        def __getitem__(self, ij):
+            read.add(self.b)
+            return int(store[ij[0], ij[1], self.b])
+
+    tab = None if table is None else table.numpy()
+    space, so = space.clone(), so.clone()
+    for b in range(B):
+        n = int(slens[b])
+        sp, s_o, *_ = _round_walk(Pair(b), cenc.numpy(), seqsT[:n, b].numpy(),
+                                  tab, D, K)
+        space[b], so[b, :n + 1] = torch.from_numpy(sp), torch.from_numpy(s_o)
+    return space, so, read
+
+
+def test_backtrack_args_read_the_padded_storage_in_place(matrix_path):
     """The fill's [m+1, n_pad+1, P] storage (P: B rounded up to whole
-    sectors) goes to the backtrack as it is, the pads as pairs of length
-    0; any other layout is copied to [m+1, n_pad+1, B]; no pairs, no
-    pads."""
-    seqs = _dna_set(13, n=10, L=20)
-    cenc, arr, slens = msa.pack_pairs(seqs, 0)
-    c, a, sl = (torch.from_numpy(v) for v in (cenc, arr, slens))
-    B, (m1, n1) = len(slens), (len(cenc) + 1, arr.shape[1] + 1)
-    want = msa.nw_matrices_batch_plain(c, a)
-    P = -(-B // msa.FILL_PAIRS) * msa.FILL_PAIRS
-    store = torch.zeros((m1, n1, P), dtype=torch.int32)
-    store[:, :, :B] = want.permute(1, 2, 0)
-    view = store.permute(2, 0, 1)[:B]
-    args = msa.backtrack_args(view, c, a, sl, None)
-    assert args[0].data_ptr() == store.data_ptr() and args[10:] == (P, B)
-    assert args[2].shape == (n1 - 1, P) and not args[3][B:].any()
-    assert args[6].shape == (P, m1) and args[7].shape == (P, n1)
-    args = msa.backtrack_args(want, c, a, sl, None)
-    assert args[10:] == (B, B) and args[0].is_contiguous()
-    assert torch.equal(args[0], want.permute(1, 2, 0))
-    empty = msa.backtrack_args(view[:0], c, a[:0], sl[:0], None)
-    assert empty[10:] == (0, 0)
+    sectors) goes to the backtrack as it is, with its pitch P apart from
+    the pair count B: the launch walks B pairs and never a pad, and its
+    gap counts are the plain version's; any other layout is copied to
+    [m+1, n_pad+1, B]; no pairs, no pads."""
+    const = _walk_constants()
+    for seqs, table in ((_dna_set(13, n=10, L=20), None),
+                        (_protein_set(14, n=4), load_scoring_matrix(
+                            matrix_path))):
+        cenc, arr, slens = msa.pack_pairs(seqs, 0)
+        c, a, sl = (torch.from_numpy(v) for v in (cenc, arr, slens))
+        t = None if table is None else torch.from_numpy(table)
+        B, (m1, n1) = len(slens), (len(cenc) + 1, arr.shape[1] + 1)
+        want = msa.nw_matrices_batch_plain(c, a, t)
+        P = -(-B // msa.FILL_PAIRS) * msa.FILL_PAIRS
+        store = torch.full((m1, n1, P), -7, dtype=torch.int32)
+        store[:, :, :B] = want.permute(1, 2, 0)
+        view = store.permute(2, 0, 1)[:B]
+        args = msa.backtrack_args(view, c, a, sl, t)
+        assert args[0].data_ptr() == store.data_ptr() and args[10:] == (P, B)
+        assert P > B and args[2].shape == (n1 - 1, B) and len(args[3]) == B
+        assert args[6].shape == (B, m1) and args[7].shape == (B, n1)
+        sp, so, read = _launch_walk(args, const["diag"], const["run"])
+        assert read == set(range(B))   # every pair walked, no pad
+        w_sp, w_so = msa.backtrack_batch_plain(want, c, a, sl, t)
+        assert torch.equal(sp, w_sp) and torch.equal(so, w_so)
+        args = msa.backtrack_args(want, c, a, sl, t)
+        assert args[10:] == (B, B) and args[0].is_contiguous()
+        assert torch.equal(args[0], want.permute(1, 2, 0))
+        empty = msa.backtrack_args(view[:0], c, a[:0], sl[:0], t)
+        assert empty[10:] == (0, 0)
