@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's alignment (engine and `align` CLI), PairHMM,
-edit-distance, NW, SW and MSA paths once on one CUDA card.
+edit-distance, NW, SW, MSA and read-mapper paths once on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -167,15 +167,44 @@ Then the NW, SW and MSA apps (`apps`), phases 3-5 of their own:
             one-thread walk needs and sector floor, each beside its bound,
             NW / SW cells/s and MSA seqs/s.
 
+Then the read mapper (`mapper_slice`), phases 3-5 of its own:
+3. parity   fm_search against its plain version and the host
+            FMIndex.backward_search at FM_EDGE_SPECS (texts of 1-4,096
+            bp with the sentinel at a block's first and last row, one-
+            letter texts), queries of 0-32 present and absent, and every
+            1-32-gram of a 300 bp text;
+4. mapper   a 12.07 Mbp genome of S288C's 16 chromosome lengths with 256
+            copied segments of 1-5 kb, 65,536 reads of 150 bp (~1%
+            substitutions, 1-3 bp indels in a tenth, ~0.1% Ns, half
+            reverse) and 16,384 FR pairs (300-500 bp inserts, 5% with a
+            random mate): ReadMapper(seeder="fmdev").map_batch(two_stage=
+            "ed") (fm_search, myers, local_sw TB, tb_walk; every seed's
+            range == plain on the card and == FMIndex.backward_search on
+            the host), the q-gram map_batch, map_pairs with rescue and
+            `python -m genomics_tpu_torch map` to SAM, to BAM and paired,
+            every launch count set to 0 before and read after each path;
+            the first 1,024 reads' Mappings (512 pairs) and the CLI's
+            header and first 1,024 lines == the same run on the CPU, every
+            BAM record == its SAM line, the share of reads within 2 bp of
+            their origin; and run_all.py's bench_mapper shape;
+5. timings  fm_search as a launch alone at the mapper's seed launch and
+            at 1,048,576 queries of 16-32, its plain version, its bound
+            (FM_OPS_PER_STEP over the active steps; the bytes, with the
+            index resident in L2) and its sectors; the mapper's reads/s,
+            pairs/s and lines/s.
+
 Then one JSON line with the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  With --profile, phases 3-5 give way to
-one line per engine path over the 20,000 pairs (LOCAL score-only on
-their N-free copies with SCORE16 and with SCORE forced), the `align` CLI
-over them with and without GENOMICS_TPU_INT16_CELLS=1, the PairHMM regions and the `ed` reads: wall, device busy time
-and per-kernel device time (torch.profiler), and the host functions with
-the most self time (cProfile).  Any failure exits non-zero before the
-last line, and so does a child process (nvcc, nvidia-smi, the PairHMM
-gold's workers) still running before the JSON lines.  Needs one CUDA card and nvcc; imports no JAX.
+one line per mapper path over 8,192 reads or 2,048 pairs (fmdev + ed,
+q-grams, map_pairs, the `map` CLI to SAM), per engine path over the
+20,000 pairs (LOCAL score-only on their N-free copies with SCORE16 and
+with SCORE forced), the `align` CLI over them with and without
+GENOMICS_TPU_INT16_CELLS=1, the PairHMM regions and the `ed` reads:
+wall, device busy time and per-kernel device time (torch.profiler), and
+the host functions with the most self time (cProfile).  Any failure
+exits non-zero before the last line, and so does a child process (nvcc,
+nvidia-smi, the PairHMM gold's workers) still running before the JSON
+lines.  Needs one CUDA card, nvcc and g++; imports no JAX.
 """
 from __future__ import annotations
 
@@ -205,7 +234,8 @@ INT32_LANES_PER_SM = 64    # Hopper's INT32 lanes per SM per clock
 FP32_LANES_PER_SM = 128    # Hopper's FP32 lanes per SM per clock
 KERNEL_SOURCES = ("local_sw", "global_sw", "semiglobal_sw", "local_start",
                   "semiglobal_start", "ksw_extend", "banded_sw", "tb_walk",
-                  "pairhmm_intertask", "pairhmm_wavefront", "myers")
+                  "pairhmm_intertask", "pairhmm_wavefront", "myers",
+                  "fm_search")
 # PairHMM and Myers at benchmarks/run_all.py's shapes (:145, :222)
 PH_B, PH_L = 16384, 128
 MY_B, MY_LP, MY_LT = 16384, 96, 152
@@ -622,7 +652,7 @@ def profile_paths(paths, smi: str):
                 f"{k} {v / 1e3:.2f} ms" for k, v in kern.items())
             + "; host self time " + ", ".join(
                 f"{fn[2]} {st[2]:.3f} s" for fn, st in top)
-            + f"; {n} pairs, on {smi}")
+            + f"; {n if isinstance(n, str) else f'{n} pairs'}, on {smi}")
 
 
 def float_err(got, want) -> float:
@@ -1654,6 +1684,588 @@ def apps(seed: int, dev, smi: str, peak: float) -> dict:
                     bound_by=bounds[k][1]) for k in names}
 
 
+# -- the mapper slice: its own phases 3-5 ----------------------------------
+
+FM_EDGE_N = (1, 31, 32, 33, 127, 128, 129, 4095, 4096)
+# csrc/fm_search.cu's integer operations per active step (its header:
+# 2 ranks x (4 words x 7 + 5) + 6), and the 32-byte sectors a step's two
+# ranks touch at most (a checkpoint word and a 16-byte run of each plane)
+FM_OPS_PER_STEP = 72
+FM_SECTORS_PER_STEP = 6
+FM_TIMING_Q = 1 << 20        # queries of 16-32 bases, the launch alone
+# S. cerevisiae S288C's 16 nuclear chromosomes (SGD reference R64; 12.07
+# Mbp), the size and layout of a common small-genome mapper benchmark
+YEAST = (("chrI", 230218), ("chrII", 813184), ("chrIII", 316620),
+         ("chrIV", 1531933), ("chrV", 576874), ("chrVI", 270161),
+         ("chrVII", 1090940), ("chrVIII", 562643), ("chrIX", 439888),
+         ("chrX", 745751), ("chrXI", 666816), ("chrXII", 1078177),
+         ("chrXIII", 924431), ("chrXIV", 784333), ("chrXV", 1091291),
+         ("chrXVI", 948066))
+YEAST_DUPS = 256             # segments of 1-5 kb copied elsewhere
+MAP_READS, MAP_LEN = 65536, 150
+MAP_PAIRS = 16384            # FR pairs, inserts of 300-500 bp
+MAP_CHECK = 1024             # reads held to the same run on the CPU
+CLI_READS, CLI_PAIRS = 65536, 16384
+PROFILE_READS, PROFILE_PAIRS = 8192, 2048
+# benchmarks/run_all.py's bench_mapper: 2,000 warm + 2,000 timed 100 bp
+# reads at 1% substitutions against a 100 kbp genome (:494-519)
+BENCH_MAP_READS, BENCH_MAP_LEN, BENCH_MAP_GENOME = 2000, 100, 100000
+READ_LUT = np.frombuffer(b"ACGTN", np.uint8)
+COMPLEMENT2 = np.array([3, 2, 1, 0, 4], np.uint8)
+
+
+def fm_codes_with_primary(rng, n, rows):
+    """A random text of n 2-bit codes whose sentinel row (`primary`) falls
+    on one of `rows` (mod 128) where some draw puts it there, else the
+    last draw."""
+    from genomics_tpu_torch.index.fmindex import FMIndex
+
+    for _ in range(600):
+        codes = rng.integers(0, 4, n).astype(np.uint8)
+        if int(np.nonzero(FMIndex(codes).bwt == 0)[0][0]) % 128 in rows:
+            break
+    return codes
+
+
+def fm_edge_specs() -> list:
+    """(label, n, what) of fm_search's edge texts: each FM_EDGE_N length
+    with its sentinel at a block's first row and at its last (`what` the
+    rows, mod 128; below 128 symbols row 1, the first a text's own row can
+    take, and row n, the last), and one-letter texts (`what` the code:
+    their sentinel row is n, so 127 and 128 put it on a block's edges)."""
+    out = {}
+    for n in FM_EDGE_N:
+        for rows in (((0,) if n >= 128 else (1,)),
+                     ((127,) if n >= 127 else (n,))):
+            out[f"n={n} primary%128 in {rows}"] = (n, rows)
+    for n in (1, 127, 128, 255, 256, 4096):
+        for c in (0, 3):
+            out[f"{'AT'[c // 3]}*{n}"] = (n, c)
+    return [(label, *v) for label, v in out.items()]
+
+
+FM_EDGE_SPECS = fm_edge_specs()
+
+
+def fm_edge_text(spec, seed: int = 17) -> np.ndarray:
+    """The codes of one of FM_EDGE_SPECS, from a generator of its own."""
+    _, n, what = spec
+    if isinstance(what, int):
+        return np.full(n, what, np.uint8)
+    return fm_codes_with_primary(np.random.default_rng((seed, n, *what)), n,
+                                 what)
+
+
+def fm_queries(rng, codes, S: int = 256, L: int = 32):
+    """[S, L] int32 codes and [S] int32 lengths 0..L, every length among
+    the first L + 1: half cut from the text (present), half random
+    (mostly absent), 255 past each length."""
+    n = len(codes)
+    Q = rng.integers(0, 4, (S, L)).astype(np.int32)
+    ql = rng.integers(0, L + 1, S).astype(np.int32)
+    ql[:L + 1] = np.arange(L + 1)
+    for s in range(0, S, 2):
+        k = min(int(ql[s]), n)
+        at = int(rng.integers(0, n - k + 1))
+        Q[s, :k] = codes[at:at + k]
+        ql[s] = k
+    for s in range(S):
+        Q[s, ql[s]:] = 255
+    return Q, ql
+
+
+def yeast_like(rng):
+    """(contigs [(name, str)], codes [12,071,326] uint8, contig starts):
+    S288C's 16 chromosome lengths, random bases, YEAST_DUPS segments of
+    1-5 kb copied to random places (repeats for second best and MAPQ)."""
+    lens = np.array([n for _, n in YEAST], np.int64)
+    starts = np.concatenate([[0], np.cumsum(lens)])
+    codes = rng.integers(0, 4, int(starts[-1])).astype(np.uint8)
+    for _ in range(YEAST_DUPS):
+        ln = int(rng.integers(1000, 5001))
+        a, b = rng.integers(0, len(codes) - ln, 2)
+        codes[b:b + ln] = codes[a:a + ln]
+    text = BASES[codes].tobytes().decode()
+    return ([(name, text[s:s + n]) for (name, n), s in zip(YEAST, starts)],
+            codes, starts)
+
+
+def mutate_windows(rng, win, L, sub=0.01, indel=0.1, n_rate=0.001):
+    """[n, L + 3] windows of codes → [n, L] reads: ~1% substitutions, one
+    1-3 bp insertion or deletion in a tenth of them, ~0.1% Ns (code 4)."""
+    win = np.where(rng.random(win.shape) < sub,
+                   (win + rng.integers(1, 4, win.shape)) % 4,
+                   win).astype(np.uint8)
+    win[rng.random(win.shape) < n_rate] = 4
+    out = win[:, :L].copy()
+    for i in np.flatnonzero(rng.random(len(win)) < indel):
+        at, d = int(rng.integers(20, L - 20)), int(rng.integers(1, 4))
+        w = win[i]
+        if rng.random() < 0.5:
+            out[i] = np.concatenate([w[:at], w[at + d:]])[:L]
+        else:
+            out[i] = np.concatenate(
+                [w[:at], rng.integers(0, 4, d).astype(np.uint8), w[at:]])[:L]
+    return out
+
+
+def as_reads(arr, rev) -> list[str]:
+    """Reads of codes (4 = N) as strings, the rows under `rev` reverse
+    complemented."""
+    arr = arr.copy()
+    arr[rev] = COMPLEMENT2[arr[rev]][:, ::-1]
+    return [READ_LUT[r].tobytes().decode() for r in arr]
+
+
+def simulate_reads(rng, codes, starts, n, L=MAP_LEN):
+    """n reads of L bases (mutate_windows' errors), every second from the
+    reverse strand; returns (reads, contig index, 0-based start in the
+    contig, reverse)."""
+    room = np.diff(starts) - L - 3
+    ci = rng.choice(len(room), n, p=room / room.sum())
+    local = (rng.random(n) * room[ci]).astype(np.int64)
+    win = codes[(starts[ci] + local)[:, None] + np.arange(L + 3)]
+    rev = np.arange(n) % 2 == 1
+    return as_reads(mutate_windows(rng, win, L), rev), ci, local, rev
+
+
+def simulate_pairs(rng, codes, starts, n, L=MAP_LEN, lost=0.05):
+    """n FR pairs: fragments of 300-500 bp, mate 1 its first L bases,
+    mate 2 the reverse complement of its last L (mutate_windows' errors);
+    in a `lost` share one mate (first or second in turn) is random
+    sequence, which maps nowhere, so the pair goes to rescue.  Returns
+    (mates 1, mates 2, contig index, fragment start, lost mask)."""
+    ins = rng.integers(300, 501, n)
+    room = np.diff(starts) - 503
+    ci = rng.choice(len(room), n, p=room / room.sum())
+    local = (rng.random(n) * room[ci]).astype(np.int64)
+    g = starts[ci] + local
+    w1 = codes[g[:, None] + np.arange(L + 3)]
+    w2 = codes[(g + ins - L)[:, None] + np.arange(L + 3)]
+    m1 = mutate_windows(rng, w1, L)
+    m2 = mutate_windows(rng, w2, L)
+    gone = rng.random(n) < lost
+    for i in np.flatnonzero(gone):
+        (m1 if i % 2 else m2)[i] = rng.integers(0, 4, L)
+    fwd = np.zeros(n, bool)
+    return (as_reads(m1, fwd), as_reads(m2, ~fwd), ci, local, gone)
+
+
+def origin_share(maps, names, ci, local, tol: int = 2) -> float:
+    """Share of reads mapped to their own contig within tol bp of the
+    start they were cut from."""
+    ok = sum(m.pos > 0 and m.contig == names[c] and abs(m.pos - 1 - p) <= tol
+             for m, c, p in zip(maps, ci, local))
+    return ok / len(maps)
+
+
+@contextlib.contextmanager
+def recording_fm(store: list):
+    """Within the block, every fm_search call appends (queries, qlen, lo,
+    hi): the launches the mapper makes, to be checked after."""
+    from genomics_tpu_torch.ops import fm_search as fs
+
+    inner = fs.fm_search
+
+    def record(idx, q, ql):
+        lo, hi = inner(idx, q, ql)
+        store.append((idx, q, ql, lo, hi))
+        return lo, hi
+    fs.fm_search = record
+    try:
+        yield
+    finally:
+        fs.fm_search = inner
+
+
+def cpu_twin(mapper):
+    """The same ReadMapper (its indexes shared) on the CPU: its engine,
+    FM search and Myers take the plain versions."""
+    import copy
+
+    from genomics_tpu_torch import AlignEngine
+
+    twin = copy.copy(mapper)
+    twin.device = torch.device("cpu")
+    twin.engine = AlignEngine(mapper.params, with_tb=True, device="cpu")
+    twin._dev_fm = None
+    return twin
+
+
+def host_backward_search(fm, Q, ql, chunk: int = 4096, threads: int = 8):
+    """FMIndex.backward_search over chunks of the queries, in threads
+    (numpy's gathers let go of the GIL); returns (lo, hi) int64."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(threads) as ex:
+        parts = list(ex.map(
+            lambda i: fm.backward_search(Q[i:i + chunk], ql[i:i + chunk]),
+            range(0, len(ql), chunk)))
+    return (np.concatenate([p[0] for p in parts]),
+            np.concatenate([p[1] for p in parts]))
+
+
+def mapping_fields(maps) -> list:
+    import dataclasses
+
+    return [dataclasses.asdict(m) for m in maps]
+
+
+def write_fastq(path: str, names, seqs):
+    with open(path, "w") as fh:
+        for name, s in zip(names, seqs):
+            fh.write(f"@{name}\n{s}\n+\n{'I' * len(s)}\n")
+
+
+def sam_body(path: str) -> tuple[list, list]:
+    """(header lines, record lines) of a SAM file."""
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    return ([ln for ln in lines if ln.startswith("@")],
+            [ln for ln in lines if not ln.startswith("@")])
+
+
+def mapper_counts() -> dict:
+    """Every kernel's launch count (the mapper's paths read these)."""
+    from genomics_tpu_torch.ops import cuda_align, fm_search, myers, tb_walk
+
+    return {**cuda_align.LAUNCHES, **tb_walk.LAUNCHES, **myers.LAUNCHES,
+            **fm_search.LAUNCHES}
+
+
+def zero_mapper_counts():
+    from genomics_tpu_torch.ops import cuda_align, fm_search, myers, tb_walk
+
+    zero_counts(cuda_align.LAUNCHES, tb_walk.LAUNCHES, myers.LAUNCHES,
+                fm_search.LAUNCHES)
+
+
+def launched(want, label: str) -> dict:
+    """The nonzero launch counts since zero_mapper_counts; raises unless
+    every kernel of `want` was launched."""
+    got = {k: v for k, v in mapper_counts().items() if v}
+    missing = [k for k in want if not got.get(k)]
+    if missing:
+        raise AssertionError(f"{label}: {missing} never launched ({got})")
+    return got
+
+
+def mapper_inputs(seed: int, n_reads: int, n_pairs: int):
+    """The mapper slice's genome, reads and pairs, from their own
+    generator (so that the earlier phases' data stay as they were)."""
+    rng = np.random.default_rng(seed + 23)
+    contigs, codes, starts = yeast_like(rng)
+    reads = simulate_reads(rng, codes, starts, n_reads)
+    pairs = simulate_pairs(rng, codes, starts, n_pairs)
+    return contigs, codes, starts, reads, pairs
+
+
+def write_mapper_files(dirname: str, contigs, reads, pairs, n_reads: int,
+                       n_pairs: int) -> dict:
+    """ref.fa, reads.fq (n_reads), m1.fq / m2.fq (n_pairs) under dirname,
+    and their first MAP_CHECK reads / MAP_CHECK // 2 pairs (head*.fq)."""
+    from genomics_tpu_torch.utils.fasta import write_fasta
+
+    p = {k: os.path.join(dirname, f) for k, f in (
+        ("ref", "ref.fa"), ("reads", "reads.fq"), ("m1", "m1.fq"),
+        ("m2", "m2.fq"), ("head", "head.fq"), ("h1", "h1.fq"),
+        ("h2", "h2.fq"))}
+    write_fasta(p["ref"], contigs, width=80)
+    names = [f"read{i}" for i in range(n_reads)]
+    write_fastq(p["reads"], names, reads[:n_reads])
+    write_fastq(p["head"], names[:MAP_CHECK], reads[:MAP_CHECK])
+    pnames = [f"pair{i}" for i in range(n_pairs)]
+    write_fastq(p["m1"], pnames, pairs[0][:n_pairs])
+    write_fastq(p["m2"], pnames, pairs[1][:n_pairs])
+    half = MAP_CHECK // 2
+    write_fastq(p["h1"], pnames[:half], pairs[0][:half])
+    write_fastq(p["h2"], pnames[:half], pairs[1][:half])
+    return p
+
+
+def mapper_slice(seed: int, dev, smi: str, peak: float) -> dict:
+    """Phases 3-5 of the mapper slice on the card; returns fm_search's row
+    of the kernels line but its name, route and source."""
+    from genomics_tpu_torch.index.fmindex import FMIndex
+    from genomics_tpu_torch.models.mapper import ReadMapper
+    from genomics_tpu_torch.ops import fm_search as fs
+    from genomics_tpu_torch.utils import bamio
+
+    err = 0
+    # -- 3. fm_search at its edges ----------------------------------------
+    qrng = np.random.default_rng(seed + 21)
+    edges = [(spec[0], fm_edge_text(spec, seed + 17))
+             for spec in FM_EDGE_SPECS]
+    small = qrng.integers(0, 4, 300).astype(np.uint8)
+    for label, codes in edges + [("every q-gram of 300 bp", small)]:
+        fm = FMIndex(codes)
+        idx = fm.to_device(device=dev)
+        if label.startswith("every"):
+            Q = np.concatenate([np.pad(np.lib.stride_tricks.sliding_window_view(
+                codes, q), ((0, 0), (0, 32 - q)), constant_values=255)
+                for q in range(1, 33)]).astype(np.int32)
+            ql = np.repeat(np.arange(1, 33, dtype=np.int32),
+                           [len(codes) - q + 1 for q in range(1, 33)])
+        else:
+            Q, ql = fm_queries(qrng, codes)
+        q = torch.from_numpy((Q & 3).astype(np.uint8)).to(dev)
+        qlt = torch.from_numpy(ql).to(dev)
+        got = fs.fm_search(idx, q, qlt)
+        want = fs.backward_search_plain(idx, q, qlt)
+        host = fm.backward_search(Q, ql)
+        err = max(err, max_abs_err(got, want), max_abs_err(
+            got, [torch.from_numpy(h.astype(np.int32)).to(dev)
+                  for h in host]))
+    if err:
+        raise AssertionError(f"fm_search disagrees at its edges: {err}")
+    log("3 parity", f"fm_search == plain == FMIndex.backward_search at "
+        f"{len(edges)} texts ({', '.join(lb for lb, _ in edges)}), "
+        f"queries of 0-32 present and absent, and every 1-32-gram of a "
+        f"300 bp text")
+
+    # -- 4. the mapper slice ------------------------------------------------
+    t0 = time.time()
+    contigs, codes, starts, reads, pairs = mapper_inputs(seed, MAP_READS,
+                                                         MAP_PAIRS)
+    names = [n for n, _ in contigs]
+    reads, r_ci, r_local, _r_rev = reads
+    gen_s = time.time() - t0
+    t0 = time.time()
+    m_fm = ReadMapper(contigs, seeder="fmdev", device=dev)
+    fm_build = time.time() - t0
+    t0 = time.time()
+    m_q = ReadMapper(contigs, device=dev)
+    q_build = time.time() - t0
+    log("4 mapper", f"genome {len(codes)} bp in {len(contigs)} contigs "
+        f"(S288C's lengths, {YEAST_DUPS} copied segments of 1-5 kb), "
+        f"{MAP_READS} reads of {MAP_LEN} bp, {MAP_PAIRS} pairs, made in "
+        f"{gen_s:.1f} s; FMIndex (sa_rate {m_fm.fm.sa_rate}) {fm_build:.1f}"
+        f" s, QGramIndex {q_build:.1f} s on the host")
+    walls, rates, launches = {}, {}, {}
+
+    # fmdev seeding + the `ed` stage + the gapped DP with traceback
+    zero_mapper_counts()
+    seeds = []
+    with recording_fm(seeds):
+        t0 = time.time()
+        maps = m_fm.map_batch(reads, two_stage="ed")
+        walls["fmdev"] = time.time() - t0
+    launches["fmdev"] = launched(("fm_search", "myers", "local_sw.tb",
+                                  "tb_walk"), "fmdev + ed")
+    n_seeds = sum(len(r[2]) for r in seeds)
+    for idx, q, ql, lo, hi in seeds:
+        err = max(err, max_abs_err((lo, hi),
+                                   fs.backward_search_plain(idx, q, ql)))
+    t0 = time.time()
+    Qh = torch.cat([r[1] for r in seeds]).cpu().numpy()
+    qlh = torch.cat([r[2] for r in seeds]).cpu().numpy()
+    hlo, hhi = host_backward_search(m_fm.fm, Qh, qlh)
+    host_s = time.time() - t0
+    dlo = torch.cat([r[3] for r in seeds]).cpu().numpy()
+    dhi = torch.cat([r[4] for r in seeds]).cpu().numpy()
+    err = max(err, int(np.abs(dlo - hlo).max(initial=0)),
+              int(np.abs(dhi - hhi).max(initial=0)))
+    if err:
+        raise AssertionError(f"fm_search disagrees on the mapper's seeds: "
+                             f"{err}")
+    twin = cpu_twin(m_fm)
+    t0 = time.time()
+    cpu_maps = twin.map_batch(reads[:MAP_CHECK], two_stage="ed")
+    cpu_s = time.time() - t0
+    if mapping_fields(maps[:MAP_CHECK]) != mapping_fields(cpu_maps):
+        raise AssertionError("fmdev + ed: the first reads' Mappings differ "
+                             "from device='cpu'")
+    share = origin_share(maps, names, r_ci, r_local)
+    rates["fmdev"] = MAP_READS / walls["fmdev"]
+    log("4 mapper", f"ReadMapper(seeder='fmdev').map_batch(two_stage='ed'):"
+        f" {walls['fmdev']:.2f} s, {rates['fmdev']:.0f} reads/s; "
+        f"{len(seeds)} fm_search calls over {n_seeds} seeds, == plain on the "
+        f"card and == FMIndex.backward_search on the host ({host_s:.1f} s); "
+        f"the first {MAP_CHECK} Mappings == device='cpu' ({cpu_s:.1f} s); "
+        f"mapped {sum(m.pos > 0 for m in maps)}, {100 * share:.2f}% within "
+        f"2 bp of their origin; launches {launches['fmdev']}")
+
+    # the default seeder: q-grams
+    zero_mapper_counts()
+    t0 = time.time()
+    maps_q = m_q.map_batch(reads)
+    walls["qgram"] = time.time() - t0
+    launches["qgram"] = launched(("local_sw.tb", "tb_walk"), "qgram")
+    if launches["qgram"].get("fm_search"):
+        raise AssertionError("the qgram seeder launched fm_search")
+    twin_q = cpu_twin(m_q)
+    if mapping_fields(maps_q[:MAP_CHECK]) != mapping_fields(
+            twin_q.map_batch(reads[:MAP_CHECK])):
+        raise AssertionError("qgram: the first reads' Mappings differ from "
+                             "device='cpu'")
+    share_q = origin_share(maps_q, names, r_ci, r_local)
+    rates["qgram"] = MAP_READS / walls["qgram"]
+    log("4 mapper", f"ReadMapper().map_batch: {walls['qgram']:.2f} s, "
+        f"{rates['qgram']:.0f} reads/s; the first {MAP_CHECK} Mappings == "
+        f"device='cpu'; mapped {sum(m.pos > 0 for m in maps_q)}, "
+        f"{100 * share_q:.2f}% within 2 bp of their origin; launches "
+        f"{launches['qgram']}")
+
+    # pairs, with rescue
+    r1, r2, p_ci, p_local, gone = pairs
+    rescued = []
+    inner = m_q._rescue_candidates
+
+    def rescue(cands, a, b, lo, hi, discordant):
+        rescued.append(len(discordant))
+        return inner(cands, a, b, lo, hi, discordant)
+    m_q._rescue_candidates = rescue
+    zero_mapper_counts()
+    t0 = time.time()
+    pm = m_q.map_pairs(r1, r2)
+    walls["pairs"] = time.time() - t0
+    del m_q._rescue_candidates
+    launches["pairs"] = launched(("local_sw.tb", "tb_walk"), "map_pairs")
+    half = MAP_CHECK // 2
+    cpu_pairs = twin_q.map_pairs(r1[:half], r2[:half])
+    if [mapping_fields(p) for p in pm[:half]] != [mapping_fields(p)
+                                                  for p in cpu_pairs]:
+        raise AssertionError("map_pairs: the first pairs differ from "
+                             "device='cpu'")
+    proper = sum(a.proper_pair for a, _ in pm)
+    share_p = origin_share([a for a, _ in pm], names, p_ci, p_local)
+    rates["pairs"] = MAP_PAIRS / walls["pairs"]
+    if not rescued or not rescued[0]:
+        raise AssertionError("map_pairs: rescue never ran")
+    log("4 mapper", f"map_pairs: {walls['pairs']:.2f} s, {rates['pairs']:.0f}"
+        f" pairs/s; rescue over {rescued[0]} discordant pairs ({int(gone.sum())}"
+        f" with a random mate); {proper} proper pairs; mate 1 within 2 bp "
+        f"of its origin {100 * share_p:.2f}%; the first {half} pairs == "
+        f"device='cpu'; launches {launches['pairs']}")
+
+    # the `map` subcommand over FASTA / FASTQ files: SAM, BAM, paired
+    tmp = tempfile.TemporaryDirectory()
+    files = write_mapper_files(tmp.name, contigs, reads, pairs, CLI_READS,
+                               CLI_PAIRS)
+    out = {k: os.path.join(tmp.name, k) for k in (
+        "out.sam", "out.bam", "pairs.sam", "cpu.sam", "cpupairs.sam")}
+    cli_runs = (("SAM", ["-q", files["reads"], "-o", out["out.sam"]],
+                 CLI_READS),
+                ("BAM", ["-q", files["reads"], "-o", out["out.bam"]],
+                 CLI_READS),
+                ("paired SAM", ["-q", files["m1"], "-2", files["m2"], "-o",
+                                out["pairs.sam"]], 2 * CLI_PAIRS))
+    for label, argv, lines in cli_runs:
+        zero_mapper_counts()
+        t0 = time.time()
+        said = run_cli(["map", "-r", files["ref"], *argv, "--device",
+                        str(dev)])
+        walls[f"cli {label}"] = time.time() - t0
+        launches[f"cli {label}"] = launched(("local_sw.tb", "tb_walk"),
+                                            f"map CLI ({label})")
+        rates[f"cli {label}"] = lines / walls[f"cli {label}"]
+        log("4 mapper", f"python -m genomics_tpu_torch map ({label}): "
+            f"{said.strip()}; {walls[f'cli {label}']:.2f} s, "
+            f"{rates[f'cli {label}']:.0f} lines/s (the index built from the "
+            f"FASTA included); launches {launches[f'cli {label}']}")
+    run_cli(["map", "-r", files["ref"], "-q", files["head"], "-o",
+             out["cpu.sam"], "--device", "cpu"])
+    run_cli(["map", "-r", files["ref"], "-q", files["h1"], "-2", files["h2"],
+             "-o", out["cpupairs.sam"], "--device", "cpu"])
+    for card, cpu in (("out.sam", "cpu.sam"), ("pairs.sam", "cpupairs.sam")):
+        h_card, body = sam_body(out[card])
+        h_cpu, body_cpu = sam_body(out[cpu])
+        if h_card != h_cpu or body[:MAP_CHECK] != body_cpu:
+            raise AssertionError(f"map CLI: {card}'s header or first "
+                                 f"{MAP_CHECK} lines differ from --device "
+                                 f"cpu")
+    _, sam_lines = sam_body(out["out.sam"])
+    _h, refs, recs = bamio.read_bam(out["out.bam"])
+    if [n for n, _ in refs] != names or len(recs) != len(sam_lines):
+        raise AssertionError("map CLI: the BAM's references or records do "
+                             "not match the SAM's")
+    for r, ln in zip(recs, sam_lines):
+        f = ln.split("\t")
+        if (r.name, r.flag, r.pos + 1, r.mapq, r.cigar, r.seq) != (
+                f[0], int(f[1]), int(f[3]), int(f[4]), f[5], f[9]):
+            raise AssertionError(f"map CLI: BAM record {r.name} differs from "
+                                 f"its SAM line")
+    tmp.cleanup()
+    log("4 mapper", f"map CLI: SAM and paired SAM headers and first "
+        f"{MAP_CHECK} lines == --device cpu; every BAM record == its SAM "
+        f"line")
+
+    # benchmarks/run_all.py's bench_mapper shape (best of 3)
+    brng = np.random.default_rng(0)
+    g = brng.integers(0, 4, BENCH_MAP_GENOME)
+    bref = BASES[g].tobytes().decode()
+    breads = []
+    for p in brng.integers(0, BENCH_MAP_GENOME - BENCH_MAP_LEN,
+                           2 * BENCH_MAP_READS):
+        r = g[p:p + BENCH_MAP_LEN].copy()
+        e = brng.random(BENCH_MAP_LEN) < 0.01
+        r[e] = (r[e] + brng.integers(1, 4, int(e.sum()))) % 4
+        breads.append(BASES[r].tobytes().decode())
+    bm = ReadMapper(bref, device=dev)
+    bm.map_batch(breads[:BENCH_MAP_READS])
+    best = None
+    for _ in range(3):
+        t0 = time.time()
+        bout = bm.map_batch(breads[BENCH_MAP_READS:])
+        dt = time.time() - t0
+        best = dt if best is None else min(best, dt)
+    mapped = sum(m.pos > 0 for m in bout)
+    if mapped < 0.95 * BENCH_MAP_READS:
+        raise AssertionError(f"bench_mapper shape: only {mapped} mapped")
+    rates["bench_mapper"] = BENCH_MAP_READS / best
+    log("4 mapper", f"run_all.py's bench_mapper shape ({BENCH_MAP_READS} "
+        f"warm + {BENCH_MAP_READS} timed {BENCH_MAP_LEN} bp reads, "
+        f"{BENCH_MAP_GENOME} bp): mapper_reads_per_s "
+        f"{rates['bench_mapper']:.1f} (best of 3), {mapped} mapped; on {smi}")
+
+    # -- 5. fm_search's timings -------------------------------------------
+    idx = seeds[0][0]
+    big = max(seeds, key=lambda r: r[1].shape[0])
+    W, NB = idx.p0.shape[0], idx.ckpt.shape[1]
+    index_bytes = 8 * W + 16 * NB + 24
+    rng = np.random.default_rng(seed + 29)
+    S = FM_TIMING_Q
+    ql = rng.integers(16, 33, S).astype(np.int32)
+    at = rng.integers(0, len(codes) - 32, S)
+    Q = codes[at[:, None] + np.arange(32)]
+    Q[1::2] = rng.integers(0, 4, (S // 2, 32))
+    shapes = {"the mapper's seeds": (big[1], big[2]),
+              f"{S} queries of 16-32": (torch.from_numpy(Q).to(dev),
+                                        torch.from_numpy(ql).to(dev))}
+    row = None
+    for label, (q, ql_t) in shapes.items():
+        stats = {}
+        want = fs.backward_search_plain(idx, q, ql_t, stats=stats)
+        lay = fs.fm_search_layout(idx, q, ql_t)
+        err = max(err, max_abs_err(fs.launch_fm_search(lay), want))
+        k_ms = cuda_ms(lambda: fs.launch_fm_search(lay), 20)
+        p_ms = cuda_ms(lambda: fs.backward_search_plain(idx, q, ql_t), 2)
+        n, L = q.shape
+        steps = stats["steps"]
+        bd = bound(FM_OPS_PER_STEP * steps, n * L + 4 * n + 8 * n
+                   + index_bytes, peak)
+        log("5 timings", f"fm_search at {label} ({n} x {L}): kernel "
+            f"{k_ms:.4f} ms ({n / k_ms / 1e3:.1f} M queries/s), plain "
+            f"{p_ms:.2f} ms, bound {bd[0]:.4f} ms by {bd[1]} ({steps} steps x "
+            f"{FM_OPS_PER_STEP} int op; {n * L + 12 * n + index_bytes} "
+            f"bytes, the index's {index_bytes} of them resident in L2, so "
+            f"the HBM bound understates the floor), {k_ms / bd[0]:.1f} x "
+            f"the bound; up to {FM_SECTORS_PER_STEP} sectors of 32 bytes a "
+            f"step, {FM_SECTORS_PER_STEP * 32 * steps / 1e6:.1f} MB of L2 "
+            f"sectors; == plain; on {smi}")
+        if row is None:
+            row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bd[0],
+                       bound_by=bd[1])
+    if err:
+        raise AssertionError(f"fm_search disagrees with its plain version at "
+                             f"the timed launches: {err}")
+    log("5 timings", "mapper: " + ", ".join(
+        f"{k} {v:.0f} {'lines' if k.startswith('cli') else 'pairs' if k == 'pairs' else 'reads'}/s"
+        for k, v in rates.items()) + f" (host clock); on {smi}")
+    return dict(launches=launches["fmdev"]["fm_search"], max_abs_err=err,
+                **row)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1713,6 +2325,13 @@ def main() -> int:
     build_s = time.time() - t0
     log("2 build", f"{len(_build.KERNELS)} kernels built in {build_s:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS[:2])}, one process per source)")
+    from genomics_tpu_torch.runtime import native
+    for lib in native.BUILD_DIR.glob("*.so"):
+        lib.unlink()                    # built for this machine's CPU
+    t0 = time.time()
+    native.library()
+    log("2 build", f"native/ (SA-IS) built in {time.time() - t0:.1f} s "
+        f"({' '.join(native.CXX_FLAGS)}) into build/native/")
     for name in _build.KERNELS:
         lines = (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
         regs = sorted({int(ln.split("Used ")[1].split()[0])
@@ -1789,6 +2408,30 @@ def main() -> int:
             ("Myers ed", functools.partial(myers.edit_distance_semiglobal,
                                            reads_ed, wins, device=dev),
              ED_PAIRS)]
+        # the mapper's paths, at PROFILE_READS reads / PROFILE_PAIRS pairs
+        # against the 12 Mbp genome
+        from genomics_tpu_torch.models.mapper import ReadMapper
+
+        contigs, _, _, (mreads, *_), mpairs = mapper_inputs(
+            args.seed, PROFILE_READS, PROFILE_PAIRS)
+        m_fm = ReadMapper(contigs, seeder="fmdev", device=dev)
+        m_q = ReadMapper(contigs, device=dev)
+        mfiles = write_mapper_files(fasta_dir.name, contigs, mreads, mpairs,
+                                    PROFILE_READS, PROFILE_PAIRS)
+        runs = [
+            ("mapper fmdev + ed", functools.partial(
+                m_fm.map_batch, mreads, two_stage="ed"),
+             f"{PROFILE_READS} reads"),
+            ("mapper qgram", functools.partial(m_q.map_batch, mreads),
+             f"{PROFILE_READS} reads"),
+            ("mapper map_pairs (rescue)", functools.partial(
+                m_q.map_pairs, mpairs[0], mpairs[1]),
+             f"{PROFILE_PAIRS} read pairs"),
+            ("map CLI to SAM (the index built from the FASTA included)",
+             functools.partial(run_cli, [
+                 "map", "-r", mfiles["ref"], "-q", mfiles["reads"], "-o",
+                 os.path.join(fasta_dir.name, "o.sam")]),
+             f"{PROFILE_READS} reads")] + runs
         profile_paths(runs, smi)
         fasta_dir.cleanup()
         return 0
@@ -3318,6 +3961,9 @@ def main() -> int:
     # the NW, SW and MSA apps: their kernels at the edges, the apps end to
     # end, their times (phases 3-5 of the apps)
     app_rows = apps(args.seed, dev, smi, peak)
+    # the mapper slice: fm_search at its edges, the mapper's paths end to
+    # end, fm_search's times (phases 3-5 of the mapper)
+    fm_row = mapper_slice(args.seed, dev, smi, peak)
 
     src = "genomics_tpu_torch/csrc/"
     rows = [
@@ -3366,7 +4012,8 @@ def main() -> int:
     left = child_pids()
     if left:
         raise AssertionError(f"child processes still running: {left}")
-    # no single PyTorch call computes these recurrences: library_ms null
+    # no single PyTorch call computes these recurrences or a backward
+    # search: library_ms null
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + f,
          "replaces": rep, "launches": launches[name],
@@ -3376,7 +4023,10 @@ def main() -> int:
         for name, f, rep in rows] + [
         {"name": name, "route": "cuda", "source": src + f, "replaces": rep,
          **app_rows[name], "library_ms": None}
-        for name, f, rep in APP_ROWS]}), flush=True)
+        for name, f, rep in APP_ROWS] + [
+        {"name": "fm_search", "route": "cuda", "source": src + "fm_search.cu",
+         "replaces": "genomics_tpu/ops/fm_search.py:121", **fm_row,
+         "library_ms": None}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

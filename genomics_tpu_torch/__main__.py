@@ -12,11 +12,23 @@
                                                      [--device cuda|cpu]
     python -m genomics_tpu_torch msa     in.fasta out.fasta [-p matrix.txt]
                                          [--device cuda|cpu]
+    python -m genomics_tpu_torch index   -r ref.fasta -o out [--sa-rate R]
+                                         [--set-bwt]
+    python -m genomics_tpu_torch fmquery -x index.npz -p PATTERN ... [--locate]
+    python -m genomics_tpu_torch fmserver -x index.npz [--locate-limit N]
+    python -m genomics_tpu_torch extract -i in.bam|fastq|fasta -o out.txt
+    python -m genomics_tpu_torch map     -r ref.fasta -q reads.fastq
+                                         [-2 mates.fastq] -o out.sam|out.bam
+                                         [--min-insert N] [--max-insert N]
+                                         [--device cuda|cpu]
 
 The counterparts of `genomics_tpu/__main__.py`'s `nw`, `sw`, `align`,
-`pairhmm` and `msa` subcommands, with their arguments and their output
-lines; `--device` (default the card) picks the plain PyTorch versions
-with `cpu`.  `msa` reads `-p` and does not pass it on, as the JAX
+`pairhmm`, `msa`, `index`, `fmquery`, `fmserver`, `extract` and `map`
+subcommands, with their arguments, their output lines and their files
+(an `.npz` index written by either package loads in the other);
+`--device` (default the card) picks the plain PyTorch versions with
+`cpu`.  `index`, `fmquery`, `fmserver` and `extract` run on the host in
+both packages.  `msa` reads `-p` and does not pass it on, as the JAX
 package's subcommand does, so its file is byte for byte that one's;
 `models.msa.msa(seqs, matrix_path=)` scores with a matrix.  The other
 subcommands of the JAX package are not ported yet."""
@@ -86,6 +98,41 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain versions")
 
+    p = sub.add_parser("index", help="build + save an FM-index (nvBWT/nvSSA)")
+    p.add_argument("-r", "--reference", required=True)
+    p.add_argument("-o", "--output", required=True, help="output .npz prefix")
+    p.add_argument("--sa-rate", type=int, default=None)
+    p.add_argument("--set-bwt", action="store_true",
+                   help="index the concatenated read SET (nvSetBWT)")
+
+    p = sub.add_parser("fmquery", help="query a saved FM-index (nvFM-server)")
+    p.add_argument("-x", "--index", required=True)
+    p.add_argument("-p", "--patterns", required=True, nargs="+")
+    p.add_argument("--locate", action="store_true")
+
+    p = sub.add_parser(
+        "fmserver",
+        help="persistent FM-index query server (nvFM-server): one "
+             "pattern per stdin line → count + hits; QUIT exits")
+    p.add_argument("-x", "--index", required=True)
+    p.add_argument("--locate-limit", type=int, default=20)
+
+    p = sub.add_parser("extract", help="dump reads from BAM/FASTQ/FASTA (nvExtractReads)")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--output", required=True)
+
+    p = sub.add_parser("map", help="read mapping → SAM/BAM")
+    p.add_argument("-r", "--reference", required=True)
+    p.add_argument("-q", "--reads", required=True)
+    p.add_argument("-2", "--mates", default=None,
+                   help="mate-2 file → paired-end FR mapping")
+    p.add_argument("-o", "--output", required=True,
+                   help=".sam or .bam extension selects the format")
+    p.add_argument("--min-insert", type=int, default=0)
+    p.add_argument("--max-insert", type=int, default=500)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu for the plain versions")
+
     args = ap.parse_args(argv)
 
     if args.cmd == "nw":
@@ -148,6 +195,125 @@ def main(argv=None):
         aligned, cidx = msa.run_file(args.input, args.output,
                                      device=args.device)
         print(f"center sequence index: {cidx}; wrote {len(aligned)} rows")
+    elif args.cmd == "index":
+        from genomics_tpu_torch.index.fmindex import FMIndex, save_index
+        from genomics_tpu_torch.utils.fasta import read_fasta
+
+        recs = read_fasta(args.reference)
+        if args.set_bwt:
+            # true string-set BWT (nvSetBWT): per-read terminators,
+            # wavelet-tree rank over the 6-symbol alphabet
+            from genomics_tpu_torch.index.setbwt import SetFMIndex
+
+            sfm = SetFMIndex([r.seq for r in recs])
+            sfm.save(args.output)
+            print(f"set-BWT over {sfm.n_reads} reads "
+                  f"({len(sfm.text)} symbols) → {args.output}")
+        else:
+            text = "".join(r.seq for r in recs)      # multi-contig concat
+            fm = FMIndex(text, sa_rate=args.sa_rate)
+            save_index(fm, args.output)
+            print(f"indexed {len(text)} bp ({len(recs)} sequences, "
+                  f"sa_rate={fm.sa_rate}) → {args.output}.npz"
+                  if not args.output.endswith('.npz') else args.output)
+    elif args.cmd == "fmserver":
+        import sys as _sys
+
+        from genomics_tpu_torch.index import setbwt as _sb
+
+        idx = _sb.load_any_index(args.index)
+        print("ready", flush=True)
+        _sb.serve(idx, _sys.stdin, _sys.stdout,
+                  locate_limit=args.locate_limit)
+    elif args.cmd == "fmquery":
+        import numpy as np
+
+        from genomics_tpu_torch.index.qgram import encode2
+        from genomics_tpu_torch.index.setbwt import SetFMIndex, load_any_index
+
+        fm = load_any_index(args.index)
+        if isinstance(fm, SetFMIndex):
+            for pat in args.patterns:
+                cnt = fm.count(pat)
+                line = f"{pat}\t{cnt}"
+                if args.locate and cnt:
+                    line += "\t" + ",".join(
+                        f"{r}:{o}" for r, o in fm.locate(pat))
+                print(line)
+            return
+        L = max(len(p_) for p_ in args.patterns)
+        Q = np.full((len(args.patterns), L), 255, np.uint8)
+        ql = np.zeros(len(args.patterns), np.int64)
+        for i, pat in enumerate(args.patterns):
+            e = encode2(pat)
+            Q[i, : len(e)] = e
+            ql[i] = len(e)
+        lo, hi = fm.backward_search(Q, ql)
+        for pat, l, h in zip(args.patterns, lo, hi):
+            cnt = max(int(h - l), 0)
+            line = f"{pat}\t{cnt}"
+            if args.locate and cnt:
+                pos = fm.locate(int(l), int(h))[:20]
+                line += "\t" + ",".join(str(int(x)) for x in pos)
+            print(line)
+    elif args.cmd == "extract":
+        from genomics_tpu_torch.utils.fasta import read_fasta, read_fastq
+
+        if args.input.endswith(".bam"):
+            from genomics_tpu_torch.utils.bamio import read_bam
+
+            _h, _r, recs = read_bam(args.input)
+            seqs = [r.seq for r in recs]
+        elif args.input.endswith((".fastq", ".fq")):
+            seqs = [r.seq for r in read_fastq(args.input)]
+        else:
+            seqs = [r.seq for r in read_fasta(args.input)]
+        with open(args.output, "w") as fh:
+            for s_ in seqs:
+                fh.write(s_ + "\n")
+        print(f"extracted {len(seqs)} reads → {args.output}")
+    elif args.cmd == "map":
+        from genomics_tpu_torch.models.mapper import ReadMapper
+        from genomics_tpu_torch.utils import bamio, samio
+        from genomics_tpu_torch.utils.fasta import read_fasta, read_fastq
+
+        def _load(path):
+            if path.endswith((".fastq", ".fq")):
+                return read_fastq(path)
+            return read_fasta(path)
+
+        refs = read_fasta(args.reference)
+        reads = _load(args.reads)
+        contigs = [(r.name.split()[0] or f"ctg{i}", r.seq)
+                   for i, r in enumerate(refs)]
+        mapper = ReadMapper(contigs, device=args.device)
+        # single-contig callers keep the old header shape; multi-contig
+        # headers list every @SQ line
+        rname = (contigs[0][0] if len(contigs) == 1
+                 else [(n, len(s)) for n, s in contigs])
+        bam = args.output.endswith(".bam")
+        if args.mates:
+            mates = _load(args.mates)
+            pairs = mapper.map_pairs(
+                [r.seq for r in reads], [r.seq for r in mates],
+                min_insert=args.min_insert, max_insert=args.max_insert)
+            recs = [(r.name.split()[0], r.seq, a, s.seq, b)
+                    for r, s, (a, b) in zip(reads, mates, pairs)]
+            (bamio.write_bam_pairs if bam else samio.write_sam_pairs)(
+                args.output, rname, len(contigs[0][1]), recs)
+            mapped = sum(a.pos >= 0 for a, _ in pairs) + sum(
+                b.pos >= 0 for _, b in pairs)
+            proper = sum(a.proper_pair for a, _ in pairs)
+            print(f"mapped {mapped}/{2 * len(pairs)} "
+                  f"({proper} proper pairs) → {args.output}")
+        else:
+            maps = mapper.map_batch([r.seq for r in reads])
+            recs = [(r.name.split()[0], r.seq, m)
+                    for r, m in zip(reads, maps)]
+            (bamio.write_bam if bam else samio.write_sam)(
+                args.output, rname, len(contigs[0][1]), recs)
+            mapped = sum(m.pos >= 0 for m in maps)
+            print(f"mapped {mapped}/{len(reads)} → {args.output}")
     return 0
 
 

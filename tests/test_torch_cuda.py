@@ -10,6 +10,7 @@ machine without JAX:
 
 (the variable keeps tests/conftest.py from importing JAX).
 """
+import dataclasses
 import itertools
 
 import numpy as np
@@ -17,15 +18,20 @@ import pytest
 import torch
 
 from chip_smoke import (
+    FM_EDGE_SPECS,
     NW_EDGE_N,
     PAIRHMM_EDGE_B,
     PAIRHMM_SHAPES,
     backtrack_edges,
     band_windows,
+    as_reads,
     cube_err,
     fill_edges,
+    fm_edge_text,
+    fm_queries,
     msa_edges,
     mutate,
+    mutate_windows,
     ncbi_matrix,
     nw_stripe_edges,
     pairhmm_edges,
@@ -39,10 +45,13 @@ from genomics_tpu_torch import AlgoType, AlignEngine, AlignmentParams
 from genomics_tpu_torch.core import golds
 from genomics_tpu_torch.core.scoring import SemiGlobalSkip
 from genomics_tpu_torch.core.submat import load_scoring_matrix
+from genomics_tpu_torch.index.fmindex import FMIndex
 from genomics_tpu_torch.models import msa, nw, pairhmm, sw
+from genomics_tpu_torch.models.mapper import ReadMapper
 from genomics_tpu_torch.ops import (
     cuda_align,
     cuda_pairhmm,
+    fm_search,
     myers,
     scan_align_full,
     scan_pairhmm,
@@ -1615,3 +1624,83 @@ def test_msa_in_chunks_on_the_card_matches_one_call(cuda, monkeypatch):
     one = msa.msa(seqs, device=cuda)
     monkeypatch.setattr(msa, "pairs_per_call", lambda dev, m, n: 16)
     assert msa.msa(seqs, device=cuda) == one == msa.msa(seqs, device="cpu")
+
+
+@pytest.mark.parametrize("spec", FM_EDGE_SPECS,
+                         ids=[spec[0] for spec in FM_EDGE_SPECS])
+def test_fm_search_matches_plain_at_the_edges(cuda, spec):
+    """The kernel == its plain version == the host FMIndex at the edge
+    texts, queries of 0-32 present and absent; also with the queries at a
+    row stride past their length (read in place)."""
+    codes = fm_edge_text(spec)
+    fm = FMIndex(codes)
+    idx = fm.to_device(device=cuda)
+    Q, ql = fm_queries(np.random.default_rng(len(codes)), codes)
+    q = torch.from_numpy((Q & 3).astype(np.uint8)).to(cuda)
+    qlt = torch.from_numpy(ql).to(cuda)
+    before = fm_search.LAUNCHES["fm_search"]
+    got = fm_search.fm_search(idx, q, qlt)
+    assert fm_search.LAUNCHES["fm_search"] == before + 1
+    want = fm_search.backward_search_plain(idx, q, qlt)
+    _assert_equal([g.cpu() for g in got], [w.cpu() for w in want])
+    host = fm.backward_search(Q, ql)
+    for g, h in zip(got, host):
+        np.testing.assert_array_equal(g.cpu().numpy(), h)
+    wide = torch.zeros((q.shape[0], q.shape[1] + 13), dtype=torch.uint8,
+                       device=cuda)
+    wide[:, :q.shape[1]] = q
+    lay = fm_search.fm_search_layout(idx, wide[:, :q.shape[1]], qlt)
+    assert lay[8].data_ptr() == wide.data_ptr() and lay[10] == q.shape[1] + 13
+    _assert_equal([g.cpu() for g in fm_search.launch_fm_search(lay)],
+                  [w.cpu() for w in want])
+
+
+def test_fm_search_of_no_queries_launches_nothing(cuda):
+    idx = FMIndex(np.zeros(50, np.uint8)).to_device(device=cuda)
+    before = fm_search.LAUNCHES["fm_search"]
+    lo, hi = fm_search.fm_search(
+        idx, torch.zeros((0, 16), dtype=torch.uint8, device=cuda),
+        torch.zeros(0, dtype=torch.int32, device=cuda))
+    assert lo.shape == hi.shape == (0,)
+    assert fm_search.LAUNCHES["fm_search"] == before
+
+
+def test_fm_search_launch_refuses_an_empty_grid(cuda):
+    idx = FMIndex(np.zeros(50, np.uint8)).to_device(device=cuda)
+    q = torch.zeros((1, 16), dtype=torch.uint8, device=cuda)
+    lay = list(fm_search.fm_search_layout(
+        idx, q, torch.ones(1, dtype=torch.int32, device=cuda)))
+    lay[12] = 0
+    with pytest.raises(RuntimeError, match="fm_search_launch failed"):
+        fm_search.launch_fm_search(tuple(lay))
+
+
+@pytest.mark.parametrize("seeder,two_stage", [("fmdev", "ed"),
+                                              ("qgram", False)])
+def test_mapper_on_the_card_matches_cpu(cuda, seeder, two_stage):
+    """ReadMapper on the card (the fmdev seeder's fm_search, the `ed`
+    stage's Myers, LOCAL TB and the walk) == device="cpu", every Mapping
+    field, over two contigs; pairs with rescue too."""
+    rng = np.random.default_rng(70)
+    codes = rng.integers(0, 4, 30000).astype(np.uint8)
+    codes[20000:22000] = codes[3000:5000]          # a repeat
+    text = "ACGT"
+    contigs = [("c1", "".join(text[c] for c in codes[:18000])),
+               ("c2", "".join(text[c] for c in codes[18000:]))]
+    at = rng.integers(0, len(codes) - 153, 96)
+    win = codes[at[:, None] + np.arange(153)]
+    reads = as_reads(mutate_windows(rng, win, 150), np.arange(96) % 2 == 1)
+    card = ReadMapper(contigs, seeder=seeder, device=cuda)
+    cpu = ReadMapper(contigs, seeder=seeder, device="cpu")
+    counts = dict(fm_search.LAUNCHES, **myers.LAUNCHES)
+    got = card.map_batch(reads, two_stage=two_stage)
+    if seeder == "fmdev":
+        assert fm_search.LAUNCHES["fm_search"] > counts["fm_search"]
+        assert myers.LAUNCHES["myers"] > counts["myers"]
+    want = cpu.map_batch(reads, two_stage=two_stage)
+    assert [dataclasses.asdict(m) for m in got] == \
+        [dataclasses.asdict(m) for m in want]
+    assert sum(m.pos > 0 for m in got) > 80
+    half = len(reads) // 2
+    assert card.map_pairs(reads[:half], reads[half:]) == \
+        cpu.map_pairs(reads[:half], reads[half:])

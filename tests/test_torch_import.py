@@ -31,6 +31,11 @@ def test_imports_with_jax_blocked():
         "from genomics_tpu_torch import __main__\n"
         "from genomics_tpu_torch.runtime import dispatch\n"
         "from genomics_tpu_torch.runtime.dispatch import walk_start\n"
+        "from genomics_tpu_torch.runtime import native\n"
+        "from genomics_tpu_torch.index import fmindex, qgram, setbwt, wavelet\n"
+        "from genomics_tpu_torch.ops import fm_search\n"
+        "from genomics_tpu_torch.models import mapper, mapq\n"
+        "from genomics_tpu_torch.utils import bamio, samio\n"
         "assert 'genomics_tpu' not in sys.modules\n"
         "print(genomics_tpu_torch.AlignEngine.__name__)\n"
     )
@@ -47,7 +52,10 @@ def test_every_module_is_checked_for_jax_imports():
             "ops/cuda_pairhmm.py", "ops/myers.py", "ops/scan_pairhmm.py",
             "models/aligner.py", "core/batch.py", "utils/fasta.py",
             "models/nw.py", "models/sw.py", "models/msa.py",
-            "core/submat.py"} <= names
+            "core/submat.py", "index/qgram.py", "index/fmindex.py",
+            "index/wavelet.py", "index/setbwt.py", "runtime/native.py",
+            "ops/fm_search.py", "models/mapq.py", "models/mapper.py",
+            "utils/samio.py", "utils/bamio.py"} <= names
 
 
 @pytest.mark.parametrize(
@@ -84,7 +92,13 @@ def test_every_entry_point_signature_matches_its_source():
 
     from genomics_tpu_torch import _build
     from genomics_tpu_torch.models import msa, nw, sw
-    from genomics_tpu_torch.ops import cuda_align, cuda_pairhmm, myers, tb_walk
+    from genomics_tpu_torch.ops import (
+        cuda_align,
+        cuda_pairhmm,
+        fm_search,
+        myers,
+        tb_walk,
+    )
 
     sigs = dict(cuda_align._SIGNATURES)
     sigs["tb_walk", "tb_walk_launch"] = tb_walk._ARGS
@@ -97,6 +111,7 @@ def test_every_entry_point_signature_matches_its_source():
     sigs["sw_app", "sw_app_launch"] = sw._ARGS
     sigs["msa_nw", "msa_nw_launch"] = msa._FILL_ARGS
     sigs["msa_nw", "msa_nw_backtrack_launch"] = msa._BACKTRACK_ARGS
+    sigs["fm_search", "fm_search_launch"] = fm_search._ARGS
     assert {lib for lib, _ in sigs} == set(_build.KERNELS)
     for (lib, sym), argtypes in sigs.items():
         src = (_build.CSRC / f"{lib}.cu").read_text()
