@@ -174,9 +174,9 @@ Then the read mapper (`mapper_slice`), phases 3-5 of its own:
             letter texts), queries of 0-32 present and absent, and every
             1-32-gram of a 300 bp text;
 4. mapper   a 12.07 Mbp genome of S288C's 16 chromosome lengths with 256
-            copied segments of 1-5 kb, 65,536 reads of 150 bp (~1%
+            copied segments of 1-5 kb, 16,384 reads of 150 bp (~1%
             substitutions, 1-3 bp indels in a tenth, ~0.1% Ns, half
-            reverse) and 16,384 FR pairs (300-500 bp inserts, 5% with a
+            reverse) and 4,096 FR pairs (300-500 bp inserts, 5% with a
             random mate): ReadMapper(seeder="fmdev").map_batch(two_stage=
             "ed") (fm_search, myers, local_sw TB, tb_walk; every seed's
             range == plain on the card and == FMIndex.backward_search on
@@ -189,7 +189,8 @@ Then the read mapper (`mapper_slice`), phases 3-5 of its own:
             their origin; and run_all.py's bench_mapper shape;
 5. timings  fm_search as a launch alone at the mapper's seed launch and
             at 1,048,576 queries of 16-32, its plain version, its bound
-            (FM_OPS_PER_STEP over the active steps; the bytes, with the
+            (FM_OPS_PER_WORD / _RANK / _STEP over the words the active
+            steps' ranks read, the ranks and the steps; the bytes, with the
             index resident in L2) and its sectors; the mapper's reads/s,
             pairs/s and lines/s.
 
@@ -1687,10 +1688,12 @@ def apps(seed: int, dev, smi: str, peak: float) -> dict:
 # -- the mapper slice: its own phases 3-5 ----------------------------------
 
 FM_EDGE_N = (1, 31, 32, 33, 127, 128, 129, 4095, 4096)
-# csrc/fm_search.cu's integer operations per active step (its header:
-# 2 ranks x (4 words x 7 + 5) + 6), and the 32-byte sectors a step's two
-# ranks touch at most (a checkpoint word and a 16-byte run of each plane)
-FM_OPS_PER_STEP = 72
+# csrc/fm_search.cu's integer operations (its header): per plane word a
+# rank reads, per rank (two an active step) and per active step; words,
+# ranks and steps as backward_search_plain(stats=) counts them.  And the
+# 32-byte sectors a step's two ranks touch at most (a checkpoint word and a
+# 16-byte run of each plane)
+FM_OPS_PER_WORD, FM_OPS_PER_RANK, FM_OPS_PER_STEP = 7, 5, 6
 FM_SECTORS_PER_STEP = 6
 FM_TIMING_Q = 1 << 20        # queries of 16-32 bases, the launch alone
 # S. cerevisiae S288C's 16 nuclear chromosomes (SGD reference R64; 12.07
@@ -1702,10 +1705,12 @@ YEAST = (("chrI", 230218), ("chrII", 813184), ("chrIII", 316620),
          ("chrXIII", 924431), ("chrXIV", 784333), ("chrXV", 1091291),
          ("chrXVI", 948066))
 YEAST_DUPS = 256             # segments of 1-5 kb copied elsewhere
-MAP_READS, MAP_LEN = 65536, 150
-MAP_PAIRS = 16384            # FR pairs, inserts of 300-500 bp
+# a quarter of the 65,536 reads and 16,384 pairs first planned, so that the
+# whole script stays near the time the earlier slices kept
+MAP_READS, MAP_LEN = 16384, 150
+MAP_PAIRS = 4096             # FR pairs, inserts of 300-500 bp
 MAP_CHECK = 1024             # reads held to the same run on the CPU
-CLI_READS, CLI_PAIRS = 65536, 16384
+CLI_READS, CLI_PAIRS = 16384, 4096
 PROFILE_READS, PROFILE_PAIRS = 8192, 2048
 # benchmarks/run_all.py's bench_mapper: 2,000 warm + 2,000 timed 100 bp
 # reads at 1% substitutions against a 100 kbp genome (:494-519)
@@ -1857,6 +1862,26 @@ def origin_share(maps, names, ci, local, tol: int = 2) -> float:
     ok = sum(m.pos > 0 and m.contig == names[c] and abs(m.pos - 1 - p) <= tol
              for m, c, p in zip(maps, ci, local))
     return ok / len(maps)
+
+
+@contextlib.contextmanager
+def shared_qgram_index(mapper):
+    """Within the block, a ReadMapper built on `mapper`'s reference takes
+    `mapper`'s q-gram index in place of building its own: the `map` CLI's
+    runs over the same FASTA build no index."""
+    from genomics_tpu_torch.models import mapper as mm
+
+    inner = mm.QGramIndex
+
+    def build(text, q=16):
+        same = (isinstance(text, str) and text == mapper.reference
+                and q == mapper.index.q)
+        return mapper.index if same else inner(text, q)
+    mm.QGramIndex = build
+    try:
+        yield
+    finally:
+        mm.QGramIndex = inner
 
 
 @contextlib.contextmanager
@@ -2150,23 +2175,26 @@ def mapper_slice(seed: int, dev, smi: str, peak: float) -> dict:
                  CLI_READS),
                 ("paired SAM", ["-q", files["m1"], "-2", files["m2"], "-o",
                                 out["pairs.sam"]], 2 * CLI_PAIRS))
-    for label, argv, lines in cli_runs:
-        zero_mapper_counts()
-        t0 = time.time()
-        said = run_cli(["map", "-r", files["ref"], *argv, "--device",
-                        str(dev)])
-        walls[f"cli {label}"] = time.time() - t0
-        launches[f"cli {label}"] = launched(("local_sw.tb", "tb_walk"),
-                                            f"map CLI ({label})")
-        rates[f"cli {label}"] = lines / walls[f"cli {label}"]
-        log("4 mapper", f"python -m genomics_tpu_torch map ({label}): "
-            f"{said.strip()}; {walls[f'cli {label}']:.2f} s, "
-            f"{rates[f'cli {label}']:.0f} lines/s (the index built from the "
-            f"FASTA included); launches {launches[f'cli {label}']}")
-    run_cli(["map", "-r", files["ref"], "-q", files["head"], "-o",
-             out["cpu.sam"], "--device", "cpu"])
-    run_cli(["map", "-r", files["ref"], "-q", files["h1"], "-2", files["h2"],
-             "-o", out["cpupairs.sam"], "--device", "cpu"])
+    with shared_qgram_index(m_q):
+        for label, argv, lines in cli_runs:
+            zero_mapper_counts()
+            t0 = time.time()
+            said = run_cli(["map", "-r", files["ref"], *argv, "--device",
+                            str(dev)])
+            walls[f"cli {label}"] = time.time() - t0
+            launches[f"cli {label}"] = launched(("local_sw.tb", "tb_walk"),
+                                                f"map CLI ({label})")
+            rates[f"cli {label}"] = lines / walls[f"cli {label}"]
+            log("4 mapper", f"python -m genomics_tpu_torch map ({label}): "
+                f"{said.strip()}; {walls[f'cli {label}']:.2f} s, "
+                f"{rates[f'cli {label}']:.0f} lines/s (the FASTA read; the "
+                f"q-gram index shared with ReadMapper() above, its "
+                f"{q_build:.1f} s build not included); launches "
+                f"{launches[f'cli {label}']}")
+        run_cli(["map", "-r", files["ref"], "-q", files["head"], "-o",
+                 out["cpu.sam"], "--device", "cpu"])
+        run_cli(["map", "-r", files["ref"], "-q", files["h1"], "-2",
+                 files["h2"], "-o", out["cpupairs.sam"], "--device", "cpu"])
     for card, cpu in (("out.sam", "cpu.sam"), ("pairs.sam", "cpupairs.sam")):
         h_card, body = sam_body(out[card])
         h_cpu, body_cpu = sam_body(out[cpu])
@@ -2241,13 +2269,17 @@ def mapper_slice(seed: int, dev, smi: str, peak: float) -> dict:
         k_ms = cuda_ms(lambda: fs.launch_fm_search(lay), 20)
         p_ms = cuda_ms(lambda: fs.backward_search_plain(idx, q, ql_t), 2)
         n, L = q.shape
-        steps = stats["steps"]
-        bd = bound(FM_OPS_PER_STEP * steps, n * L + 4 * n + 8 * n
-                   + index_bytes, peak)
+        steps, ranks, words = (stats[k] for k in ("steps", "ranks", "words"))
+        ops = (FM_OPS_PER_WORD * words + FM_OPS_PER_RANK * ranks
+               + FM_OPS_PER_STEP * steps)
+        bd = bound(ops, n * L + 4 * n + 8 * n + index_bytes, peak)
         log("5 timings", f"fm_search at {label} ({n} x {L}): kernel "
             f"{k_ms:.4f} ms ({n / k_ms / 1e3:.1f} M queries/s), plain "
-            f"{p_ms:.2f} ms, bound {bd[0]:.4f} ms by {bd[1]} ({steps} steps x "
-            f"{FM_OPS_PER_STEP} int op; {n * L + 12 * n + index_bytes} "
+            f"{p_ms:.2f} ms, bound {bd[0]:.4f} ms by {bd[1]} ({words} words "
+            f"x {FM_OPS_PER_WORD} + {ranks} ranks x {FM_OPS_PER_RANK} + "
+            f"{steps} steps x {FM_OPS_PER_STEP} = {ops} int op, "
+            f"{ops / max(steps, 1):.2f} a step, {words / max(ranks, 1):.3f} "
+            f"words a rank; {n * L + 12 * n + index_bytes} "
             f"bytes, the index's {index_bytes} of them resident in L2, so "
             f"the HBM bound understates the floor), {k_ms / bd[0]:.1f} x "
             f"the bound; up to {FM_SECTORS_PER_STEP} sectors of 32 bytes a "
@@ -2326,12 +2358,11 @@ def main() -> int:
     log("2 build", f"{len(_build.KERNELS)} kernels built in {build_s:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS[:2])}, one process per source)")
     from genomics_tpu_torch.runtime import native
-    for lib in native.BUILD_DIR.glob("*.so"):
-        lib.unlink()                    # built for this machine's CPU
     t0 = time.time()
     native.library()
-    log("2 build", f"native/ (SA-IS) built in {time.time() - t0:.1f} s "
-        f"({' '.join(native.CXX_FLAGS)}) into build/native/")
+    log("2 build", f"native/{' '.join(native.SOURCES)} (SA-IS) ready in "
+        f"{time.time() - t0:.1f} s (g++ {' '.join(native.CXX_FLAGS)}, "
+        f"build/native/)")
     for name in _build.KERNELS:
         lines = (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
         regs = sorted({int(ln.split("Used ")[1].split()[0])

@@ -23,13 +23,16 @@
 // so the last block's words past W - 1 (i = n, n not a multiple of 128)
 // are never touched.
 //
-// Bound: integer work.  Per active step, two ranks of at most 4 words:
-// per word a three-input function for the plane match, the mask (a
-// subtract, a shift and a clamp), the AND and the popcount, and the add
-// (7); per rank the block index, the checkpoint's address and the
-// sentinel's test (5); per step the two tests of the loop, the code's
-// address, its mask and the two adds of C (6): 2 x (4 x 7 + 5) + 6 = 72,
-// chip_smoke.py's FM_OPS_PER_STEP.  The planes of a 12 Mbp genome (3 MB)
+// Bound: integer work.  Per active step, two ranks; a rank at i reads the
+// ceil((i mod 128) / 32) words of its block that start below i (0 to 4;
+// none for lo = 0, every query's first step).  Per word a three-input
+// function for the plane match, the mask (a subtract, a shift and a
+// clamp), the AND and the popcount, and the add (7); per rank the block
+// index, the checkpoint's address and the sentinel's test (5); per step
+// the two tests of the loop, the code's address, its mask and the two adds
+// of C (6): words x 7 + ranks x 5 + steps x 6, counted by
+// ops/fm_search.backward_search_plain(stats=) and chip_smoke.py's
+// FM_OPS_PER_WORD / _RANK / _STEP.  The planes of a 12 Mbp genome (3 MB)
 // and its checkpoints (0.4 MB) stay in the 50 MB L2, so the bytes the
 // launch must move from device memory are the queries, qlen and the
 // results.  A step's two ranks touch the checkpoint words of two blocks

@@ -123,8 +123,11 @@ def backward_search_plain(idx: DeviceFMIndex, queries: torch.Tensor,
     """The plain version of `fm_search`, on the inputs' device: every
     query steps together, L steps, a query's lo and hi kept where it is
     spent (k < 0) or its range is empty.  Returns (lo, hi) [S] int32;
-    with `stats`, stats["steps"] = the steps the queries took (the work a
-    bound counts)."""
+    with `stats`, the work a bound counts: stats["steps"] = the steps the
+    queries took, stats["ranks"] = their ranks (two a step) and
+    stats["words"] = the plane words (of each plane) those ranks read,
+    ceil((i mod RATE) / 32) for a rank at i, since the kernel reads no
+    word that starts at or past i."""
     S, L = queries.shape
     dev = queries.device
     planes = (idx.p0.long() & WORD, idx.p1.long() & WORD)
@@ -134,12 +137,15 @@ def backward_search_plain(idx: DeviceFMIndex, queries: torch.Tensor,
     rows = torch.arange(S, device=dev)
     lo = torch.zeros(S, dtype=torch.int64, device=dev)
     hi = torch.full((S,), idx.n, dtype=torch.int64, device=dev)
-    steps = 0
+    steps = words = 0
     for t in range(L):
         k = ql - 1 - t
         act = (hi > lo) & (k >= 0)
         if stats is not None:
             steps += int(act.sum())
+            for i in (lo, hi):
+                words += int(torch.where(act, (i % RATE + 31) // 32,
+                                         0).sum())
         sym = torch.where(act, q[rows, k.clamp(0, L - 1)], 0)
         cbase = C[sym + 1]
         nlo = cbase + _rank_plain(planes, ckpt, idx.primary, sym, lo)
@@ -147,7 +153,7 @@ def backward_search_plain(idx: DeviceFMIndex, queries: torch.Tensor,
         lo = torch.where(act, nlo, lo)
         hi = torch.where(act, nhi, hi)
     if stats is not None:
-        stats["steps"] = steps
+        stats.update(steps=steps, ranks=2 * steps, words=words)
     return lo.int(), hi.int()
 
 

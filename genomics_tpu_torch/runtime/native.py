@@ -2,14 +2,15 @@
 port's counterpart of `genomics_tpu/runtime/native.py`, for what the port
 runs on the host: linear-time suffix arrays (SA-IS) and BWTs.
 
-The library is built from `native/cigar.cpp`, `sais.cpp` and
-`lighter.cpp` with `native/Makefile`'s flags but `-fopenmp` into
-`build/native/libgenomics_native.so` at the root of the checkout, at first
-use and again whenever a source is newer than it.  `native/` is only read.
-The CUDA machine's g++ has no OpenMP runtime (libgomp), and what the
-port binds, SA-IS and the BWT, is serial code: without the flag only
-the decoder's and lighter's loops, which the port does not call, lose
-their `#pragma omp`.
+The library is built from `native/sais.cpp` alone, the one source that
+holds what the port binds, with `native/Makefile`'s flags but
+`-fopenmp` and `-march=native`, into
+`build/native/libgenomics_native.so` at the root of the checkout, at
+first use and again whenever the source is newer than it.  `native/` is
+only read.  SA-IS and the BWT are serial code, so OpenMP buys them
+nothing (and the CUDA machine's g++ has no libgomp); built for the
+compiler's default target, not the building CPU's, a library made on one
+machine of an architecture loads on any other.
 Each build compiles to a temporary file in the build directory and moves
 it into place (`os.replace`), so processes that build at once never load
 half a library.  A failed build raises: there is no fallback to another
@@ -31,9 +32,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent.parent
 NATIVE_DIR = ROOT / "native"
 BUILD_DIR = ROOT / "build" / "native"
-SOURCES = ("cigar.cpp", "sais.cpp", "lighter.cpp")
-# native/Makefile's CXXFLAGS but -fopenmp (see above), and its link step
-CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-Wall", "-shared")
+SOURCES = ("sais.cpp",)
+# native/Makefile's CXXFLAGS but -fopenmp and -march=native (see above),
+# and its link step
+CXX_FLAGS = ("-O3", "-fPIC", "-Wall", "-shared")
 LIB_NAME = "libgenomics_native.so"
 # texts longer than this take the int64 SA-IS (the int32 path needs
 # n + 1 < 2^31; the margin keeps the recursion's names safe too)
@@ -50,7 +52,7 @@ _BINDINGS = {
 
 
 def build() -> Path:
-    """Compile the library unless it is newer than every source; returns
+    """Compile the library unless it is newer than its sources; returns
     its path.  Raises RuntimeError when the compiler fails."""
     out = BUILD_DIR / LIB_NAME
     srcs = [NATIVE_DIR / f for f in SOURCES]

@@ -74,10 +74,12 @@ def test_native_library_is_built_from_the_makefile_flags():
     make = (native.NATIVE_DIR / "Makefile").read_text()
     flags = next(ln for ln in make.splitlines()
                  if ln.startswith("CXXFLAGS")).split("?=")[1].split()
-    # all but -fopenmp: the CUDA machine's g++ has no OpenMP runtime, and
-    # SA-IS, all the port binds, is serial
-    assert [f for f in flags if f != "-fopenmp"] + ["-shared"] == \
-        list(native.CXX_FLAGS)
+    # all but -fopenmp and -march=native: SA-IS, all the port binds, is
+    # serial, the CUDA machine's g++ has no OpenMP runtime, and a library
+    # for the compiler's default target loads on any machine of its kind
+    assert [f for f in flags if f not in ("-fopenmp", "-march=native")] \
+        + ["-shared"] == list(native.CXX_FLAGS)
+    assert native.SOURCES == ("sais.cpp",)
     assert native.library().gt_sais_u8 is not None
     assert native.BUILD_DIR.parts[-2:] == ("build", "native")
 
@@ -232,11 +234,15 @@ def test_plain_search_of_every_qgram_matches_counts():
         assert all(i in p for i, p in enumerate(pos))
 
 
-def _kernel_thread(p0, p1, W, ckpt, NB, C, primary, n, row, L, ql):
+def _kernel_thread(p0, p1, W, ckpt, NB, C, primary, n, row, L, ql,
+                   work=None):
     """csrc/fm_search.cu's fm_search_kernel for one query, line for line:
     the early exits, the words skipped at or past position i, the
-    sentinel's test."""
+    sentinel's test.  With `work`, adds the steps, ranks and plane words
+    the thread reads to its counts."""
     def occ(s, i):
+        if work is not None:
+            work["ranks"] += 1
         k = i // 128
         cnt = int(ckpt[s * NB + k])
         f0 = 0 if s & 1 else 0xFFFFFFFF
@@ -246,6 +252,8 @@ def _kernel_thread(p0, p1, W, ckpt, NB, C, primary, n, row, L, ql):
             rem = i - w * 32
             if rem <= 0 or w >= W:
                 break
+            if work is not None:
+                work["words"] += 1
             eq = (int(p0[w]) ^ f0) & (int(p1[w]) ^ f1)
             m = 0xFFFFFFFF if rem >= 32 else (1 << rem) - 1
             cnt += bin(eq & m).count("1")
@@ -258,6 +266,8 @@ def _kernel_thread(p0, p1, W, ckpt, NB, C, primary, n, row, L, ql):
         k = ql - 1 - t
         if k < 0 or hi <= lo:
             break
+        if work is not None:
+            work["steps"] += 1
         s = int(row[min(k, L - 1)]) & 3
         c = int(C[s + 1])
         lo, hi = c + occ(s, lo), c + occ(s, hi)
@@ -280,6 +290,29 @@ def test_kernel_thread_emulation_matches_plain(spec):
                              idx.C.numpy(), idx.primary, idx.n, Q[s],
                              Q.shape[1], int(ql[s]))
         assert got == (int(lo[s]), int(hi[s])), s
+
+
+@pytest.mark.parametrize("spec", FM_EDGE_SPECS[1::3],
+                         ids=[spec[0] for spec in FM_EDGE_SPECS[1::3]])
+def test_plain_stats_count_the_kernels_work(spec):
+    """backward_search_plain(stats=) counts the steps, ranks and plane
+    words the kernel's threads read (the work chip_smoke's bound charges):
+    no word at or past a rank's position, none for lo = 0."""
+    codes = fm_edge_text(spec)
+    idx = fmindex.FMIndex(codes).to_device(device="cpu")
+    Q, ql = fm_queries(np.random.default_rng(4), codes, S=96, L=20)
+    stats = {}
+    fm_search.backward_search_plain(
+        idx, torch.from_numpy((Q & 3).astype(np.uint8)),
+        torch.from_numpy(ql), stats=stats)
+    p0, p1 = (x.numpy().view(np.uint32) for x in (idx.p0, idx.p1))
+    work = dict(steps=0, ranks=0, words=0)
+    for s in range(len(ql)):
+        _kernel_thread(p0, p1, len(p0), idx.ckpt.numpy().ravel(),
+                       idx.ckpt.shape[1], idx.C.numpy(), idx.primary, idx.n,
+                       Q[s], Q.shape[1], int(ql[s]), work)
+    assert stats == work
+    assert work["words"] <= 4 * work["ranks"]
 
 
 def test_fm_search_checks_its_inputs(monkeypatch):
