@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's alignment (engine and `align` CLI), PairHMM,
-edit-distance, NW, SW, MSA and read-mapper paths once on one CUDA card.
+edit-distance, NW, SW, MSA, read-mapper and clustering paths once on one
+CUDA card.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -194,8 +195,40 @@ Then the read mapper (`mapper_slice`), phases 3-5 of its own:
             index resident in L2) and its sectors; the mapper's reads/s,
             pairs/s and lines/s.
 
-Then one JSON line with the kernels, the nvidia-smi line, and last
-{"ok": true, "device": {...}}.  With --profile, phases 3-5 give way to
+Then clustering (`cluster_slice`), phases 3-5 of its own:
+3. parity   cluster_lcs against lcs_accept_plain over lcs_edge_reads
+            (nets 1, 31-33, 63-65, 140 and 1,100 bases: one-word texts
+            and a row past the widest register bucket; noisy copies with
+            gaps, Ns, lowercase and U; one base; net 0), every read alone
+            and S of 1, 7 and 256 against J not a multiple of 32, gated
+            and not, in the rule's layout and the global scratch;
+            ngia_lcs against banded_lcs_accept_plain over ngia_edge_reads
+            at 0.95 and 0.9 (bands clipped at word 0 and at the row's
+            end, empty bands, reads under 3 bases, a band of 65 words,
+            the fma pairs 203 / 180 and 113 / 90), as windows and as
+            rounds;
+4. cluster  cluster_reads over bench_cluster's 50,000 x 140 bp reads,
+            speculate=256 (the first two windows' accept matrices == the
+            plain filters + LCS on the card; the int8 min-sum == the
+            host's; cluster <= arange, reps their own); at 5,000 reads
+            the speculative run == the serial run == device="cpu";
+            cluster_distributed over bench_ngia's 8,000 x 1,200 bp,
+            speculate=32 == the serial rounds; at 1,000 reads
+            speculate=32 == device="cpu"; `python -m genomics_tpu_torch
+            cluster` over 2,000 reads and `ngia` over 500: stdout and file
+            == --device cpu; every launch count set to 0 before and read
+            after each path;
+5. timings  cluster_lcs at bench_cluster's first window's pass-2 columns,
+            ngia_lcs at the first speculate=32 window (32 x 8,000) and at
+            one serial round (1 x 8,000, round mode, the cluster array
+            restored before each replay and the restores' time taken off),
+            each replayed from a CUDA graph and launched from the host,
+            beside its plain version and its
+            bound (LCS_OPS_PER_WORD / _STEP, NGIA_OPS_PER_BIN over the
+            pairs, steps and words the kernel runs); the paths' reads/s.
+
+Then the script's wall, part by part (`6 wall`), one JSON line with the
+kernels, the nvidia-smi line, and last {"ok": true, "device": {...}}.  With --profile, phases 3-5 give way to
 one line per mapper path over 8,192 reads or 2,048 pairs (fmdev + ed,
 q-grams, map_pairs, the `map` CLI to SAM), per engine path over the
 20,000 pairs (LOCAL score-only on their N-free copies with SCORE16 and
@@ -2298,6 +2331,531 @@ def mapper_slice(seed: int, dev, smi: str, peak: float) -> dict:
                 **row)
 
 
+# -- the clustering slice (cluster_slice) ----------------------------------
+# benchmarks/run_all.py's bench_cluster (:542-569) and bench_ngia
+# (:657-683): their read counts, lengths, families and mutations
+CLUSTER_READS, CLUSTER_LEN, CLUSTER_SPEC = 50000, 140, 256
+NGIA_READS, NGIA_LEN, NGIA_SPEC = 8000, 1200, 32
+CLUSTER_CHECK, NGIA_CHECK = 5000, 1000   # reads held to device="cpu"
+CLI_CLUSTER, CLI_NGIA = 2000, 500  # reads of the CLIs' runs, held to cpu
+CLUSTER_WINDOWS = 2      # speculative windows held to the plain versions
+MIN_SUM_COLS = 2048      # job columns of the min-sum held to the host's
+# Integer operations, as csrc/cluster_lcs.cu and ngia_lcs.cu count them
+# (myers.cu's rule: a match-mask select, the carrying add and each
+# three-input bitwise function one op): per row word and active query
+# step 4, per active step 5, per filter bin 2 (nGIA)
+LCS_OPS_PER_WORD, LCS_OPS_PER_STEP, NGIA_OPS_PER_BIN = 4, 5, 2
+LCS_EDGE_NETS = (1, 31, 32, 33, 63, 64, 65)
+LCS_EDGE_S = (1, 7, 256)
+# (representative, read, similarity) where nGIA's band rounds differently
+# in separately rounded f32 and in the fma the JAX package computes
+NGIA_FMA_PAIRS = ((203, 180, 0.95), (113, 90, 0.9))
+
+
+LCS_ROWS = (("cluster_lcs", "genomics_tpu/models/cluster.py:192"),
+            ("ngia_lcs", "genomics_tpu/models/ngia.py:91"))
+
+
+def family_reads(rng, n_reads: int, L: int, per: int, mutations: int):
+    """run_all.py's generator: n_reads // per families of L random bases,
+    read i a copy of family i % n_fam with up to mutations - 1 bases
+    replaced."""
+    bases = np.array(list("ACGT"))
+    n_fam = max(n_reads // per, 1)
+    fams = [bases[rng.integers(0, 4, L)] for _ in range(n_fam)]
+    reads = []
+    for i in range(n_reads):
+        c = fams[i % n_fam].copy()
+        idx = rng.choice(L, size=rng.integers(0, mutations), replace=False)
+        c[idx] = bases[rng.integers(0, 4, len(idx))]
+        reads.append("".join(c))
+    return reads
+
+
+def noisy(rng, s: str, n: int = 3) -> str:
+    """s with n positions made a gap, an N, a lowercase base or a U."""
+    c = np.array(list(s))
+    for pos in rng.integers(0, len(c), n):
+        c[pos] = rng.choice(list("-NacgtU"))
+    return "".join(c)
+
+
+def lcs_edge_reads(rng) -> list[str]:
+    """Reads at cluster_lcs.cu's edges: prefixes of one 1,100 bp family
+    base at the word edges (LCS_EDGE_NETS, one-word texts) and at 140 /
+    1,100 bases (35 words: past the widest register bucket), mutated and
+    noisy copies (gaps, Ns, lowercase, U), a one-base text, and reads of
+    net 0 (empty, all N)."""
+    base = "".join(rng.choice(list("ACGT"), 1100))
+    reads = [base[:n] for n in (*LCS_EDGE_NETS, 140, 1100)]
+    reads += [mutate(rng, base[:140], 0.02, 0.0) for _ in range(6)]
+    reads += [noisy(rng, mutate(rng, base[:140], 0.02, 0.0))
+              for _ in range(4)]
+    reads += [mutate(rng, base, 0.02, 0.0), "A", "", "N" * 20,
+              random_seq(rng, 140)]
+    return reads
+
+
+def ngia_edge_reads(rng, sim: float) -> list[str]:
+    """Reads at ngia_lcs.cu's edges for similarity `sim`: prefixes of one
+    1,100 bp family base at the word edges (bands clipped at word 0 and at
+    the row's last word), mutated and noisy copies, reads under 3 bases
+    (an empty histogram), a 40 bp read (an empty band against the long
+    ones), 1,100 bp against 100 bp (a band of 65 words, past the widest
+    register window), and the NGIA_FMA_PAIRS of this similarity."""
+    base = "".join(rng.choice(list("ACGT"), 1100))
+    reads = [base[:n] for n in (*LCS_EDGE_NETS, 100, 300, 1100)]
+    reads += [mutate(rng, base[:300], 0.01, 0.0) for _ in range(6)]
+    reads += [noisy(rng, mutate(rng, base[:300], 0.01, 0.0))
+              for _ in range(4)]
+    reads += ["A", "AC", "", base[:40], random_seq(rng, 300)]
+    for rn, qn, s in NGIA_FMA_PAIRS:
+        if s == sim:
+            rep = random_seq(rng, rn)
+            reads += [rep, mutate(rng, rep[:qn], 0.02, 0.0)]
+    return reads
+
+
+def lcs_edge_launches(rng, n: int):
+    """(reps, jobs) of the edge launches over n reads: every read alone,
+    then S of 1, 7 and 256 drawn with replacement, each against all jobs
+    but the first three (J not a multiple of 32)."""
+    jobs = np.arange(3, n, dtype=np.int32)
+    return ([(np.array([r], np.int32), jobs) for r in range(n)]
+            + [(rng.integers(0, n, S).astype(np.int32), jobs)
+               for S in LCS_EDGE_S])
+
+
+def cluster_lcs_parity(rng, dev) -> tuple[int, int]:
+    """cluster_lcs against lcs_accept_plain on the card over
+    lcs_edge_reads: each edge launch gated by random bits and ungated, in
+    the rule's layout and with the row in the global scratch (max_words
+    past the widest register bucket; the plain version once over every
+    representative, each read alone held to its row); returns (the
+    largest difference, launches)."""
+    from genomics_tpu_torch.models import cluster as TC
+    from genomics_tpu_torch.ops import lcs
+
+    reads = lcs_edge_reads(rng)
+    N = len(reads)
+    p = TC._prepare(reads, 0.9, 5)
+    aux = TC._aux_dev(p, dev)
+    args = [aux[k] for k in ("low", "high", "net", "codes", "bcut")]
+    every = torch.arange(N, dtype=torch.int32, device=dev)
+    err = n = 0
+    for gated in (False, True):
+        launches = lcs_edge_launches(rng, N)
+        jb = torch.from_numpy(launches[0][1]).to(dev)
+        g_all = (torch.from_numpy(rng.integers(0, 2, (N, jb.shape[0])).astype(
+            np.uint8)).to(dev) if gated else None)
+        w_all = lcs.lcs_accept_plain(*args, every, jb, g_all)
+        for reps, _ in launches:
+            rp = torch.from_numpy(reps).to(dev)
+            gate = None if g_all is None else g_all[rp.long()]
+            want = w_all[rp.long()] if len(reps) == 1 else \
+                lcs.lcs_accept_plain(*args, rp, jb, gate)
+            wide = max(int(lcs.words_of(args[2][rp.long()]).max()),
+                       lcs.CLUSTER_WORDS[-1] + 1)
+            for mw in (None, wide):
+                got = lcs.lcs_accept(*args, rp, jb, gate, max_words=mw)
+                err = max(err, max_abs_err([got], [want]))
+                n += 1
+    return err, n
+
+
+def ngia_lcs_parity(rng, dev) -> tuple[int, int]:
+    """ngia_lcs against banded_lcs_accept_plain on the card over
+    ngia_edge_reads at similarities 0.95 and 0.9: each edge launch as a
+    window, in the rule's layout and with the row in the global scratch
+    (max_shift past the widest register window; the plain version once
+    over every representative, each read alone held to its row), and
+    rounds of eight representatives from a
+    cluster array with some reads clustered; returns (the largest
+    difference, launches)."""
+    from genomics_tpu_torch.models import ngia as TN
+    from genomics_tpu_torch.ops import lcs
+
+    err = n = 0
+    for sim in (0.95, 0.9):
+        reads = ngia_edge_reads(rng, sim)
+        _o, _l, net, words, low, high, codes = TN._prepare(reads)
+        a = TN._device_arrays(net, words, low, high, codes, dev)
+        args = [a[k] for k in ("words", "net", "low", "high", "codes")]
+        N = len(reads)
+        every = torch.arange(N, dtype=torch.int32, device=dev)
+        launches = lcs_edge_launches(rng, N)
+        jb = torch.from_numpy(launches[0][1]).to(dev)
+        w_all = lcs.banded_lcs_accept_plain(*args, every, jb, sim)
+        for reps, _ in launches:
+            rp = torch.from_numpy(reps).to(dev)
+            want = w_all[rp.long()] if len(reps) == 1 else \
+                lcs.banded_lcs_accept_plain(*args, rp, jb, sim)
+            wide = max(lcs.max_shift_of(net[reps], net[launches[0][1]], sim),
+                       lcs.NGIA_BANDS[-1] // 2 + 1)
+            for ms_ in (None, wide):
+                got = lcs.banded_lcs_accept(*args, rp, jb, sim,
+                                            max_shift=ms_)
+                err = max(err, max_abs_err([got], [want]))
+                n += 1
+        for r in rng.choice(N, 8, replace=False):
+            rp = torch.tensor([r], dtype=torch.int32, device=dev)
+            start = np.where(rng.random(N) < 0.3, rng.integers(0, N, N),
+                             -1).astype(np.int32)
+            start[r] = -1
+            cl = [torch.from_numpy(start).to(dev) for _ in range(2)]
+            lcs.banded_lcs_accept_plain(*args, rp, every, sim, cluster=cl[0])
+            lcs.banded_lcs_accept(*args, rp, every, sim, cluster=cl[1])
+            err = max(err, max_abs_err([cl[1]], [cl[0]]))
+            n += 1
+    return err, n
+
+
+def host_min_sum(p, reps, jobs, wl: int) -> np.ndarray:
+    """[S, J] word min-sums from the host arrays, as _accept_matrix_host
+    computes them."""
+    tables = np.zeros((len(reps), 1 << (2 * wl)), np.uint16)
+    for si, r in enumerate(reps):
+        m = p.word_counts[r] > 0
+        tables[si, p.words[r][m]] = p.word_counts[r][m]
+    return np.minimum(tables[:, p.words[jobs]],
+                      p.word_counts[jobs][None, :, :]).sum(
+                          axis=2, dtype=np.int64)
+
+
+def plain_accept(p, reps, jobs, wl: int, dev) -> np.ndarray:
+    """_accept_matrix with the plain versions on the card: the filters
+    with the f64 product (word_min_sum_plain), then lcs_accept_plain."""
+    from genomics_tpu_torch.models import cluster as TC
+    from genomics_tpu_torch.ops import lcs
+
+    D, K = TC._dense_counts(p, wl, dev)
+    aux = TC._aux_dev(p, dev)
+    rp, jp = (torch.from_numpy(x.astype(np.int32)).to(dev)
+              for x in (reps, jobs))
+    pre = torch.minimum(aux["prefix"][rp.long()][:, None, :],
+                        aux["prefix"][jp.long()][None, :, :]).sum(-1)
+    got = torch.cat([TC.word_min_sum_plain(D[rp.long()], D[jc.long()], K)
+                     for jc in jp.split(8192)], dim=1)
+    p2 = ((pre >= aux["bcut"][jp.long()][None, :])
+          & (got >= aux["wcut"][jp.long()][None, :])).to(torch.uint8)
+    acc = lcs.lcs_accept_plain(aux["low"], aux["high"], aux["net"],
+                               aux["codes"], aux["bcut"], rp, jp, p2)
+    return acc.cpu().numpy() != 0
+
+
+@contextlib.contextmanager
+def recording_windows(store: list, n: int):
+    """Within the block, the first n calls of cluster._accept_matrix keep
+    (p, reps, jobs, wl, result) in store."""
+    from genomics_tpu_torch.models import cluster as TC
+
+    inner = TC._accept_matrix
+
+    def rec(p, reps, jobs, wl, batch_cap, dev):
+        out = inner(p, reps, jobs, wl, batch_cap, dev)
+        if len(store) < n:
+            store.append((p, reps.copy(), jobs.copy(), wl, out.copy()))
+        return out
+    TC._accept_matrix = rec
+    try:
+        yield
+    finally:
+        TC._accept_matrix = inner
+
+
+def assert_clustering(res, label: str):
+    """The greedy invariants: every read's representative is at or before
+    it and is a representative itself."""
+    c = np.asarray(res.cluster)
+    if not ((c >= 0).all() and (c <= np.arange(len(c))).all()
+            and (c[c] == c).all()):
+        raise AssertionError(f"{label}: the clustering breaks cluster <= "
+                             f"arange or reps that are their own")
+
+
+def cluster_slice(seed: int, dev, smi: str, peak: float) -> dict:
+    """Phases 3-5 of the clustering slice on the card; returns the
+    cluster_lcs and ngia_lcs rows of the kernels line but their names,
+    routes and sources."""
+    from genomics_tpu_torch.models import cluster as TC
+    from genomics_tpu_torch.models import ngia as TN
+    from genomics_tpu_torch.ops import lcs
+    from genomics_tpu_torch.utils.fasta import write_fasta
+
+    rng = np.random.default_rng(seed + 31)
+    # -- 3. both kernels at their edges ------------------------------------
+    t0 = time.time()
+    c_err, c_n = cluster_lcs_parity(rng, dev)
+    n_err, n_n = ngia_lcs_parity(rng, dev)
+    if c_err or n_err:
+        raise AssertionError(f"the LCS kernels disagree with their plain "
+                             f"versions at their edges: cluster_lcs "
+                             f"{c_err}, ngia_lcs {n_err}")
+    log("3 parity", f"cluster_lcs == plain at {c_n} launches over "
+        f"lcs_edge_reads (nets {LCS_EDGE_NETS}, 140 and 1,100 bases, noisy "
+        f"copies, one base, net 0; every read alone and S of "
+        f"{LCS_EDGE_S}, J not a multiple of 32, gated and not, registers "
+        f"and the global scratch); ngia_lcs == plain at {n_n} launches over "
+        f"ngia_edge_reads at 0.95 and 0.9 (bands clipped at both ends, "
+        f"empty bands, reads under 3 bases, a band past 33 words, the fma "
+        f"pairs {NGIA_FMA_PAIRS}; windows and rounds); {time.time() - t0:.1f}"
+        f" s")
+
+    # -- 4. cluster_reads and cluster_distributed --------------------------
+    walls, rates, launches = {}, {}, {}
+    reads = family_reads(np.random.default_rng(0), CLUSTER_READS,
+                         CLUSTER_LEN, 8, 6)
+    windows = []
+    zero_counts(lcs.LAUNCHES)
+    with recording_windows(windows, CLUSTER_WINDOWS):
+        t0 = time.time()
+        res = TC.cluster_reads(reads, speculate=CLUSTER_SPEC, device=dev)
+        walls["cluster"] = time.time() - t0
+    launches["cluster"] = dict(lcs.LAUNCHES)
+    if not launches["cluster"]["cluster_lcs"] or launches["cluster"][
+            "ngia_lcs"]:
+        raise AssertionError(f"cluster_reads: launches {launches['cluster']}")
+    assert_clustering(res, "cluster_reads")
+    rates["cluster"] = CLUSTER_READS / walls["cluster"]
+    t0 = time.time()
+    for p, reps, jobs, wl, A in windows:
+        if not np.array_equal(A, plain_accept(p, reps, jobs, wl, dev)):
+            raise AssertionError("cluster_reads: a window's accept matrix "
+                                 "differs from the plain filters + LCS")
+    p, reps, jobs, wl, _ = windows[0]
+    cols = jobs[:MIN_SUM_COLS]
+    D, K = TC._dense_counts(p, wl, dev)
+    got = TC.word_min_sum(D[torch.from_numpy(reps).to(dev)],
+                          D[torch.from_numpy(cols).to(dev)], K)
+    if not np.array_equal(got.cpu().numpy(), host_min_sum(p, reps, cols, wl)):
+        raise AssertionError("word_min_sum (torch._int_mm) differs from the "
+                             "host min-sum")
+    check_s = time.time() - t0
+    log("4 cluster", f"cluster_reads({CLUSTER_READS} x {CLUSTER_LEN} bp, "
+        f"speculate={CLUSTER_SPEC}): {walls['cluster']:.2f} s, "
+        f"{rates['cluster']:.0f} reads/s, {res.n_clusters} clusters; the "
+        f"first {len(windows)} windows' accept matrices ({reps.size} x "
+        f"{jobs.size} first) == the plain filters + LCS on the card, the "
+        f"int8 min-sum == the host's over {cols.size} columns "
+        f"(K = {K}, {check_s:.1f} s); launches {launches['cluster']}")
+    small = family_reads(np.random.default_rng(1), CLUSTER_CHECK,
+                         CLUSTER_LEN, 8, 6)
+    t0 = time.time()
+    a = TC.cluster_reads(small, speculate=CLUSTER_SPEC, device=dev)
+    walls["cluster 5k spec"] = time.time() - t0
+    zero_counts(lcs.LAUNCHES)
+    t0 = time.time()
+    b = TC.cluster_reads(small, device=dev)
+    walls["cluster 5k serial"] = time.time() - t0
+    launches["cluster serial"] = dict(lcs.LAUNCHES)
+    if not launches["cluster serial"]["cluster_lcs"]:
+        raise AssertionError("cluster_reads (serial): cluster_lcs never "
+                             "launched")
+    t0 = time.time()
+    c = TC.cluster_reads(small, speculate=CLUSTER_SPEC, device="cpu")
+    cpu_s = time.time() - t0
+    if not (np.array_equal(a.cluster, b.cluster)
+            and np.array_equal(a.cluster, c.cluster)):
+        raise AssertionError(f"cluster_reads at {CLUSTER_CHECK} reads: "
+                             f"speculative, serial and device='cpu' differ")
+    log("4 cluster", f"{CLUSTER_CHECK} reads: speculate={CLUSTER_SPEC} "
+        f"{walls['cluster 5k spec']:.2f} s == serial "
+        f"{walls['cluster 5k serial']:.2f} s (launches "
+        f"{launches['cluster serial']}) == device='cpu' ({cpu_s:.1f} s); "
+        f"{a.n_clusters} clusters")
+
+    nreads = family_reads(np.random.default_rng(0), NGIA_READS, NGIA_LEN,
+                          16, 12)
+    zero_counts(lcs.LAUNCHES)
+    t0 = time.time()
+    ns = TN.cluster_distributed(nreads, 0.95, speculate=NGIA_SPEC,
+                                device=dev)
+    walls["ngia"] = time.time() - t0
+    launches["ngia"] = dict(lcs.LAUNCHES)
+    zero_counts(lcs.LAUNCHES)
+    t0 = time.time()
+    nr = TN.cluster_distributed(nreads, 0.95, device=dev)
+    walls["ngia serial"] = time.time() - t0
+    launches["ngia serial"] = dict(lcs.LAUNCHES)
+    for k in ("ngia", "ngia serial"):
+        if not launches[k]["ngia_lcs"] or launches[k]["cluster_lcs"]:
+            raise AssertionError(f"{k}: launches {launches[k]}")
+    if not np.array_equal(ns.cluster, nr.cluster):
+        raise AssertionError("cluster_distributed: speculate=32 and the "
+                             "serial rounds differ")
+    assert_clustering(ns, "cluster_distributed")
+    rates["ngia"] = NGIA_READS / walls["ngia"]
+    rates["ngia serial"] = NGIA_READS / walls["ngia serial"]
+    few = family_reads(np.random.default_rng(1), NGIA_CHECK, NGIA_LEN, 16,
+                       12)
+    t0 = time.time()
+    a = TN.cluster_distributed(few, 0.95, speculate=NGIA_SPEC, device=dev)
+    card_s = time.time() - t0
+    t0 = time.time()
+    b = TN.cluster_distributed(few, 0.95, speculate=NGIA_SPEC, device="cpu")
+    cpu_s = time.time() - t0
+    if not np.array_equal(a.cluster, b.cluster):
+        raise AssertionError(f"cluster_distributed at {NGIA_CHECK} reads "
+                             f"differs from device='cpu'")
+    log("4 ngia", f"cluster_distributed({NGIA_READS} x {NGIA_LEN} bp, 0.95)"
+        f": speculate={NGIA_SPEC} {walls['ngia']:.2f} s ({rates['ngia']:.0f}"
+        f" reads/s, launches {launches['ngia']}) == serial rounds "
+        f"{walls['ngia serial']:.2f} s ({rates['ngia serial']:.0f} reads/s, "
+        f"launches {launches['ngia serial']}); {ns.n_clusters} clusters; "
+        f"{NGIA_CHECK} reads speculate={NGIA_SPEC} {card_s:.2f} s == "
+        f"device='cpu' ({cpu_s:.1f} s)")
+
+    tmp = tempfile.TemporaryDirectory()
+    for cmd, rd, flag in (("cluster", small[:CLI_CLUSTER], "-t"),
+                          ("ngia", few[:CLI_NGIA], "-s")):
+        src = os.path.join(tmp.name, f"{cmd}.fa")
+        write_fasta(src, [(f"read{i} of {len(x)}", x)
+                          for i, x in enumerate(rd)], width=80)
+        outs = {}
+        for where in ("card", "cpu"):
+            path = os.path.join(tmp.name, f"{cmd}.{where}.fa")
+            zero_counts(lcs.LAUNCHES)
+            t0 = time.time()
+            said = run_cli([cmd, "-i", src, "-o", path, flag, "0.95",
+                            "--device", str(dev) if where == "card"
+                            else "cpu"])
+            wall = time.time() - t0
+            with open(path, "rb") as fh:
+                outs[where] = (said, fh.read())
+            if where == "card":
+                walls[f"{cmd} CLI"] = wall
+                launches[f"{cmd} CLI"] = dict(lcs.LAUNCHES)
+        key = "ngia_lcs" if cmd == "ngia" else "cluster_lcs"
+        if not launches[f"{cmd} CLI"][key]:
+            raise AssertionError(f"{cmd} CLI: {key} never launched")
+        if outs["card"] != outs["cpu"]:
+            raise AssertionError(f"{cmd} CLI: stdout or file differs from "
+                                 f"--device cpu")
+        rates[f"{cmd} CLI"] = len(rd) / walls[f"{cmd} CLI"]
+        log("4 CLI", f"python -m genomics_tpu_torch {cmd} over {len(rd)} "
+            f"reads: {outs['card'][0].strip()!r}; {walls[cmd + ' CLI']:.2f} s"
+            f" ({rates[cmd + ' CLI']:.0f} reads/s), stdout and file == "
+            f"--device cpu; launches {launches[cmd + ' CLI']}")
+    tmp.cleanup()
+
+    # -- 5. the kernels' timings -------------------------------------------
+    rows = {}
+    # cluster_lcs at the first bench_cluster window's pass-2 columns
+    p, reps, jobs, wl, _ = windows[0]
+    aux = TC._aux_dev(p, dev)
+    D, K = TC._dense_counts(p, wl, dev)
+    rp = torch.from_numpy(reps.astype(np.int32)).to(dev)
+    jp = torch.from_numpy(jobs.astype(np.int32)).to(dev)
+    p2, anyv = TC._filters_dev(D, aux["prefix"], aux["wcut"], aux["bcut"],
+                               rp, jp, K)
+    cols = torch.nonzero(anyv)[:, 0]
+    jb, gate = jp[cols], p2[:, cols].contiguous()
+    args = [aux[k] for k in ("low", "high", "net", "codes", "bcut")]
+    S, J = len(reps), int(cols.shape[0])
+    out = torch.empty((S, J), dtype=torch.uint8, device=dev)
+    mw = TC.words_needed(p, reps)
+    lays = lcs.lcs_layouts(*args, rp, jb, gate, out, mw)
+    stats = {}
+    want = lcs.lcs_accept_plain(*args, rp, jb, gate, stats=stats)
+    for lay in lays:
+        lcs.launch_cluster_lcs(lay)
+    err_c = max_abs_err([out], [want])
+    k_ms = graph_ms(lambda: [lcs.launch_cluster_lcs(x) for x in lays], 20)
+    host_ms = cuda_ms(lambda: [lcs.launch_cluster_lcs(x) for x in lays], 20)
+    p_ms = cuda_ms(lambda: lcs.lcs_accept_plain(*args, rp, jb, gate), 1)
+    ops = (LCS_OPS_PER_WORD * stats["word_steps"]
+           + LCS_OPS_PER_STEP * stats["steps"])
+    nbytes = 2 * S * J + J * (p.codes.shape[1] + 12) + 8 * S * mw
+    bd = bound(ops, nbytes, peak)
+    log("5 timings", f"cluster_lcs at bench_cluster's first window's pass-2 "
+        f"columns ({S} x {J}, {stats['pairs']} gated pairs, {mw} words): "
+        f"kernel {k_ms:.4f} ms (a CUDA graph's replay; launched from the "
+        f"host {host_ms:.4f} ms), plain {p_ms:.2f} ms, bound {bd[0]:.4f} ms "
+        f"by {bd[1]} ({stats['word_steps']} word-steps x {LCS_OPS_PER_WORD}"
+        f" + {stats['steps']} steps x {LCS_OPS_PER_STEP} = {ops} int op; "
+        f"{nbytes} bytes), {k_ms / bd[0]:.1f} x the bound, == plain; on "
+        f"{smi}")
+    rows["cluster_lcs"] = dict(launches=launches["cluster"]["cluster_lcs"],
+                               max_abs_err=max(c_err, err_c), ms=k_ms,
+                               plain_ms=p_ms, bound_ms=bd[0], bound_by=bd[1])
+    # ngia_lcs at the first speculate=32 window (out mode) and at one
+    # serial round as the serial path launches it: round mode, the first
+    # (representative 0 against all 8,000 reads, none clustered), the
+    # cluster array restored before each replay and the restores' own time
+    # taken off
+    o_, l_, net, words, low, high, codes = TN._prepare(nreads)
+    a = TN._device_arrays(net, words, low, high, codes, dev)
+    args = [a[k] for k in ("words", "net", "low", "high", "codes")]
+    every = torch.arange(NGIA_READS, dtype=torch.int32, device=dev)
+    mw = int((net.max() + 31) // 32)
+    fresh = torch.full((NGIA_READS,), -1, dtype=torch.int32, device=dev)
+    cl = fresh.clone()
+    for label, S in (("the first speculate=32 window", NGIA_SPEC),
+                     ("one serial round", 1)):
+        rnd = S == 1
+        rp = torch.arange(S, dtype=torch.int32, device=dev)
+        ms_ = lcs.max_shift_of(net[:S] if not rnd else net, net, 0.95)
+        out = None if rnd else torch.empty((S, NGIA_READS),
+                                           dtype=torch.uint8, device=dev)
+        lays = lcs.banded_layouts(*args, rp, every, 0.95, cl if rnd else None,
+                                  out, mw, ms_)
+        stats = {}
+        want = lcs.banded_lcs_accept_plain(
+            *args, rp, every, 0.95, fresh.clone() if rnd else None,
+            stats=stats)
+
+        def run(lays=lays, rnd=rnd):
+            if rnd:
+                cl.copy_(fresh)
+            for x in lays:
+                lcs.launch_ngia_lcs(x)
+        run()
+        err_n = max_abs_err([cl if rnd else out], [want])
+        restore_ms = graph_ms(lambda: cl.copy_(fresh), 20) if rnd else 0.0
+        k_ms = graph_ms(run, 20) - restore_ms
+        host_ms = cuda_ms(run, 20) - restore_ms
+        p_ms = cuda_ms(lambda rnd=rnd, rp=rp: lcs.banded_lcs_accept_plain(
+            *args, rp, every, 0.95, fresh.clone() if rnd else None), 1)
+        ops = (NGIA_OPS_PER_BIN * 256 * stats["filtered"]
+               + LCS_OPS_PER_WORD * stats["word_steps"]
+               + LCS_OPS_PER_STEP * stats["steps"])
+        # the jobs' histograms and nets, the representatives' histograms
+        # and planes, the accepts (the cluster words read and written in
+        # a round) and the LCS pairs' codes
+        nbytes = (NGIA_READS * (512 + 4) + S * (512 + 8 * mw)
+                  + NGIA_READS * (8 if rnd else S) + stats["pairs"] * NGIA_LEN)
+        bd = bound(ops, nbytes, peak)
+        how = (f"round mode, {launches['ngia serial']['ngia_lcs']} such "
+               f"launches in the serial 8,000-read run; the cluster array's "
+               f"restore, {restore_ms:.4f} ms, taken off" if rnd
+               else f"{launches['ngia']['ngia_lcs']} launches in the "
+               f"speculate={NGIA_SPEC} 8,000-read run")
+        log("5 timings", f"ngia_lcs at {label} ({S} x {NGIA_READS}, band "
+            f"bucket {lcs.ngia_bucket(ms_)} words, {stats['pairs']} LCS "
+            f"pairs; {how}): kernel {k_ms:.4f} ms (a CUDA graph's replay; "
+            f"launched from the host {host_ms:.4f} ms), plain {p_ms:.2f} ms,"
+            f" bound {bd[0]:.4f} ms by {bd[1]} ({stats['filtered']} pairs x"
+            f" 256 bins x {NGIA_OPS_PER_BIN} + {stats['word_steps']} band "
+            f"word-steps x {LCS_OPS_PER_WORD} + {stats['steps']} steps x "
+            f"{LCS_OPS_PER_STEP} = {ops} int op; {nbytes} bytes), "
+            f"{k_ms / bd[0]:.1f} x the bound, == plain; on {smi}")
+        if err_n:
+            raise AssertionError(f"ngia_lcs disagrees with its plain version "
+                                 f"at {label}: {err_n}")
+        if "ngia_lcs" not in rows:
+            rows["ngia_lcs"] = dict(launches=launches["ngia"]["ngia_lcs"],
+                                    max_abs_err=n_err, ms=k_ms,
+                                    plain_ms=p_ms, bound_ms=bd[0],
+                                    bound_by=bd[1])
+    if err_c:
+        raise AssertionError(f"cluster_lcs disagrees with its plain version "
+                             f"at the timed launch: {err_c}")
+    log("5 timings", "clustering: " + ", ".join(
+        f"{k} {v:.0f} reads/s" for k, v in rates.items())
+        + f" (host clock); on {smi}")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2306,6 +2864,7 @@ def main() -> int:
                          "the 20,000 pairs (torch.profiler, cProfile) "
                          "instead of phases 3-5")
     args = ap.parse_args()
+    t_start = time.time()
 
     # -- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3991,10 +4550,22 @@ def main() -> int:
 
     # the NW, SW and MSA apps: their kernels at the edges, the apps end to
     # end, their times (phases 3-5 of the apps)
+    t_apps = time.time()
     app_rows = apps(args.seed, dev, smi, peak)
     # the mapper slice: fm_search at its edges, the mapper's paths end to
     # end, fm_search's times (phases 3-5 of the mapper)
+    t_mapper = time.time()
     fm_row = mapper_slice(args.seed, dev, smi, peak)
+    # the clustering slice: both LCS kernels at their edges, cluster_reads
+    # and cluster_distributed end to end, the kernels' times (phases 3-5
+    # of clustering)
+    t_cluster = time.time()
+    lcs_rows = cluster_slice(args.seed, dev, smi, peak)
+    t_end = time.time()
+    log("6 wall", f"{t_end - t_start:.1f} s in all: the build and the "
+        f"engine, PairHMM and Myers phases {t_apps - t_start:.1f} s, the "
+        f"apps {t_mapper - t_apps:.1f} s, the mapper "
+        f"{t_cluster - t_mapper:.1f} s, clustering {t_end - t_cluster:.1f} s")
 
     src = "genomics_tpu_torch/csrc/"
     rows = [
@@ -4043,8 +4614,8 @@ def main() -> int:
     left = child_pids()
     if left:
         raise AssertionError(f"child processes still running: {left}")
-    # no single PyTorch call computes these recurrences or a backward
-    # search: library_ms null
+    # no single PyTorch call computes these recurrences, a backward
+    # search or a bit-parallel LCS: library_ms null
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + f,
          "replaces": rep, "launches": launches[name],
@@ -4057,7 +4628,10 @@ def main() -> int:
         for name, f, rep in APP_ROWS] + [
         {"name": "fm_search", "route": "cuda", "source": src + "fm_search.cu",
          "replaces": "genomics_tpu/ops/fm_search.py:121", **fm_row,
-         "library_ms": None}]}), flush=True)
+         "library_ms": None}] + [
+        {"name": name, "route": "cuda", "source": src + f"{name}.cu",
+         "replaces": rep, **lcs_rows[name], "library_ms": None}
+        for name, rep in LCS_ROWS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

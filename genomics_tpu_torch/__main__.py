@@ -12,6 +12,11 @@
                                                      [--device cuda|cpu]
     python -m genomics_tpu_torch msa     in.fasta out.fasta [-p matrix.txt]
                                          [--device cuda|cpu]
+    python -m genomics_tpu_torch cluster -i in.fasta [-o out.fasta]
+                                         [-t 0.95] [-w WL] [-g S]
+                                         [--device cuda|cpu]
+    python -m genomics_tpu_torch ngia    -i in.fasta [-o out.fasta]
+                                         [-s 0.95] [--device cuda|cpu]
     python -m genomics_tpu_torch index   -r ref.fasta -o out [--sa-rate R]
                                          [--set-bwt]
     python -m genomics_tpu_torch fmquery -x index.npz -p PATTERN ... [--locate]
@@ -23,14 +28,18 @@
                                          [--device cuda|cpu]
 
 The counterparts of `genomics_tpu/__main__.py`'s `nw`, `sw`, `align`,
-`pairhmm`, `msa`, `index`, `fmquery`, `fmserver`, `extract` and `map`
-subcommands, with their arguments, their output lines and their files
+`pairhmm`, `msa`, `cluster`, `ngia`, `index`, `fmquery`, `fmserver`,
+`extract` and `map` subcommands, with their arguments, their output
+lines and their files
 (an `.npz` index written by either package loads in the other);
 `--device` (default the card) picks the plain PyTorch versions with
 `cpu`.  `index`, `fmquery`, `fmserver` and `extract` run on the host in
 both packages.  `msa` reads `-p` and does not pass it on, as the JAX
 package's subcommand does, so its file is byte for byte that one's;
-`models.msa.msa(seqs, matrix_path=)` scores with a matrix.  The other
+`models.msa.msa(seqs, matrix_path=)` scores with a matrix.  `cluster`
+reads `-g` and drops it (the clustering is serial), and `ngia` prints
+`cluster: N` where `cluster` prints `clusters: N`, both as the JAX
+package's subcommands do.  The other
 subcommands of the JAX package are not ported yet."""
 from __future__ import annotations
 
@@ -95,6 +104,23 @@ def main(argv=None):
     p.add_argument("output")
     p.add_argument("-p", "--matrix", default=None,
                    help="read and not used, as in the JAX package's msa")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu for the plain versions")
+
+    p = sub.add_parser("cluster", help="greedy read clustering")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--output", default=None)
+    p.add_argument("-t", "--threshold", type=float, default=0.95)
+    p.add_argument("-w", "--wordlength", type=int, default=0)
+    p.add_argument("-g", "--speculate", type=int, default=1,
+                   help="read and not used, as in the JAX package's cluster")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu for the plain versions")
+
+    p = sub.add_parser("ngia", help="nGIA greedy clustering")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--output", default=None)
+    p.add_argument("-s", "--similarity", type=float, default=0.95)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain versions")
 
@@ -195,6 +221,20 @@ def main(argv=None):
         aligned, cidx = msa.run_file(args.input, args.output,
                                      device=args.device)
         print(f"center sequence index: {cidx}; wrote {len(aligned)} rows")
+    elif args.cmd == "cluster":
+        from genomics_tpu_torch.models import cluster
+
+        res = cluster.run_file(args.input, args.output,
+                               threshold=args.threshold,
+                               word_length=args.wordlength,
+                               device=args.device)
+        print(f"clusters: {res.n_clusters}")
+    elif args.cmd == "ngia":
+        from genomics_tpu_torch.models import ngia
+
+        res = ngia.run_file(args.input, args.output,
+                            similarity=args.similarity, device=args.device)
+        print(f"cluster: {res.n_clusters}")
     elif args.cmd == "index":
         from genomics_tpu_torch.index.fmindex import FMIndex, save_index
         from genomics_tpu_torch.utils.fasta import read_fasta

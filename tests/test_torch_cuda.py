@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from chip_smoke import (
+    CLUSTER_SPEC,
     FM_EDGE_SPECS,
     NW_EDGE_N,
     PAIRHMM_EDGE_B,
@@ -25,14 +26,18 @@ from chip_smoke import (
     backtrack_edges,
     band_windows,
     as_reads,
+    cluster_lcs_parity,
     cube_err,
+    family_reads,
     fill_edges,
     fm_edge_text,
     fm_queries,
+    host_min_sum,
     msa_edges,
     mutate,
     mutate_windows,
     ncbi_matrix,
+    ngia_lcs_parity,
     nw_stripe_edges,
     pairhmm_edges,
     random_seq,
@@ -46,12 +51,13 @@ from genomics_tpu_torch.core import golds
 from genomics_tpu_torch.core.scoring import SemiGlobalSkip
 from genomics_tpu_torch.core.submat import load_scoring_matrix
 from genomics_tpu_torch.index.fmindex import FMIndex
-from genomics_tpu_torch.models import msa, nw, pairhmm, sw
+from genomics_tpu_torch.models import cluster, msa, ngia, nw, pairhmm, sw
 from genomics_tpu_torch.models.mapper import ReadMapper
 from genomics_tpu_torch.ops import (
     cuda_align,
     cuda_pairhmm,
     fm_search,
+    lcs,
     myers,
     scan_align_full,
     scan_pairhmm,
@@ -1704,3 +1710,76 @@ def test_mapper_on_the_card_matches_cpu(cuda, seeder, two_stage):
     half = len(reads) // 2
     assert card.map_pairs(reads[:half], reads[half:]) == \
         cpu.map_pairs(reads[:half], reads[half:])
+
+
+def test_cluster_lcs_matches_plain_at_the_edges(cuda):
+    """chip_smoke's phase 3 for cluster_lcs: nets at the word edges, one
+    base, net 0, noisy reads, S of 1, 7 and 256, gated and not, registers
+    and the global scratch."""
+    before = lcs.LAUNCHES["cluster_lcs"]
+    err, n = cluster_lcs_parity(np.random.default_rng(1), cuda)
+    assert err == 0 and lcs.LAUNCHES["cluster_lcs"] - before >= n
+
+
+def test_ngia_lcs_matches_plain_at_the_edges(cuda):
+    """chip_smoke's phase 3 for ngia_lcs: bands clipped at both ends,
+    empty bands, reads under 3 bases, a band past the register window,
+    the fma pairs; windows and rounds."""
+    before = lcs.LAUNCHES["ngia_lcs"]
+    err, n = ngia_lcs_parity(np.random.default_rng(2), cuda)
+    assert err == 0 and lcs.LAUNCHES["ngia_lcs"] - before >= n
+
+
+def test_word_min_sum_is_exact_under_reduced_precision_flags(cuda,
+                                                             monkeypatch):
+    """torch._int_mm's min-sum equals the host's with TF32 and bf16
+    reductions allowed (they must not reach it)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", True)
+    reads = family_reads(np.random.default_rng(3), 1200, 140, 8, 6)
+    p = cluster._prepare(reads, 0.95, 6)
+    D, K = cluster._dense_counts(p, 6, cuda)
+    for S in (1, 7, 256):
+        reps, jobs = np.arange(S), np.arange(S, S + 901)
+        got = cluster.word_min_sum(D[torch.from_numpy(reps).to(cuda)],
+                                   D[torch.from_numpy(jobs).to(cuda)], K)
+        assert np.array_equal(got.cpu().numpy(),
+                              host_min_sum(p, reps, jobs, 6))
+
+
+@pytest.mark.parametrize("speculate", [1, CLUSTER_SPEC])
+def test_cluster_reads_on_the_card_matches_cpu(cuda, speculate):
+    reads = family_reads(np.random.default_rng(4), 1500, 140, 8, 6)
+    before = lcs.LAUNCHES["cluster_lcs"]
+    got = cluster.cluster_reads(reads, speculate=speculate, device=cuda)
+    assert lcs.LAUNCHES["cluster_lcs"] > before
+    want = cluster.cluster_reads(reads, speculate=speculate, device="cpu")
+    assert np.array_equal(got.cluster, want.cluster)
+
+
+@pytest.mark.parametrize("speculate", [1, 32])
+def test_cluster_distributed_on_the_card_matches_cpu(cuda, speculate):
+    reads = family_reads(np.random.default_rng(5), 300, 600, 16, 12)
+    before = lcs.LAUNCHES["ngia_lcs"]
+    got = ngia.cluster_distributed(reads, 0.95, speculate=speculate,
+                                   device=cuda)
+    assert lcs.LAUNCHES["ngia_lcs"] > before
+    want = ngia.cluster_distributed(reads, 0.95, speculate=speculate,
+                                    device="cpu")
+    assert np.array_equal(got.cluster, want.cluster)
+
+
+def test_lcs_launches_refuse_a_bucket_they_do_not_have(cuda):
+    reads = family_reads(np.random.default_rng(6), 64, 140, 8, 6)
+    p = cluster._prepare(reads, 0.95, 6)
+    aux = cluster._aux_dev(p, cuda)
+    args = [aux[k] for k in ("low", "high", "net", "codes", "bcut")]
+    rp = torch.zeros(1, dtype=torch.int32, device=cuda)
+    jb = torch.arange(64, dtype=torch.int32, device=cuda)
+    out = torch.empty((1, 64), dtype=torch.uint8, device=cuda)
+    lay = list(lcs.lcs_layouts(*args, rp, jb, None, out, 5)[0])
+    lay[-2] = 3                         # nw: no such register bucket
+    with pytest.raises(RuntimeError, match="cluster_lcs_launch failed"):
+        lcs.launch_cluster_lcs(tuple(lay))
+

@@ -36,6 +36,8 @@ def test_imports_with_jax_blocked():
         "from genomics_tpu_torch.ops import fm_search\n"
         "from genomics_tpu_torch.models import mapper, mapq\n"
         "from genomics_tpu_torch.utils import bamio, samio\n"
+        "from genomics_tpu_torch.ops import lcs\n"
+        "from genomics_tpu_torch.models import cluster, ngia\n"
         "assert 'genomics_tpu' not in sys.modules\n"
         "print(genomics_tpu_torch.AlignEngine.__name__)\n"
     )
@@ -55,7 +57,8 @@ def test_every_module_is_checked_for_jax_imports():
             "core/submat.py", "index/qgram.py", "index/fmindex.py",
             "index/wavelet.py", "index/setbwt.py", "runtime/native.py",
             "ops/fm_search.py", "models/mapq.py", "models/mapper.py",
-            "utils/samio.py", "utils/bamio.py"} <= names
+            "utils/samio.py", "utils/bamio.py", "ops/lcs.py",
+            "models/cluster.py", "models/ngia.py"} <= names
 
 
 @pytest.mark.parametrize(
@@ -96,6 +99,7 @@ def test_every_entry_point_signature_matches_its_source():
         cuda_align,
         cuda_pairhmm,
         fm_search,
+        lcs,
         myers,
         tb_walk,
     )
@@ -112,6 +116,8 @@ def test_every_entry_point_signature_matches_its_source():
     sigs["msa_nw", "msa_nw_launch"] = msa._FILL_ARGS
     sigs["msa_nw", "msa_nw_backtrack_launch"] = msa._BACKTRACK_ARGS
     sigs["fm_search", "fm_search_launch"] = fm_search._ARGS
+    sigs["cluster_lcs", "cluster_lcs_launch"] = lcs._CLUSTER_ARGS
+    sigs["ngia_lcs", "ngia_lcs_launch"] = lcs._NGIA_ARGS
     assert {lib for lib, _ in sigs} == set(_build.KERNELS)
     for (lib, sym), argtypes in sigs.items():
         src = (_build.CSRC / f"{lib}.cu").read_text()
