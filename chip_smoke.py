@@ -198,15 +198,20 @@ Then the read mapper (`mapper_slice`), phases 3-5 of its own:
 Then clustering (`cluster_slice`), phases 3-5 of its own:
 3. parity   cluster_lcs against lcs_accept_plain over lcs_edge_reads
             (nets 1, 31-33, 63-65, 140 and 1,100 bases: one-word texts
-            and a row past the widest register bucket; noisy copies with
+            and a row of 35 words, a warp a pair; noisy copies with
             gaps, Ns, lowercase and U; one base; net 0), every read alone
             and S of 1, 7 and 256 against J not a multiple of 32, gated
-            and not, in the rule's layout and the global scratch;
+            and not; a launch no pair passes, one every pair passes, 300
+            columns against one representative (survivors across warps,
+            groups part empty), nets 1-1,100 in one launch; each in the
+            rule's layout and at G = 32 with the rows in a global
+            scratch;
             ngia_lcs against banded_lcs_accept_plain over ngia_edge_reads
             at 0.95 and 0.9 (bands clipped at word 0 and at the row's
             end, empty bands, reads under 3 bases, a band of 65 words,
-            the fma pairs 203 / 180 and 113 / 90), as windows and as
-            rounds;
+            the fma pairs 203 / 180 and 113 / 90; no pair passing, every
+            pair passing, 300 columns of one family, lane groups and
+            wide bands in one launch), as windows and as rounds;
 4. cluster  cluster_reads over bench_cluster's 50,000 x 140 bp reads,
             speculate=256 (the first two windows' accept matrices == the
             plain filters + LCS on the card; the int8 min-sum == the
@@ -222,10 +227,14 @@ Then clustering (`cluster_slice`), phases 3-5 of its own:
             ngia_lcs at the first speculate=32 window (32 x 8,000) and at
             one serial round (1 x 8,000, round mode, the cluster array
             restored before each replay and the restores' time taken off),
-            each replayed from a CUDA graph and launched from the host,
-            beside its plain version and its
-            bound (LCS_OPS_PER_WORD / _STEP, NGIA_OPS_PER_BIN over the
-            pairs, steps and words the kernel runs); the paths' reads/s.
+            over bench_ngia's reads and over a mixed-length set (family
+            lengths drawn from NGIA_MIXED), each replayed from a CUDA
+            graph and launched from the host, beside its plain version,
+            its bound (LCS_OPS_PER_WORD / _STEP, NGIA_OPS_PER_BIN over
+            the pairs, steps and words the kernel runs) and its cycles a
+            step (kernel ms x the SM clock / the longest live pair's
+            active steps); the window's filters (`_filters_dev`) beside
+            their int8 product's bound; the paths' reads/s.
 
 Then the script's wall, part by part (`6 wall`), one JSON line with the
 kernels, the nvidia-smi line, and last {"ok": true, "device": {...}}.  With --profile, phases 3-5 give way to
@@ -233,7 +242,9 @@ one line per mapper path over 8,192 reads or 2,048 pairs (fmdev + ed,
 q-grams, map_pairs, the `map` CLI to SAM), per engine path over the
 20,000 pairs (LOCAL score-only on their N-free copies with SCORE16 and
 with SCORE forced), the `align` CLI over them with and without
-GENOMICS_TPU_INT16_CELLS=1, the PairHMM regions and the `ed` reads:
+GENOMICS_TPU_INT16_CELLS=1, the PairHMM regions, the `ed` reads and
+the clustering paths (cluster_reads at speculate=256, cluster_distributed
+at speculate=32 and serial):
 wall, device busy time and per-kernel device time (torch.profiler), and
 the host functions with the most self time (cProfile).  Any failure
 exits non-zero before the last line, and so does a child process (nvcc,
@@ -269,7 +280,7 @@ FP32_LANES_PER_SM = 128    # Hopper's FP32 lanes per SM per clock
 KERNEL_SOURCES = ("local_sw", "global_sw", "semiglobal_sw", "local_start",
                   "semiglobal_start", "ksw_extend", "banded_sw", "tb_walk",
                   "pairhmm_intertask", "pairhmm_wavefront", "myers",
-                  "fm_search")
+                  "fm_search", "cluster_lcs", "ngia_lcs")
 # PairHMM and Myers at benchmarks/run_all.py's shapes (:145, :222)
 PH_B, PH_L = 16384, 128
 MY_B, MY_LP, MY_LT = 16384, 96, 152
@@ -2336,6 +2347,7 @@ def mapper_slice(seed: int, dev, smi: str, peak: float) -> dict:
 # (:657-683): their read counts, lengths, families and mutations
 CLUSTER_READS, CLUSTER_LEN, CLUSTER_SPEC = 50000, 140, 256
 NGIA_READS, NGIA_LEN, NGIA_SPEC = 8000, 1200, 32
+NGIA_MIXED = (300, 1200)  # family lengths of the mixed-length nGIA set
 CLUSTER_CHECK, NGIA_CHECK = 5000, 1000   # reads held to device="cpu"
 CLI_CLUSTER, CLI_NGIA = 2000, 500  # reads of the CLIs' runs, held to cpu
 CLUSTER_WINDOWS = 2      # speculative windows held to the plain versions
@@ -2345,7 +2357,14 @@ MIN_SUM_COLS = 2048      # job columns of the min-sum held to the host's
 # three-input bitwise function one op): per row word and active query
 # step 4, per active step 5, per filter bin 2 (nGIA)
 LCS_OPS_PER_WORD, LCS_OPS_PER_STEP, NGIA_OPS_PER_BIN = 4, 5, 2
+INT8_TOPS = 1.979e15      # H100 SXM dense int8 tensor rate (data sheet)
 LCS_EDGE_NETS = (1, 31, 32, 33, 63, 64, 65)
+LCS_LONG = 4200   # bases of a row past the widest lane group (128 words)
+# launches whose rows in shared memory pass 48 KB with the kernels' static
+# shared memory: a representative of LCS_THREAD_BP bases (79 words, a
+# thread a pair: 528 bytes a word a block), and LCS_LONG's launches with
+# warp slots of LCS_SMEM_WORDS words (a warp a pair: 16 bytes a word)
+LCS_THREAD_BP, LCS_SMEM_WORDS = 2500, 2500
 LCS_EDGE_S = (1, 7, 256)
 # (representative, read, similarity) where nGIA's band rounds differently
 # in separately rounded f32 and in the fma the JAX package computes
@@ -2356,17 +2375,21 @@ LCS_ROWS = (("cluster_lcs", "genomics_tpu/models/cluster.py:192"),
             ("ngia_lcs", "genomics_tpu/models/ngia.py:91"))
 
 
-def family_reads(rng, n_reads: int, L: int, per: int, mutations: int):
-    """run_all.py's generator: n_reads // per families of L random bases,
+def family_reads(rng, n_reads: int, L, per: int, mutations: int):
+    """run_all.py's generator: n_reads // per families of L random bases
+    (L an int, or (lo, hi): each family's length drawn from [lo, hi]),
     read i a copy of family i % n_fam with up to mutations - 1 bases
     replaced."""
     bases = np.array(list("ACGT"))
     n_fam = max(n_reads // per, 1)
-    fams = [bases[rng.integers(0, 4, L)] for _ in range(n_fam)]
+    lens = ([L] * n_fam if isinstance(L, int)
+            else rng.integers(L[0], L[1] + 1, n_fam))
+    fams = [bases[rng.integers(0, 4, n)] for n in lens]
     reads = []
     for i in range(n_reads):
         c = fams[i % n_fam].copy()
-        idx = rng.choice(L, size=rng.integers(0, mutations), replace=False)
+        idx = rng.choice(len(c), size=rng.integers(0, mutations),
+                         replace=False)
         c[idx] = bases[rng.integers(0, 4, len(idx))]
         reads.append("".join(c))
     return reads
@@ -2429,9 +2452,19 @@ def lcs_edge_launches(rng, n: int):
 def cluster_lcs_parity(rng, dev) -> tuple[int, int]:
     """cluster_lcs against lcs_accept_plain on the card over
     lcs_edge_reads: each edge launch gated by random bits and ungated, in
-    the rule's layout and with the row in the global scratch (max_words
-    past the widest register bucket; the plain version once over every
-    representative, each read alone held to its row); returns (the
+    the rule's layout and with G x K = 128 and the rows in a global
+    scratch (max_words past SHARED_WORDS; the plain version once over
+    every representative, each read alone held to its row); then a launch no
+    pair passes (a gate of zeros), one every pair passes (no gate), 300
+    columns drawn from the reads against one 140 bp representative (a
+    block's survivors across its warps, groups part empty), the same
+    columns against 256 representatives (blocks of 32 or more gated pairs
+    run them a thread each), nets 1, 33, 65, 140 and 1,100 in one launch
+    (G x K = 64), and a 4,200 bp
+    representative (132 words: its block a warp a pair) beside a 140 bp
+    one, also in warp slots of LCS_SMEM_WORDS words, and a 2,500 bp
+    representative among 256 against 300 short columns (a thread a pair):
+    shared memory past 48 KB with the kernel's static part; returns (the
     largest difference, launches)."""
     from genomics_tpu_torch.models import cluster as TC
     from genomics_tpu_torch.ops import lcs
@@ -2442,7 +2475,17 @@ def cluster_lcs_parity(rng, dev) -> tuple[int, int]:
     aux = TC._aux_dev(p, dev)
     args = [aux[k] for k in ("low", "high", "net", "codes", "bcut")]
     every = torch.arange(N, dtype=torch.int32, device=dev)
+    wide = lcs.SHARED_WORDS + 1
     err = n = 0
+
+    def check(rp, jb, gate, want=None, words=(None, wide)):
+        nonlocal err, n
+        if want is None:
+            want = lcs.lcs_accept_plain(*args, rp, jb, gate)
+        for mw in words:
+            got = lcs.lcs_accept(*args, rp, jb, gate, max_words=mw)
+            err = max(err, max_abs_err([got], [want]))
+            n += 1
     for gated in (False, True):
         launches = lcs_edge_launches(rng, N)
         jb = torch.from_numpy(launches[0][1]).to(dev)
@@ -2452,51 +2495,153 @@ def cluster_lcs_parity(rng, dev) -> tuple[int, int]:
         for reps, _ in launches:
             rp = torch.from_numpy(reps).to(dev)
             gate = None if g_all is None else g_all[rp.long()]
-            want = w_all[rp.long()] if len(reps) == 1 else \
-                lcs.lcs_accept_plain(*args, rp, jb, gate)
-            wide = max(int(lcs.words_of(args[2][rp.long()]).max()),
-                       lcs.CLUSTER_WORDS[-1] + 1)
-            for mw in (None, wide):
-                got = lcs.lcs_accept(*args, rp, jb, gate, max_words=mw)
-                err = max(err, max_abs_err([got], [want]))
-                n += 1
+            check(rp, jb, gate, w_all[rp.long()] if len(reps) == 1 else None)
+    net = p.net_lengths
+    at = {m: int(np.nonzero(net == m)[0][0]) for m in (1, 33, 65, 140, 1100)}
+    jb = torch.from_numpy(np.arange(3, N, dtype=np.int32)).to(dev)
+    rp = torch.tensor([at[140], at[65]], dtype=torch.int32, device=dev)
+    check(rp, jb, torch.zeros((2, N - 3), dtype=torch.uint8, device=dev))
+    check(rp, jb, None)
+    cols = torch.from_numpy(rng.integers(0, N, 300).astype(np.int32)).to(dev)
+    check(rp[:1], cols, None)
+    many = torch.from_numpy(rng.integers(0, N, 256).astype(np.int32)).to(dev)
+    check(many, cols, None)
+    check(torch.tensor(list(at.values()), dtype=torch.int32, device=dev), jb,
+          None)
+    # a 4,200 bp representative (132 words, past G x K = 128: a warp a
+    # pair) beside its copies and prefixes, gated and not
+    base = random_seq(rng, LCS_LONG)
+    long_reads = [base, mutate(rng, base, 0.02, 0.0), base[:140],
+                  base[:1100], noisy(rng, base[:2000])]
+    p = TC._prepare(long_reads, 0.9, 5)
+    aux = TC._aux_dev(p, dev)
+    args = [aux[k] for k in ("low", "high", "net", "codes", "bcut")]
+    rp = torch.tensor([0, 2], dtype=torch.int32, device=dev)
+    jb = torch.arange(len(long_reads), dtype=torch.int32, device=dev)
+    for gate in (None, torch.from_numpy(rng.integers(
+            0, 2, (2, len(long_reads))).astype(np.uint8)).to(dev)):
+        check(rp, jb, gate, words=(None, LCS_SMEM_WORDS, wide))
+    p, rp, jb = thread_edge_launch(rng, dev)
+    aux = TC._aux_dev(p, dev)
+    args = [aux[k] for k in ("low", "high", "net", "codes", "bcut")]
+    check(rp, jb, None)
     return err, n
+
+
+def thread_edge_launch(rng, dev, ngia: bool = False):
+    """(prepared reads, reps, jobs) of a launch of 256 representatives,
+    the first a random read of LCS_THREAD_BP bases, the rest drawn from it,
+    its mutated copy, its prefixes of 140, 250 and 300 bases, a mutated
+    and a noisy prefix and an unrelated 300 bp read, against 300 columns
+    drawn from those of up to 300 bases: blocks of 32 pairs or more in a
+    launch of more than a wave, a thread a pair; `ngia`: nGIA's _prepare
+    tuple in place of clustering's."""
+    from genomics_tpu_torch.models import cluster as TC
+    from genomics_tpu_torch.models import ngia as TN
+
+    base = random_seq(rng, LCS_THREAD_BP)
+    reads = [base, mutate(rng, base, 0.01, 0.0), base[:140], base[:250],
+             base[:300], mutate(rng, base[:300], 0.01, 0.0),
+             noisy(rng, base[:200]), random_seq(rng, 300)]
+    p = TN._prepare(reads) if ngia else TC._prepare(reads, 0.9, 5)
+    net = p[2] if ngia else p.net_lengths
+    reps = np.concatenate([[int(np.argmax(net))],
+                           rng.integers(0, len(reads), 255)])
+    jobs = rng.choice(np.nonzero(net <= 300)[0], 300)
+    return (p, torch.from_numpy(reps.astype(np.int32)).to(dev),
+            torch.from_numpy(jobs.astype(np.int32)).to(dev))
 
 
 def ngia_lcs_parity(rng, dev) -> tuple[int, int]:
     """ngia_lcs against banded_lcs_accept_plain on the card over
     ngia_edge_reads at similarities 0.95 and 0.9: each edge launch as a
-    window, in the rule's layout and with the row in the global scratch
-    (max_shift past the widest register window; the plain version once
-    over every representative, each read alone held to its row), and
-    rounds of eight representatives from a
-    cluster array with some reads clustered; returns (the largest
-    difference, launches)."""
+    window, in the rule's layout and with G x K = 64 and the rows of the
+    wide bands in a global scratch (max_shift 16, max_words past
+    SHARED_WORDS;
+    the plain version once over every representative, each read alone
+    held to its row); a window no pair passes (representatives under 3
+    bases), one every pair passes (the 300 bp family against itself), the
+    family drawn to 300 columns against base[:300] (a block's survivors
+    across its warps, groups part empty) and against 256 of the family (a
+    thread a pair), the 1,100 and 300 bp reads
+    against all, a 4,200 bp representative against its copy and
+    prefixes (bands in lane groups and past 128 words, a warp a pair, in
+    one launch, also in warp slots of LCS_SMEM_WORDS words); a 2,500 bp
+    representative among 256 against 300 short columns (a thread a pair)
+    and as a round (shared memory past 48 KB with the kernel's static
+    part); and rounds of eight representatives from a cluster array with
+    some reads clustered; returns (the largest difference, launches)."""
     from genomics_tpu_torch.models import ngia as TN
     from genomics_tpu_torch.ops import lcs
 
     err = n = 0
     for sim in (0.95, 0.9):
         reads = ngia_edge_reads(rng, sim)
-        _o, _l, net, words, low, high, codes = TN._prepare(reads)
+        order, _l, net, words, low, high, codes = TN._prepare(reads)
         a = TN._device_arrays(net, words, low, high, codes, dev)
         args = [a[k] for k in ("words", "net", "low", "high", "codes")]
         N = len(reads)
         every = torch.arange(N, dtype=torch.int32, device=dev)
-        launches = lcs_edge_launches(rng, N)
-        jb = torch.from_numpy(launches[0][1]).to(dev)
-        w_all = lcs.banded_lcs_accept_plain(*args, every, jb, sim)
-        for reps, _ in launches:
-            rp = torch.from_numpy(reps).to(dev)
-            want = w_all[rp.long()] if len(reps) == 1 else \
-                lcs.banded_lcs_accept_plain(*args, rp, jb, sim)
-            wide = max(lcs.max_shift_of(net[reps], net[launches[0][1]], sim),
-                       lcs.NGIA_BANDS[-1] // 2 + 1)
-            for ms_ in (None, wide):
-                got = lcs.banded_lcs_accept(*args, rp, jb, sim,
-                                            max_shift=ms_)
+
+        def check(reps, jobs, want=None):
+            nonlocal err, n
+            rp = torch.from_numpy(np.asarray(reps, np.int32)).to(dev)
+            jb = torch.from_numpy(np.asarray(jobs, np.int32)).to(dev)
+            if want is None:
+                want = lcs.banded_lcs_accept_plain(*args, rp, jb, sim)
+            for bounds in ({}, dict(max_shift=16,
+                                    max_words=lcs.SHARED_WORDS + 1)):
+                got = lcs.banded_lcs_accept(*args, rp, jb, sim, **bounds)
                 err = max(err, max_abs_err([got], [want]))
                 n += 1
+        launches = lcs_edge_launches(rng, N)
+        jobs = launches[0][1]
+        w_all = lcs.banded_lcs_accept_plain(
+            *args, every, torch.from_numpy(jobs).to(dev), sim)
+        for reps, _ in launches:
+            check(reps, jobs, w_all[torch.from_numpy(reps).long().to(dev)]
+                  if len(reps) == 1 else None)
+        # base[:300] and its mutated and noisy copies (ngia_edge_reads)
+        fam = [i for i, o in enumerate(order) if o == 8 or 10 <= o < 20]
+        check([i for i in range(N) if net[i] < 3], every.cpu().numpy())
+        check(fam, fam)
+        check([fam[0]], rng.choice(fam, 300))
+        check(rng.choice(fam, 256), rng.choice(fam, 300))
+        check([int(np.argmax(net)), fam[0]], every.cpu().numpy())
+        # a 4,200 bp representative against its copy (a band of 15 in a
+        # group) and its prefixes (bands past G x K = 128: a warp a pair)
+        base = random_seq(rng, LCS_LONG)
+        lr = [base, mutate(rng, base, 0.01, 0.0), base[:1100], base[:300],
+              base[:100]]
+        o2, _l, n2, w2, l2, h2, c2 = TN._prepare(lr)
+        a2 = TN._device_arrays(n2, w2, l2, h2, c2, dev)
+        for bounds in ({}, dict(max_words=LCS_SMEM_WORDS),
+                       dict(max_shift=16, max_words=lcs.SHARED_WORDS + 1)):
+            rp = torch.tensor([0], dtype=torch.int32, device=dev)
+            jb = torch.arange(len(lr), dtype=torch.int32, device=dev)
+            args2 = [a2[k] for k in ("words", "net", "low", "high", "codes")]
+            want = lcs.banded_lcs_accept_plain(*args2, rp, jb, sim)
+            got = lcs.banded_lcs_accept(*args2, rp, jb, sim, **bounds)
+            err = max(err, max_abs_err([got], [want]))
+            n += 1
+        (_o, _l, n2, w2, l2, h2, c2), rp, jb = thread_edge_launch(
+            rng, dev, ngia=True)
+        a2 = TN._device_arrays(n2, w2, l2, h2, c2, dev)
+        args2 = [a2[k] for k in ("words", "net", "low", "high", "codes")]
+        want = lcs.banded_lcs_accept_plain(*args2, rp, jb, sim)
+        for bounds in ({}, dict(max_shift=16,
+                                max_words=lcs.SHARED_WORDS + 1)):
+            got = lcs.banded_lcs_accept(*args2, rp, jb, sim, **bounds)
+            err = max(err, max_abs_err([got], [want]))
+            n += 1
+        every2 = torch.arange(len(n2), dtype=torch.int32, device=dev)
+        cl = [torch.full((len(n2),), -1, dtype=torch.int32, device=dev)
+              for _ in range(2)]
+        lcs.banded_lcs_accept_plain(*args2, rp[:1], every2, sim,
+                                    cluster=cl[0])
+        lcs.banded_lcs_accept(*args2, rp[:1], every2, sim, cluster=cl[1])
+        err = max(err, max_abs_err([cl[1]], [cl[0]]))
+        n += 1
         for r in rng.choice(N, 8, replace=False):
             rp = torch.tensor([r], dtype=torch.int32, device=dev)
             start = np.where(rng.random(N) < 0.3, rng.integers(0, N, N),
@@ -2563,6 +2708,21 @@ def recording_windows(store: list, n: int):
         TC._accept_matrix = inner
 
 
+@contextlib.contextmanager
+def counting_calls(module, name: str, store: list):
+    """Within the block, each call of module.name appends None to store."""
+    inner = getattr(module, name)
+
+    def counted(*a, **k):
+        store.append(None)
+        return inner(*a, **k)
+    setattr(module, name, counted)
+    try:
+        yield
+    finally:
+        setattr(module, name, inner)
+
+
 def assert_clustering(res, label: str):
     """The greedy invariants: every read's representative is at or before
     it and is a representative itself."""
@@ -2594,24 +2754,35 @@ def cluster_slice(seed: int, dev, smi: str, peak: float) -> dict:
     log("3 parity", f"cluster_lcs == plain at {c_n} launches over "
         f"lcs_edge_reads (nets {LCS_EDGE_NETS}, 140 and 1,100 bases, noisy "
         f"copies, one base, net 0; every read alone and S of "
-        f"{LCS_EDGE_S}, J not a multiple of 32, gated and not, registers "
-        f"and the global scratch); ngia_lcs == plain at {n_n} launches over "
-        f"ngia_edge_reads at 0.95 and 0.9 (bands clipped at both ends, "
-        f"empty bands, reads under 3 bases, a band past 33 words, the fma "
-        f"pairs {NGIA_FMA_PAIRS}; windows and rounds); {time.time() - t0:.1f}"
-        f" s")
+        f"{LCS_EDGE_S}, J not a multiple of 32, gated and not; no pair "
+        f"gated, every pair, 300 columns against 1 and 256 (a thread a "
+        f"pair), nets 1-1,100 in one launch, a "
+        f"{LCS_LONG} bp row a warp a pair, also in slots of "
+        f"{LCS_SMEM_WORDS} words, a {LCS_THREAD_BP} bp row a thread a pair "
+        f"(shared memory past 48 KB); each in the rule's layout and at G x "
+        f"K = 128 with a global scratch); ngia_lcs == plain at {n_n} "
+        f"launches over ngia_edge_reads at 0.95 and 0.9 (bands clipped at "
+        f"both ends, empty bands, reads under 3 bases, a band of 65 words, "
+        f"the fma pairs {NGIA_FMA_PAIRS}; no pair passing, every pair, 300 "
+        f"columns of one family against 1 and 256 (a thread a pair), lane "
+        f"groups and bands past 128 words in one launch, also in slots of "
+        f"{LCS_SMEM_WORDS} words, a {LCS_THREAD_BP} bp row a thread a pair; "
+        f"windows and rounds); "
+        f"{time.time() - t0:.1f} s")
 
     # -- 4. cluster_reads and cluster_distributed --------------------------
     walls, rates, launches = {}, {}, {}
     reads = family_reads(np.random.default_rng(0), CLUSTER_READS,
                          CLUSTER_LEN, 8, 6)
-    windows = []
+    windows, filters = [], []
     zero_counts(lcs.LAUNCHES)
-    with recording_windows(windows, CLUSTER_WINDOWS):
+    with recording_windows(windows, CLUSTER_WINDOWS), \
+            counting_calls(TC, "_filters_dev", filters):
         t0 = time.time()
         res = TC.cluster_reads(reads, speculate=CLUSTER_SPEC, device=dev)
         walls["cluster"] = time.time() - t0
     launches["cluster"] = dict(lcs.LAUNCHES)
+    launches["filters"] = len(filters)
     if not launches["cluster"]["cluster_lcs"] or launches["cluster"][
             "ngia_lcs"]:
         raise AssertionError(f"cluster_reads: launches {launches['cluster']}")
@@ -2740,6 +2911,7 @@ def cluster_slice(seed: int, dev, smi: str, peak: float) -> dict:
 
     # -- 5. the kernels' timings -------------------------------------------
     rows = {}
+    mhz = int(nvidia_smi("clocks.max.sm").split()[0])
     # cluster_lcs at the first bench_cluster window's pass-2 columns
     p, reps, jobs, wl, _ = windows[0]
     aux = TC._aux_dev(p, dev)
@@ -2767,36 +2939,128 @@ def cluster_slice(seed: int, dev, smi: str, peak: float) -> dict:
            + LCS_OPS_PER_STEP * stats["steps"])
     nbytes = 2 * S * J + J * (p.codes.shape[1] + 12) + 8 * S * mw
     bd = bound(ops, nbytes, peak)
+    cyc = k_ms * 1e3 * mhz / stats["longest"]
     log("5 timings", f"cluster_lcs at bench_cluster's first window's pass-2 "
-        f"columns ({S} x {J}, {stats['pairs']} gated pairs, {mw} words): "
-        f"kernel {k_ms:.4f} ms (a CUDA graph's replay; launched from the "
-        f"host {host_ms:.4f} ms), plain {p_ms:.2f} ms, bound {bd[0]:.4f} ms "
-        f"by {bd[1]} ({stats['word_steps']} word-steps x {LCS_OPS_PER_WORD}"
-        f" + {stats['steps']} steps x {LCS_OPS_PER_STEP} = {ops} int op; "
-        f"{nbytes} bytes), {k_ms / bd[0]:.1f} x the bound, == plain; on "
-        f"{smi}")
+        f"columns ({S} x {J}, {stats['pairs']} gated pairs, {mw} words, "
+        f"{lcs.cluster_bucket(mw)} lanes a pair): kernel {k_ms:.4f} ms (a "
+        f"CUDA graph's replay; launched from the host {host_ms:.4f} ms), "
+        f"{cyc:.0f} cycles a step of the longest live pair's "
+        f"{stats['longest']} at {mhz} MHz, plain {p_ms:.2f} ms, bound "
+        f"{bd[0]:.5f} ms by {bd[1]} ({stats['word_steps']} word-steps x "
+        f"{LCS_OPS_PER_WORD} + {stats['steps']} steps x {LCS_OPS_PER_STEP} = "
+        f"{ops} int op; {nbytes} bytes), {k_ms / bd[0]:.1f} x the bound, == "
+        f"plain; on {smi}")
     rows["cluster_lcs"] = dict(launches=launches["cluster"]["cluster_lcs"],
                                max_abs_err=max(c_err, err_c), ms=k_ms,
                                plain_ms=p_ms, bound_ms=bd[0], bound_by=bd[1])
+    # the window's filters (_filters_dev: the prefix filter, the int8
+    # min-sum as K indicator products, the compares) at the same window,
+    # all its jobs; bound: the products' 2 S J K bins int8 operations, or
+    # their operands' bytes (the [S | J, K bins] indicators and the [S, J]
+    # int32 sums)
+    Jw, bins = len(jobs), D.shape[1]
+    f_ms = cuda_ms(lambda: TC._filters_dev(D, aux["prefix"], aux["wcut"],
+                                           aux["bcut"], rp, jp, K), 5)
+    f_ops = 2 * S * Jw * K * bins
+    f_bytes = (S + Jw) * K * bins + 4 * S * Jw
+    f_by = ("operations" if f_ops / INT8_TOPS >= f_bytes / HBM_BYTES_PER_S
+            else "bytes")
+    f_bd = max(f_ops / INT8_TOPS, f_bytes / HBM_BYTES_PER_S) * 1e3
+    log("5 timings", f"cluster._filters_dev at bench_cluster's first window "
+        f"({S} x {Jw} jobs, K = {K}, {bins} bins, chunks of "
+        f"{TC.filter_chunk(bins, K)} columns; {launches['filters']} calls in "
+        f"the {CLUSTER_READS}-read run): {f_ms:.4f} ms, bound {f_bd:.4f} ms "
+        f"by {f_by}"
+        f" ({f_ops} int8 op at {INT8_TOPS / 1e12:.0f} TOP/s; {f_bytes} "
+        f"bytes), {f_ms / f_bd:.1f} x; on {smi}")
     # ngia_lcs at the first speculate=32 window (out mode) and at one
     # serial round as the serial path launches it: round mode, the first
     # (representative 0 against all 8,000 reads, none clustered), the
     # cluster array restored before each replay and the restores' own time
-    # taken off
-    o_, l_, net, words, low, high, codes = TN._prepare(nreads)
+    # taken off; at bench_ngia's reads and at the mixed-length set
+    mixed = family_reads(np.random.default_rng(0), NGIA_READS, NGIA_MIXED,
+                         16, 12)
+    for which, rd in (("bench_ngia's", nreads), (
+            f"the mixed-length ({NGIA_MIXED[0]}-{NGIA_MIXED[1]} bp)", mixed)):
+        for label, S, row in ngia_timings(rd, dev, peak, mhz, launches):
+            if row["err"]:
+                raise AssertionError(f"ngia_lcs disagrees with its plain "
+                                     f"version at {which} {label}: "
+                                     f"{row['err']}")
+            log("5 timings", f"ngia_lcs at {which} {label} ({S} x "
+                f"{NGIA_READS}, {row['how']}): kernel {row['ms']:.4f} ms (a "
+                f"CUDA graph's replay; launched from the host "
+                f"{row['host_ms']:.4f} ms), {row['cycles']:.0f} cycles a "
+                f"step of the longest live pair's {row['longest']} at {mhz} "
+                f"MHz, plain {row['plain_ms']:.2f} ms, bound "
+                f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+                f"({row['count']}), {row['ms'] / row['bound_ms']:.1f} x the "
+                f"bound, == plain; on {smi}")
+            if "ngia_lcs" not in rows:
+                rows["ngia_lcs"] = dict(
+                    launches=launches["ngia"]["ngia_lcs"], max_abs_err=n_err,
+                    **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by")})
+    if err_c:
+        raise AssertionError(f"cluster_lcs disagrees with its plain version "
+                             f"at the timed launch: {err_c}")
+    log("5 timings", "clustering: " + ", ".join(
+        f"{k} {v:.0f} reads/s" for k, v in rates.items())
+        + f" (host clock); on {smi}")
+    return rows
+
+
+def clustering_runs(dev) -> list:
+    """--profile's clustering paths (label, run, n): cluster_reads over
+    bench_cluster's 50,000 x 140 bp at speculate=256, cluster_distributed
+    over bench_ngia's 8,000 x 1,200 bp at speculate=32 and serial."""
+    from genomics_tpu_torch.models import cluster as TC
+    from genomics_tpu_torch.models import ngia as TN
+
+    reads = family_reads(np.random.default_rng(0), CLUSTER_READS,
+                         CLUSTER_LEN, 8, 6)
+    nreads = family_reads(np.random.default_rng(0), NGIA_READS, NGIA_LEN,
+                          16, 12)
+    return [
+        (f"clustering: cluster_reads speculate={CLUSTER_SPEC}",
+         functools.partial(TC.cluster_reads, reads, speculate=CLUSTER_SPEC,
+                           device=dev), f"{CLUSTER_READS} reads"),
+        (f"clustering: nGIA cluster_distributed speculate={NGIA_SPEC}",
+         functools.partial(TN.cluster_distributed, nreads, 0.95,
+                           speculate=NGIA_SPEC, device=dev),
+         f"{NGIA_READS} reads"),
+        ("clustering: nGIA cluster_distributed serial",
+         functools.partial(TN.cluster_distributed, nreads, 0.95, device=dev),
+         f"{NGIA_READS} reads")]
+
+
+def ngia_timings(reads, dev, peak: float, mhz: int, launches: dict):
+    """ngia_lcs over `reads` at the first speculate=32 window (32 x all,
+    out mode) and at the first serial round (round mode, representative 0
+    against every read, the cluster array restored before each replay and
+    the restores' time taken off), each held to its plain version: yields
+    (label, S, row) with the row's ms, host_ms, plain_ms, bound_ms,
+    bound_by, the count behind the bound, cycles a step of the longest
+    live pair and err."""
+    from genomics_tpu_torch.models import ngia as TN
+    from genomics_tpu_torch.ops import lcs
+
+    N = len(reads)
+    o_, l_, net, words, low, high, codes = TN._prepare(reads)
     a = TN._device_arrays(net, words, low, high, codes, dev)
     args = [a[k] for k in ("words", "net", "low", "high", "codes")]
-    every = torch.arange(NGIA_READS, dtype=torch.int32, device=dev)
+    every = torch.arange(N, dtype=torch.int32, device=dev)
     mw = int((net.max() + 31) // 32)
-    fresh = torch.full((NGIA_READS,), -1, dtype=torch.int32, device=dev)
+    L = int(net.max())
+    fresh = torch.full((N,), -1, dtype=torch.int32, device=dev)
     cl = fresh.clone()
     for label, S in (("the first speculate=32 window", NGIA_SPEC),
                      ("one serial round", 1)):
         rnd = S == 1
         rp = torch.arange(S, dtype=torch.int32, device=dev)
         ms_ = lcs.max_shift_of(net[:S] if not rnd else net, net, 0.95)
-        out = None if rnd else torch.empty((S, NGIA_READS),
-                                           dtype=torch.uint8, device=dev)
+        out = None if rnd else torch.empty((S, N), dtype=torch.uint8,
+                                           device=dev)
         lays = lcs.banded_layouts(*args, rp, every, 0.95, cl if rnd else None,
                                   out, mw, ms_)
         stats = {}
@@ -2810,7 +3074,7 @@ def cluster_slice(seed: int, dev, smi: str, peak: float) -> dict:
             for x in lays:
                 lcs.launch_ngia_lcs(x)
         run()
-        err_n = max_abs_err([cl if rnd else out], [want])
+        err = max_abs_err([cl if rnd else out], [want])
         restore_ms = graph_ms(lambda: cl.copy_(fresh), 20) if rnd else 0.0
         k_ms = graph_ms(run, 20) - restore_ms
         host_ms = cuda_ms(run, 20) - restore_ms
@@ -2822,47 +3086,32 @@ def cluster_slice(seed: int, dev, smi: str, peak: float) -> dict:
         # the jobs' histograms and nets, the representatives' histograms
         # and planes, the accepts (the cluster words read and written in
         # a round) and the LCS pairs' codes
-        nbytes = (NGIA_READS * (512 + 4) + S * (512 + 8 * mw)
-                  + NGIA_READS * (8 if rnd else S) + stats["pairs"] * NGIA_LEN)
+        nbytes = (N * (512 + 4) + S * (512 + 8 * mw)
+                  + N * (8 if rnd else S) + stats["pairs"] * L)
         bd = bound(ops, nbytes, peak)
         how = (f"round mode, {launches['ngia serial']['ngia_lcs']} such "
                f"launches in the serial 8,000-read run; the cluster array's "
                f"restore, {restore_ms:.4f} ms, taken off" if rnd
                else f"{launches['ngia']['ngia_lcs']} launches in the "
                f"speculate={NGIA_SPEC} 8,000-read run")
-        log("5 timings", f"ngia_lcs at {label} ({S} x {NGIA_READS}, band "
-            f"bucket {lcs.ngia_bucket(ms_)} words, {stats['pairs']} LCS "
-            f"pairs; {how}): kernel {k_ms:.4f} ms (a CUDA graph's replay; "
-            f"launched from the host {host_ms:.4f} ms), plain {p_ms:.2f} ms,"
-            f" bound {bd[0]:.4f} ms by {bd[1]} ({stats['filtered']} pairs x"
-            f" 256 bins x {NGIA_OPS_PER_BIN} + {stats['word_steps']} band "
-            f"word-steps x {LCS_OPS_PER_WORD} + {stats['steps']} steps x "
-            f"{LCS_OPS_PER_STEP} = {ops} int op; {nbytes} bytes), "
-            f"{k_ms / bd[0]:.1f} x the bound, == plain; on {smi}")
-        if err_n:
-            raise AssertionError(f"ngia_lcs disagrees with its plain version "
-                                 f"at {label}: {err_n}")
-        if "ngia_lcs" not in rows:
-            rows["ngia_lcs"] = dict(launches=launches["ngia"]["ngia_lcs"],
-                                    max_abs_err=n_err, ms=k_ms,
-                                    plain_ms=p_ms, bound_ms=bd[0],
-                                    bound_by=bd[1])
-    if err_c:
-        raise AssertionError(f"cluster_lcs disagrees with its plain version "
-                             f"at the timed launch: {err_c}")
-    log("5 timings", "clustering: " + ", ".join(
-        f"{k} {v:.0f} reads/s" for k, v in rates.items())
-        + f" (host clock); on {smi}")
-    return rows
+        count = (f"{stats['filtered']} pairs x 256 bins x {NGIA_OPS_PER_BIN}"
+                 f" + {stats['word_steps']} band word-steps x "
+                 f"{LCS_OPS_PER_WORD} + {stats['steps']} steps x "
+                 f"{LCS_OPS_PER_STEP} = {ops} int op; {nbytes} bytes")
+        yield label, S, dict(
+            ms=k_ms, host_ms=host_ms, plain_ms=p_ms, bound_ms=bd[0],
+            bound_by=bd[1], count=count, longest=stats.get("longest", 0),
+            cycles=k_ms * 1e3 * mhz / max(stats.get("longest", 0), 1),
+            err=err, how=f"{lcs.ngia_bucket(ms_)} lanes a pair, "
+            f"{stats['pairs']} LCS pairs; {how}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="after the build, profile every engine path over "
-                         "the 20,000 pairs (torch.profiler, cProfile) "
-                         "instead of phases 3-5")
+                    help="after the build, profile every path (torch."
+                         "profiler, cProfile) instead of phases 3-5")
     args = ap.parse_args()
     t_start = time.time()
 
@@ -3021,7 +3270,7 @@ def main() -> int:
              functools.partial(run_cli, [
                  "map", "-r", mfiles["ref"], "-q", mfiles["reads"], "-o",
                  os.path.join(fasta_dir.name, "o.sam")]),
-             f"{PROFILE_READS} reads")] + runs
+             f"{PROFILE_READS} reads")] + runs + clustering_runs(dev)
         profile_paths(runs, smi)
         fasta_dir.cleanup()
         return 0

@@ -1,5 +1,6 @@
-// Greedy clustering's LCS accept, one thread per (representative, job)
-// pair, for Hopper (sm_90a).
+// Greedy clustering's LCS accept, for Hopper (sm_90a): the gate over every
+// (representative, job) pair, then the LCS of the pairs it lets through
+// only, each pair's row split over a group of lanes.
 //
 // Replaces _lcs_batch of genomics_tpu/models/cluster.py:192 (jnp, run on
 // the TPU), vmapped as _lcs_multi (:266) and fused with the cutoff and the
@@ -9,20 +10,35 @@
 // where the LCS is kernel_dynamic's bit-parallel count (bitlcs.cuh): the
 // job's net codes, from the first, each update the representative's row;
 // a code of 255 leaves it as it is.  The JAX package resolves each step's
-// carries with a monotone fix-point over all W words; a carry chain gives
+// carries with a monotone fix-point over all W words; carry-lookahead gives
 // the same sums, since carries only flow upward (and at most one of the
 // two adds of a word carries out).  For the same reason the words at or
 // past ceil(rnet / 32), rnet the representative's net length, are not
 // computed: they feed no lower word, and the count masks them.
 //
-// A block serves one representative and kThreads jobs; it stages the
-// representative's two planes in shared memory (read from device memory
-// where they do not fit).  A thread keeps the row in registers, NW words
-// (the smallest of 1, 2, 4, 8, 16, 32 that holds the launch's widest
-// representative: ops/lcs.cluster_bucket), or, past 32 words, in a
-// [words, pairs] scratch in device memory, word-major so that a warp's
-// loads of one word are one run.  A pair the gate rejects runs no LCS:
-// its accept is 0 either way.
+// Design.  A block serves one representative (blockIdx.y) and `chunk`
+// job columns, the fewest (a multiple of 32) that keep the launch to one
+// wave of blocks (bitlcs::chunk_for), so that every gated pair starts at
+// once.  First the throughput pass: each warp gates its slices of 32
+// columns (a coalesced byte a lane), writes 0 for those the gate rejects,
+// and the block compacts the rest into a list in shared memory (a warp
+// scan of the threads' counts, the warps' totals in shared memory).  Then
+// the latency pass: the block's lane groups take the list's pairs in
+// turn, G lanes a pair, K row words a lane with their planes in
+// registers (bitlcs.cuh's group_lcs): G x K is the smallest of 1, 2, 4,
+// 8, 16, 32, 64, 128 that holds the launch's widest representative, at
+// most 128 (ops/lcs.cluster_bucket; K = 2 at 64 words, 4 at 128), so
+// a warp runs 32 / G pairs at once; a step is a lookahead over the warp,
+// not a chain over the words.  A block whose representative is wider
+// than G x K words (past 128) runs its pairs a warp each, the row in the
+// warp's slot of max_words words of shared memory, or of `scratch` where
+// the wrapper passes one (bitlcs.cuh's wide_lcs).  Lane 0 of a group writes its
+// pair's accept: every out word has one writer.  A block whose list
+// holds thread_min pairs or more (a launch argument, ops/lcs.thread_min),
+// in a launch of at least a wave of blocks (bitlcs::launch_shape; a
+// launch bound by the LCS's work, not by one pair's chain, such as every
+// column gated), runs them a thread each instead, the rows in shared
+// memory (bitlcs.cuh's thread_lcs).
 //
 // Bound: integer work, counted as myers.cu counts it (a match-mask select,
 // the carrying add and each three-input bitwise function one op).  Per
@@ -31,10 +47,11 @@
 // function); per active step 5 (the code's load and 255 test, the two
 // plane masks, the loop test).  chip_smoke.py counts words x 4 + steps x
 // 5 over the gated pairs' active steps and their representatives' words
-// (ops/lcs.lcs_accept_plain(stats=)).  The bytes: the gate and the
-// accepts, the jobs' codes, and the representatives' planes, read once.
-// This is the simple design: one thread a pair, its query codes read a
-// byte a step through __ldg.
+// (ops/lcs.lcs_accept_plain(stats=)); the lookahead's ballots and the
+// codes' shuffles are the design's own and not counted.  The bytes: the
+// gate and the accepts, the jobs' codes, and the representatives' planes,
+// read once.  A pair's steps stay a serial chain, so a launch with few
+// gated pairs is bound by one pair's steps times a step's latency.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,10 +60,14 @@
 
 namespace {
 
-constexpr int kThreads = 128;            // jobs a block
-constexpr int kPlaneBytes = 200 * 1024;  // planes staged up to this size
+constexpr int kThreads = 128;  // a block
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxChunk = 4096;  // job columns a block at most
+constexpr int kSharedWords = 12288;  // a warp's row in shared memory
 
-template <int NW>
+// G lanes a pair, K words a lane; rows of more than G x K words a warp a
+// pair.
+template <int G, int K>
 __global__ void __launch_bounds__(kThreads)
 cluster_lcs_kernel(const uint32_t* __restrict__ low,
                    const uint32_t* __restrict__ high, int W,
@@ -55,115 +76,127 @@ cluster_lcs_kernel(const uint32_t* __restrict__ low,
                    const int* __restrict__ bcut, const int* __restrict__ reps,
                    const int* __restrict__ jobs, int J,
                    const uint8_t* __restrict__ gate, uint8_t* __restrict__ out,
-                   int ld, int max_words, bool staged,
+                   int ld, int chunk, int max_words, int thread_min,
                    uint32_t* __restrict__ scratch) {
-  extern __shared__ uint32_t planes[];
+  __shared__ int list[kMaxChunk];
+  __shared__ int sums[kWarps];
+  // with thread_min, the match masks [4, max_words] and a thread's row
+  // ([max_words, kThreads]); else a warp's row (max_words words)
+  extern __shared__ uint32_t smem[];
+  uint32_t* mt = smem;
+  uint32_t* rows = smem + (thread_min > 0 ? 4 * max_words : 0);
   const int s = blockIdx.y;
   const int rep = reps[s];
   const int rnet = net[rep];
-  const int wr = (rnet + 31) >> 5;
   const uint32_t* tl = low + static_cast<long long>(rep) * W;
   const uint32_t* th = high + static_cast<long long>(rep) * W;
-  if (staged) {
-    for (int w = threadIdx.x; w < wr; w += kThreads) {
-      planes[w] = __ldg(tl + w);
-      planes[max_words + w] = __ldg(th + w);
-    }
-    __syncthreads();
-    tl = planes;
-    th = planes + max_words;
+  const long long row0 = static_cast<long long>(s) * ld;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // 1. the gate over the warp's slices of 32 columns, and the list
+  const int first = blockIdx.x * chunk;
+  uint32_t mine = 0;  // bit k: slice warp + kWarps k, this lane's column
+  for (int k = 0, sl = warp; 32 * sl < chunk; ++k, sl += kWarps) {
+    const int c = first + 32 * sl + lane;
+    if (c >= J) break;
+    if (gate == nullptr || gate[row0 + c] != 0)
+      mine |= 1u << k;
+    else
+      out[row0 + c] = 0;
   }
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= J) return;
-  const long long o = static_cast<long long>(s) * ld + c;
-  if (gate != nullptr && gate[o] == 0) {
-    out[o] = 0;
+  int total;
+  int at = bitlcs::block_offset<kWarps>(__popc(mine), sums, total);
+  for (uint32_t m = mine; m != 0; m &= m - 1)
+    list[at++] = first + 32 * (warp + kWarps * (__ffs(m) - 1)) + lane;
+  __syncthreads();
+  // 2. the LCS of each survivor: a thread each where the block has many,
+  // else a group of G lanes, or a warp where the representative is wider
+  // than G x K words (the same for the whole block)
+  if (thread_min > 0 && total >= thread_min) {
+    bitlcs::match_table(mt, max_words, tl, th, (rnet + 31) >> 5, kThreads);
+    __syncthreads();
+    for (int item = threadIdx.x; item < total; item += kThreads) {
+      const int c = list[item];
+      const int job = jobs[c];
+      const int matched = bitlcs::thread_lcs<false>(
+          mt, max_words, rnet, codes + static_cast<long long>(job) * cs,
+          net[job], 0, rows + threadIdx.x, kThreads);
+      out[row0 + c] = matched > bcut[job] ? 1 : 0;
+    }
     return;
   }
-  const int job = jobs[c];
-  const int qn = net[job];
-  const uint8_t* q = codes + static_cast<long long>(job) * cs;
-  int matched = 0;
-  if constexpr (NW > 0) {
-    uint32_t row[NW];
-#pragma unroll
-    for (int w = 0; w < NW; ++w) row[w] = 0xFFFFFFFFu;
-    for (int k = 0; k < qn; ++k) {
-      const uint32_t b = __ldg(q + k);
-      if (b == 255u) continue;
-      const uint32_t ql = bitlcs::plane(b, 0), qh = bitlcs::plane(b, 1);
-      uint32_t carry = 0;
-#pragma unroll
-      for (int w = 0; w < NW; ++w)
-        if (w < wr)
-          row[w] = bitlcs::step(row[w], bitlcs::match(tl[w], th[w], ql, qh),
-                                carry);
-    }
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
-      if (w < wr) matched += __popc(~row[w] & bitlcs::mask(rnet, w));
-  } else {
-    // word w of this pair's row at row[w * P], P the launch's pairs
-    const long long P = static_cast<long long>(gridDim.y) * J;
-    uint32_t* row = scratch + static_cast<long long>(s) * J + c;
-    for (int w = 0; w < wr; ++w) row[w * P] = 0xFFFFFFFFu;
-    for (int k = 0; k < qn; ++k) {
-      const uint32_t b = __ldg(q + k);
-      if (b == 255u) continue;
-      const uint32_t ql = bitlcs::plane(b, 0), qh = bitlcs::plane(b, 1);
-      uint32_t carry = 0;
-      for (int w = 0; w < wr; ++w)
-        row[w * P] = bitlcs::step(row[w * P],
-                                  bitlcs::match(tl[w], th[w], ql, qh), carry);
-    }
-    for (int w = 0; w < wr; ++w)
-      matched += __popc(~row[w * P] & bitlcs::mask(rnet, w));
+  const bool wide = rnet > 32 * G * K;
+  const int per = wide ? 32 : G;
+  uint32_t* row =
+      (scratch != nullptr
+           ? scratch + (static_cast<long long>(blockIdx.y) * gridDim.x +
+                        blockIdx.x) * kWarps * max_words
+           : rows) +
+      static_cast<long long>(warp) * max_words;
+  for (int i0 = 0; i0 < total; i0 += kThreads / per) {
+    const int item = i0 + static_cast<int>(threadIdx.x) / per;
+    const int c = item < total ? list[item] : -1;
+    const int job = c >= 0 ? jobs[c] : 0;
+    const int qn = c >= 0 ? net[job] : 0;
+    const uint8_t* q = codes + static_cast<long long>(job) * cs;
+    // a warp without a pair touches no row (one of 0 words)
+    const int matched =
+        wide ? bitlcs::wide_lcs<false>(tl, th, c >= 0 ? rnet : 0, q, qn, 0,
+                                       row)
+             : bitlcs::group_lcs<G, K, false>(tl, th, rnet, q, qn, 0);
+    if (c >= 0 && (threadIdx.x & (per - 1)) == 0)
+      out[row0 + c] = matched > bcut[job] ? 1 : 0;
   }
-  out[o] = matched > bcut[job] ? 1 : 0;
 }
 
-template <int NW>
-cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
-                   const uint32_t* low, const uint32_t* high, int W,
-                   const int* net, const uint8_t* codes, long long cs,
-                   const int* bcut, const int* reps, const int* jobs, int J,
-                   const uint8_t* gate, uint8_t* out, int ld, int max_words,
-                   bool staged, uint32_t* scratch) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        cluster_lcs_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  cluster_lcs_kernel<NW><<<grid, kThreads, smem, stream>>>(
-      low, high, W, net, codes, cs, bcut, reps, jobs, J, gate, out, ld,
-      max_words, staged, scratch);
+template <int G, int K>
+cudaError_t launch(int S, int J, cudaStream_t stream, const uint32_t* low,
+                   const uint32_t* high, int W, const int* net,
+                   const uint8_t* codes, long long cs, const int* bcut,
+                   const int* reps, const int* jobs, const uint8_t* gate,
+                   uint8_t* out, int ld, int max_words, int thread_min,
+                   uint32_t* scratch) {
+  size_t smem = 0;
+  int chunk = 0;
+  const cudaError_t e = bitlcs::launch_shape(
+      cluster_lcs_kernel<G, K>, kThreads, S, J, max_words, scratch != nullptr,
+      kMaxChunk, thread_min, smem, chunk);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((J + chunk - 1) / chunk, S);
+  cluster_lcs_kernel<G, K><<<grid, kThreads, smem, stream>>>(
+      low, high, W, net, codes, cs, bcut, reps, jobs, J, gate, out, ld, chunk,
+      max_words, thread_min, scratch);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // low / high: [N, W] uint32 planes; net / bcut: [N] int32; codes: [N, *]
-// uint8 rows cs bytes apart (255 past net); reps: [S] and jobs: [J] int32
-// read indices; gate: [S, *] uint8 at row stride ld, or null for all;
-// out: [S, *] uint8 at row stride ld.  max_words >= ceil(net / 32) of
-// every representative; nw: the register words (1, 2, 4, 8, 16 or 32), or
-// 0 for the row in `scratch` ([max_words, S * J] uint32).  S and J must be
-// at least 1.  Launches on `stream` without synchronising; returns
-// cudaGetLastError().
+// uint8 rows cs bytes apart (255 past net; the base and cs multiples of
+// 16); reps: [S] and jobs: [J] int32 read indices; gate: [S, *] uint8 at
+// row stride ld, or null for all; out: [S, *] uint8 at row stride ld.
+// max_words >= ceil(net / 32) of every representative; nw: the row words
+// a group holds, G x K (1, 2, 4, 8, 16, 32, 64 or 128; G = min(nw, 32)
+// lanes a pair): a representative of more words runs a warp a pair, its
+// row in shared memory (kWarps x max_words words a block, at most
+// kSharedWords a warp), or, with `scratch`, in device memory ([S,
+// ceil(J / 32), kWarps, max_words] uint32 at least).  thread_min: a block
+// whose list holds this many pairs or more runs them a thread each, the
+// rows in shared memory ((4 + kThreads) x max_words words a block; no
+// `scratch`); 0 for never, and taken as 0 where blocks of 32 columns
+// fill less than a wave.  S and J must be at least 1.  Launches on
+// `stream` without synchronising; returns the first CUDA error.
 extern "C" int cluster_lcs_launch(const void* low, const void* high, int W,
                                   const void* net, const void* codes,
                                   long long cs, const void* bcut,
                                   const void* reps, int S, const void* jobs,
                                   int J, const void* gate, void* out, int ld,
-                                  int max_words, int nw, void* scratch,
-                                  void* stream) {
+                                  int max_words, int nw, int thread_min,
+                                  void* scratch, void* stream) {
   if (S < 1 || J < 1 || W < 1 || max_words < 0 || ld < J || S > 65535 ||
-      (nw == 0 && scratch == nullptr) || (nw > 0 && max_words > nw))
+      thread_min < 0 || (thread_min > 0 && scratch != nullptr) ||
+      (scratch == nullptr && max_words > kSharedWords) || cs % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(codes) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool staged = 8LL * max_words <= kPlaneBytes;
-  const size_t smem = staged ? 8 * static_cast<size_t>(max_words) : 0;
-  const dim3 grid((J + kThreads - 1) / kThreads, S);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* lo = static_cast<const uint32_t*>(low);
   const auto* hi = static_cast<const uint32_t*>(high);
@@ -177,18 +210,19 @@ extern "C" int cluster_lcs_launch(const void* low, const void* high, int W,
   auto* sc = static_cast<uint32_t*>(scratch);
   cudaError_t e;
   switch (nw) {
-#define CLUSTER_LCS_CASE(N)                                                 \
+#define CLUSTER_LCS_CASE(N, G, K)                                           \
   case N:                                                                   \
-    e = launch<N>(grid, smem, st, lo, hi, W, nt, cd, cs, bc, rp, jb, J, gt, \
-                  ot, ld, max_words, staged, sc);                           \
+    e = launch<G, K>(S, J, st, lo, hi, W, nt, cd, cs, bc, rp, jb, gt,       \
+                     ot, ld, max_words, thread_min, sc);                    \
     break;
-    CLUSTER_LCS_CASE(0)
-    CLUSTER_LCS_CASE(1)
-    CLUSTER_LCS_CASE(2)
-    CLUSTER_LCS_CASE(4)
-    CLUSTER_LCS_CASE(8)
-    CLUSTER_LCS_CASE(16)
-    CLUSTER_LCS_CASE(32)
+    CLUSTER_LCS_CASE(1, 1, 1)
+    CLUSTER_LCS_CASE(2, 2, 1)
+    CLUSTER_LCS_CASE(4, 4, 1)
+    CLUSTER_LCS_CASE(8, 8, 1)
+    CLUSTER_LCS_CASE(16, 16, 1)
+    CLUSTER_LCS_CASE(32, 32, 1)
+    CLUSTER_LCS_CASE(64, 32, 2)
+    CLUSTER_LCS_CASE(128, 32, 4)
 #undef CLUSTER_LCS_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from genomics_tpu_torch.device import checked_device, on_cpu
-from genomics_tpu_torch.ops.lcs import lcs_accept
+from genomics_tpu_torch.ops.lcs import lcs_accept, pad_codes
 from genomics_tpu_torch.utils.fasta import read_fasta
 
 _BASE_MAP = np.full(256, 4, np.uint8)
@@ -411,7 +411,7 @@ def _aux_dev(p: _Prepped, dev) -> dict:
             "low": put(p.low.view(np.int32)),
             "high": put(p.high.view(np.int32)),
             "net": put(p.net_lengths),
-            "codes": put(p.codes, np.uint8),
+            "codes": put(pad_codes(p.codes), np.uint8),
         }
     return p.aux_dev
 

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from genomics_tpu_torch.device import checked_device
-from genomics_tpu_torch.ops.lcs import banded_lcs_accept, max_shift_of
+from genomics_tpu_torch.ops.lcs import (banded_lcs_accept, max_shift_of,
+                                        pad_codes)
 from genomics_tpu_torch.utils.fasta import read_fasta
 
 _BASE_MAP = np.full(256, 255, np.uint8)
@@ -107,7 +108,7 @@ def _device_arrays(net, words, low, high, codes, dev) -> dict:
     return {"words": put(words, np.int16), "net": put(net.astype(np.int32),
                                                       np.int32),
             "low": put(low, np.int32), "high": put(high, np.int32),
-            "codes": put(codes, np.uint8)}
+            "codes": put(pad_codes(codes), np.uint8)}
 
 
 def _accept(arrays: dict, reps, jobs, sim, cluster=None, **bounds):

@@ -21,7 +21,15 @@ carry out of its highest dropped.
 
 `lcs_accept` and `banded_lcs_accept` take their plain versions for
 tensors on the CPU and launch `csrc/cluster_lcs.cu` / `csrc/ngia_lcs.cu`
-for tensors on a CUDA device; any other device raises.
+for tensors on a CUDA device; any other device raises.  The kernels gate
+or filter every pair, then run the LCS of the pairs that pass only, each
+pair's row (nGIA: its band) split over a group of G lanes, K words a
+lane, the carries resolved by carry-lookahead across the warp
+(`csrc/bitlcs.cuh`); a pair wider than its launch's group (past 128
+words) runs a warp to itself with its row in shared memory, and a block
+with many pairs runs them a thread each.  They read a query's codes 16
+bytes at a time, so the codes' rows are padded to a multiple of 16 bytes
+(`pad_codes`).
 """
 from __future__ import annotations
 
@@ -37,46 +45,98 @@ from genomics_tpu_torch.ops.fm_search import _popcount32
 # Kernel launches; each wrapper adds one where it launches its kernel.
 LAUNCHES = {"cluster_lcs": 0, "ngia_lcs": 0}
 WORD = 0xFFFFFFFF
-# cluster_lcs.cu keeps a row of up to this many words in registers (the
-# smallest bucket that holds the launch's widest representative); wider
-# rows live in a [words, pairs] global scratch.
-CLUSTER_WORDS = (1, 2, 4, 8, 16, 32)
-# ngia_lcs.cu keeps a window of 2 * shift + 1 row words in registers (the
-# smallest bucket that holds the launch's widest band); wider bands keep
-# the whole row in the global scratch.
-NGIA_BANDS = (1, 3, 5, 9, 17, 33)
-# A launch's global scratch is at most this many bytes: wider launches
-# run in chunks of job columns.
+# cluster_lcs.cu splits a pair's row over a group of G lanes, K words a
+# lane: G x K is the smallest of these that holds the launch's widest
+# representative, at most 128 (G = min(G x K, 32)); a wider row runs a
+# warp a pair with the row in the warp's slot of shared memory.
+CLUSTER_WORDS = (1, 2, 4, 8, 16, 32, 64, 128)
+# ngia_lcs.cu splits a pair's band of 2 * shift + 1 words the same way
+# (the smallest that holds the launch's widest band, at most 128); a pair
+# with a wider band runs a warp to itself with the whole row in shared
+# memory.
+NGIA_BANDS = (1, 2, 4, 8, 16, 32, 64, 128)
+# The kernels load a query's codes 16 bytes at a time from 16-byte
+# aligned rows.
+CODE_ALIGN = 16
+# The fewest job columns a block of either kernel takes (each picks the
+# fewest that keep its launch to one wave) and its warps (kWarps): the
+# global scratch's shape.
+CHUNK_MIN, WARPS = 32, 4
+# A warp's row lives in shared memory up to this many words (kSharedWords:
+# reads of 393,216 bases); wider launches pass a global scratch of
+# [S, blocks, WARPS, max_words] words, at most SCRATCH_BYTES a launch (in
+# chunks of job columns).
+SHARED_WORDS = 12288
 SCRATCH_BYTES = 1 << 28
+# A block whose list holds THREAD_MIN pairs or more runs them a thread
+# each, its rows in shared memory, in a launch whose rows are up to
+# THREAD_WORDS words (the kernels' thread_min argument, `thread_min`;
+# the launchers drop it where the launch fills less than a wave): where
+# a block has that many pairs, the LCS's work and not one pair's chain
+# sets its time.  `tools/lcs_variants.py --sweep` (PERF.md §6): at 5-96
+# words threads won 1.3-4.5x with every pair or 1/8 of them gated, 32
+# beat 64 at 1/8, and wider rows' shared memory cost the sparse launches
+# more than threads won.
+THREAD_MIN, THREAD_WORDS = 32, 96
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # low, high, W, net, codes, cs, bcut, reps, S, jobs, J, gate, out, ld,
-# max_words, nw, scratch, stream
+# max_words, nw, thread_min, scratch, stream
 _CLUSTER_ARGS = (_vp, _vp, _ci, _vp, _vp, ctypes.c_longlong, _vp, _vp, _ci,
-                 _vp, _ci, _vp, _vp, _ci, _ci, _ci, _vp, _vp)
+                 _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp)
 # words, net, low, high, W, codes, cs, reps, S, jobs, J, sim, oms,
-# cluster, out, ld, max_words, bw, scratch, stream
+# cluster, out, ld, max_words, bw, thread_min, scratch, stream
 _NGIA_ARGS = (_vp, _vp, _vp, _vp, _ci, _vp, ctypes.c_longlong, _vp, _ci,
-              _vp, _ci, _cf, _cf, _vp, _vp, _ci, _ci, _ci, _vp, _vp)
+              _vp, _ci, _cf, _cf, _vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp)
 
 
 def cluster_bucket(max_words: int) -> int:
-    """Register words a thread of cluster_lcs.cu holds for a launch whose
-    widest representative spans `max_words` words; 0: the global scratch."""
+    """Row words G x K a group of cluster_lcs.cu holds for a launch whose
+    widest representative spans `max_words` words (128 past 128 words:
+    wider rows run a warp a pair)."""
     for nw in CLUSTER_WORDS:
         if max_words <= nw:
             return nw
-    return 0
+    return CLUSTER_WORDS[-1]
 
 
 def ngia_bucket(max_shift: int) -> int:
-    """Window words a thread of ngia_lcs.cu holds for a launch whose widest
-    band is 2 * max_shift + 1 words; 0: the whole row in the global
-    scratch."""
+    """Band words G x K a group of ngia_lcs.cu holds for a launch whose
+    widest band is 2 * max_shift + 1 words (128 past 128 words: wider
+    bands run a warp a pair)."""
     for bw in NGIA_BANDS:
         if 2 * max(max_shift, 0) + 1 <= bw:
             return bw
-    return 0
+    return NGIA_BANDS[-1]
+
+
+def thread_min(max_words: int, scratch) -> int:
+    """The kernels' thread_min for a launch whose rows are up to
+    `max_words` words: THREAD_MIN where they are up to THREAD_WORDS and in
+    shared memory, else 0 (lane groups whatever a block's count)."""
+    return THREAD_MIN if scratch is None and max_words <= THREAD_WORDS else 0
+
+
+def pad_codes(codes: np.ndarray) -> np.ndarray:
+    """codes [N, L] uint8 with each row padded by 255 to a multiple of
+    CODE_ALIGN bytes, the layout the kernels read."""
+    L = -(-codes.shape[1] // CODE_ALIGN) * CODE_ALIGN
+    out = np.full((codes.shape[0], L), 255, np.uint8)
+    out[:, :codes.shape[1]] = codes
+    return out
+
+
+def _aligned_codes(codes: torch.Tensor) -> torch.Tensor:
+    """codes itself where its rows are CODE_ALIGN-byte aligned (the
+    per-read arrays of models/cluster.py and models/ngia.py are), else a
+    padded copy."""
+    if codes.stride(0) % CODE_ALIGN == 0 and \
+            codes.data_ptr() % CODE_ALIGN == 0:
+        return codes
+    out = codes.new_full((codes.shape[0], -(-codes.shape[1] // CODE_ALIGN)
+                          * CODE_ALIGN), 255)
+    out[:, :codes.shape[1]] = codes
+    return out
 
 
 def words_of(net: torch.Tensor) -> torch.Tensor:
@@ -112,7 +172,8 @@ def _row_lcs(tl, th, tnet, q, qnet, shift=None, stats=None):
     until none is left, out-of-band words passing none on.  Words at or
     past ceil(max tnet / 32) are not computed: they feed no lower word.
     With `stats`, adds the active steps and the word-steps the kernels run
-    (words below ceil(tnet / 32), in the band for nGIA)."""
+    (words below ceil(tnet / 32), in the band for nGIA) and keeps the most
+    active steps of one pair ("longest")."""
     dev = tl.device
     P = tl.shape[0]
     wr = words_of(tnet)
@@ -129,6 +190,9 @@ def _row_lcs(tl, th, tnet, q, qnet, shift=None, stats=None):
     act = (codes != 255) & (torch.arange(L, device=dev)[None, :]
                             < qnet.long()[:, None])
     codes = codes.clamp(max=3)
+    if stats is not None:
+        stats["longest"] = max(stats.get("longest", 0),
+                               int(act.sum(dim=1).max()))
     pairs = torch.arange(P, device=dev)
     widx = torch.arange(W, device=dev)[None, :]
     inrow = widx < wr[:, None]
@@ -174,7 +238,8 @@ def lcs_accept_plain(low, high, net, codes, bcut, reps, jobs, gate=None,
     the gate lets through, all stepped together.  With `stats`, the work
     a bound counts: stats["pairs"] (the LCS pairs), stats["steps"] (their
     active query steps) and stats["word_steps"] (those steps times the
-    representative's words)."""
+    representative's words), and stats["longest"] (one pair's most active
+    steps)."""
     S, J = reps.shape[0], jobs.shape[0]
     out = torch.zeros((S, J), dtype=torch.uint8, device=low.device)
     if gate is None:
@@ -229,8 +294,8 @@ def lcs_accept(low, high, net, codes, bcut, reps, jobs, gate=None, *,
     arrays: low / high [N, W] int32 planes, net / bcut [N] int32, codes [N,
     L] uint8 (255 past net); reps [S] / jobs [J] int32 read indices.
     `max_words` (at least ceil of the largest representative net / 32;
-    past 32 the row lives in the global scratch) saves the wrapper a
-    sync."""
+    past 128 a pair runs a warp to itself, its row in shared memory up to
+    SHARED_WORDS) saves the wrapper a sync."""
     N, _ = _read_arrays(low, high, net, codes)
     dev = low.device
     _check(bcut, "bcut", torch.int32, (N,), dev)
@@ -244,6 +309,7 @@ def lcs_accept(low, high, net, codes, bcut, reps, jobs, gate=None, *,
     out = torch.empty((S, J), dtype=torch.uint8, device=low.device)
     if S == 0 or J == 0:
         return out
+    codes = _aligned_codes(codes)
     if max_words is None:
         max_words = int(words_of(net[reps.long()]).max())
     for lay in lcs_layouts(low, high, net, codes, bcut, reps, jobs, gate,
@@ -252,30 +318,37 @@ def lcs_accept(low, high, net, codes, bcut, reps, jobs, gate=None, *,
     return out
 
 
-def _chunks(S: int, J: int, words: int, generic: bool):
-    """Job-column ranges of a launch: all at once, or chunks whose [words,
-    S x chunk] scratch stays under SCRATCH_BYTES."""
-    step = max(1, SCRATCH_BYTES // (4 * S * max(words, 1))) if generic else J
-    return [(c0, min(c0 + step, J)) for c0 in range(0, J, step)]
+def _launches(S: int, J: int, words: int, dev) -> list:
+    """(first column, last column + 1, scratch) of each launch: all columns
+    at once with the rows in shared memory up to SHARED_WORDS words, else
+    chunks whose [S, blocks, WARPS, words] global scratch (blocks of
+    CHUNK_MIN columns at the most) stays under SCRATCH_BYTES."""
+    if words <= SHARED_WORDS:
+        return [(0, J, None)]
+    per = 4 * S * WARPS * words
+    step = CHUNK_MIN * max(1, SCRATCH_BYTES // per)
+    return [(c0, min(c0 + step, J), torch.empty(
+        -(-(min(c0 + step, J) - c0) // CHUNK_MIN) * per // 4,
+        dtype=torch.int32, device=dev)) for c0 in range(0, J, step)]
 
 
 def lcs_layouts(low, high, net, codes, bcut, reps, jobs, gate, out,
-                max_words: int) -> list:
+                max_words: int, threads=None) -> list:
     """cluster_lcs_launch's arguments but the stream, one tuple a launch
-    (one, or chunks of job columns where the global scratch would pass
-    SCRATCH_BYTES): pointers into the per-read arrays in place, the gate
-    and out at their row stride J."""
+    (one, or chunks of job columns where rows past SHARED_WORDS take a
+    global scratch): pointers into the per-read arrays in place, the gate
+    and out at their row stride J.  `threads` overrides `thread_min`'s
+    rule (for timings)."""
     S, J = out.shape
     nw = cluster_bucket(max_words)
     lays = []
-    for c0, c1 in _chunks(S, J, max_words, nw == 0):
+    for c0, c1, scratch in _launches(S, J, max_words, low.device):
         n = c1 - c0
-        scratch = (torch.empty(max(max_words, 1) * S * n, dtype=torch.int32,
-                               device=low.device) if nw == 0 else None)
+        tm = thread_min(max_words, scratch) if threads is None else threads
         lays.append((low, high, low.shape[1], net, codes, codes.stride(0),
                      bcut, reps, S, jobs[c0:c1], n,
                      None if gate is None else gate[:, c0:], out[:, c0:], J,
-                     max_words, nw, scratch))
+                     max_words, nw, tm, scratch))
     return lays
 
 
@@ -307,7 +380,7 @@ def banded_lcs_accept_plain(words, net, low, high, codes, reps, jobs, sim,
     pass it, all stepped together.  With `stats`: stats["filtered"] (pairs
     through the filter), stats["pairs"] (LCS pairs, shift >= 0),
     stats["steps"] and stats["word_steps"] (band words below ceil(rep net
-    / 32))."""
+    / 32)), stats["longest"] (one pair's most active steps)."""
     dev = words.device
     r, j = reps.long(), jobs.long()
     rn, jn = net.long()[r][:, None], net.long()[j][None, :]
@@ -352,8 +425,9 @@ def banded_lcs_accept(words, net, low, high, codes, reps, jobs, sim: float,
     whose cluster is -1 count, and each accepted job gets cluster[j] =
     reps[0], in place (the representative accepts itself); returns
     `cluster`.  `max_shift` / `max_words` (at least the widest band and row
-    of the launch, see `max_shift_of`; past a shift of 16 the row lives in
-    the global scratch) save the wrapper two syncs."""
+    of the launch, see `max_shift_of`; past a shift of 63 a pair runs a
+    warp to itself, its row in shared memory up to SHARED_WORDS) save the
+    wrapper two syncs."""
     N, W = _read_arrays(low, high, net, codes)
     dev = low.device
     _check(words, "words", torch.int16, (N, 256), dev)
@@ -378,6 +452,7 @@ def banded_lcs_accept(words, net, low, high, codes, reps, jobs, sim: float,
                                  net[jobs.long()].min()[None], sim)[0])
     if words.data_ptr() % 16:
         words = words.clone()
+    codes = _aligned_codes(codes)
     for lay in banded_layouts(words, net, low, high, codes, reps, jobs, sim,
                               cluster, out, max_words, max_shift):
         launch_ngia_lcs(lay)
@@ -385,24 +460,24 @@ def banded_lcs_accept(words, net, low, high, codes, reps, jobs, sim: float,
 
 
 def banded_layouts(words, net, low, high, codes, reps, jobs, sim, cluster,
-                   out, max_words: int, max_shift: int) -> list:
+                   out, max_words: int, max_shift: int, threads=None) -> list:
     """ngia_lcs_launch's arguments but the stream, one tuple a launch (one,
-    or chunks of job columns where the global scratch would pass
-    SCRATCH_BYTES); f32(sim) and f32(1 - sim), the latter formed in f64
-    first as the JAX package's weak-typed constant is."""
+    or chunks of job columns where rows past SHARED_WORDS take a global
+    scratch); f32(sim) and f32(1 - sim), the latter formed in f64 first as
+    the JAX package's weak-typed constant is.  `threads` overrides
+    `thread_min`'s rule (for timings)."""
     S, J = reps.shape[0], jobs.shape[0]
     bw = ngia_bucket(max_shift)
     sim32 = float(np.float32(sim))
     oms32 = float(np.float32(1.0 - float(sim)))
     lays = []
-    for c0, c1 in _chunks(S, J, max_words, bw == 0):
+    for c0, c1, scratch in _launches(S, J, max_words, words.device):
         n = c1 - c0
-        scratch = (torch.empty(max(max_words, 1) * S * n, dtype=torch.int32,
-                               device=words.device) if bw == 0 else None)
+        tm = thread_min(max_words, scratch) if threads is None else threads
         lays.append((words, net, low, high, low.shape[1], codes,
                      codes.stride(0), reps, S, jobs[c0:c1], n, sim32, oms32,
                      cluster, None if out is None else out[:, c0:], J,
-                     max_words, bw, scratch))
+                     max_words, bw, tm, scratch))
     return lays
 
 

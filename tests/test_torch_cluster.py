@@ -127,8 +127,9 @@ def test_lcs_accept_plain_matches_lcs_multi(gated):
 
 
 def test_lcs_accept_counts_its_work():
-    """stats: the gated pairs, their active steps and the word-steps over
-    each representative's ceil(net / 32) words."""
+    """stats: the gated pairs, their active steps, the word-steps over
+    each representative's ceil(net / 32) words, and one pair's most
+    active steps."""
     seqs = families(np.random.default_rng(10), fam=2, per=3, noisy=False)
     p = TC._prepare(seqs, 0.9, 5)
     aux = _aux(p)
@@ -145,7 +146,7 @@ def test_lcs_accept_counts_its_work():
                      for r in (0, 3) for j in range(len(seqs))
                      if not (r == 3 and j == 0))
     assert stats == {"pairs": 2 * len(seqs) - 1, "steps": want_steps,
-                     "word_steps": want_words}
+                     "word_steps": want_words, "longest": int(net.max())}
 
 
 def test_word_min_sum_is_the_min_sum():
@@ -267,14 +268,20 @@ def test_cluster_reads_needs_a_card_unless_told():
 
 
 def test_buckets_and_layouts(monkeypatch):
-    """The register buckets (the smallest that holds the launch, else the
-    global scratch), and layouts that give each C parameter but the
-    stream: per-read arrays in place, the gate and out at row stride J,
-    the global scratch in chunks of job columns under SCRATCH_BYTES."""
-    assert [lcs.cluster_bucket(w) for w in (0, 1, 3, 5, 32, 33)] == \
-        [1, 1, 4, 8, 32, 0]
-    assert [lcs.ngia_bucket(s) for s in (-3, 0, 1, 2, 16, 17)] == \
-        [1, 1, 3, 5, 33, 0]
+    """The lane-group buckets (G x K words: the smallest that holds the
+    launch's widest row or band, at most 128: wider pairs run a warp
+    each), and layouts that give each C parameter but the stream:
+    per-read arrays in place (the codes' rows padded to 16 bytes), the
+    gate and out at row stride J, rows in shared memory up to
+    SHARED_WORDS words, past it a global scratch of [S, blocks of
+    CHUNK_MIN columns, WARPS, words] in chunks under SCRATCH_BYTES, and
+    thread_min (a thread a pair in blocks of THREAD_MIN pairs) only where
+    the rows are up to THREAD_WORDS words and in shared memory."""
+    assert [lcs.cluster_bucket(w) for w in (0, 1, 3, 5, 32, 33, 65, 129)] \
+        == [1, 1, 4, 8, 32, 64, 128, 128]
+    assert [lcs.ngia_bucket(s) for s in (-3, 0, 1, 2, 3, 15, 16, 31, 32,
+                                         64)] == \
+        [1, 1, 4, 8, 8, 32, 64, 64, 128, 128]
     seqs = families(np.random.default_rng(19), fam=2, per=5)
     p = TC._prepare(seqs, 0.9, 5)
     aux = _aux(p)
@@ -287,19 +294,29 @@ def test_buckets_and_layouts(monkeypatch):
     (lay,) = lcs.lcs_layouts(*args, rp, jb, gate, out, 7)
     assert len(lay) + 1 == len(lcs._CLUSTER_ARGS)
     assert lay[0] is aux["low"] and lay[4] is aux["codes"]
-    assert lay[5] == p.codes.shape[1] and lay[13:16] == (J, 7, 8)
+    assert lay[5] == aux["codes"].stride(0) == 16 * -(-p.codes.shape[1]
+                                                      // 16)
+    assert lay[13:17] == (J, 7, 8, lcs.THREAD_MIN)
     assert lay[-1] is None
-    monkeypatch.setattr(lcs, "SCRATCH_BYTES", 4 * S * 33 * 4)
-    lays = lcs.lcs_layouts(*args, rp, jb, gate, out, 33)
+    (lay,) = lcs.lcs_layouts(*args, rp, jb, gate, out, lcs.THREAD_WORDS + 1)
+    assert lay[14:17] == (lcs.THREAD_WORDS + 1, 128, 0)
+    (lay,) = lcs.lcs_layouts(*args, rp, jb, gate, out, lcs.SHARED_WORDS)
+    assert lay[14:17] == (lcs.SHARED_WORDS, 128, 0) and lay[-1] is None
+    monkeypatch.setattr(lcs, "CHUNK_MIN", 2)
+    monkeypatch.setattr(lcs, "SCRATCH_BYTES",
+                        2 * 4 * S * lcs.WARPS * (lcs.SHARED_WORDS + 1))
+    lays = lcs.lcs_layouts(*args, rp, jb, gate, out, lcs.SHARED_WORDS + 1)
     assert [x[10] for x in lays] == [4] * (J // 4) + [J % 4] * (J % 4 > 0)
     for k, x in enumerate(lays):
         assert x[11].data_ptr() == gate[:, 4 * k:].data_ptr()
         assert x[12].data_ptr() == out[:, 4 * k:].data_ptr()
-        assert x[-1].numel() == 33 * S * x[10] and x[15] == 0
+        assert x[-1].numel() == (S * -(-x[10] // 2) * lcs.WARPS
+                                 * (lcs.SHARED_WORDS + 1))
+        assert x[15:17] == (128, 0)
     words = torch.zeros((J, 256), dtype=torch.int16)
     (nl,) = lcs.banded_layouts(words, aux["net"], aux["low"], aux["high"],
                                aux["codes"], rp, jb, 0.95, None, out, 7, 2)
     assert len(nl) + 1 == len(lcs._NGIA_ARGS)
     assert nl[11] == float(np.float32(0.95))
     assert nl[12] == float(np.float32(1.0 - 0.95))
-    assert nl[16:18] == (7, 5) and nl[-1] is None
+    assert nl[16:19] == (7, 8, lcs.THREAD_MIN) and nl[-1] is None

@@ -1770,6 +1770,44 @@ def test_cluster_distributed_on_the_card_matches_cpu(cuda, speculate):
     assert np.array_equal(got.cluster, want.cluster)
 
 
+def test_lcs_wrappers_copy_codes_they_cannot_load_16_bytes_at_a_time(cuda):
+    """Codes whose rows are not 16-byte aligned (an odd row stride, a view
+    one byte in): lcs_accept and banded_lcs_accept (window and round) give
+    their plain versions' accepts on the same codes."""
+    def unaligned(codes):
+        n, L = codes.shape
+        wide = torch.full((n, L + 1), 255, dtype=torch.uint8, device=cuda)
+        wide[:, 1:] = codes
+        return wide[:, 1:], codes
+
+    reads = family_reads(np.random.default_rng(7), 64, 140, 8, 6)
+    p = cluster._prepare(reads, 0.95, 6)
+    aux = cluster._aux_dev(p, cuda)
+    args = [aux[k] for k in ("low", "high", "net", "codes", "bcut")]
+    rp = torch.arange(4, dtype=torch.int32, device=cuda)
+    jb = torch.arange(64, dtype=torch.int32, device=cuda)
+    for codes in unaligned(torch.from_numpy(p.codes).to(cuda)):
+        args[3] = codes
+        assert codes.stride(0) % 16 or codes.data_ptr() % 16
+        assert torch.equal(lcs.lcs_accept(*args, rp, jb),
+                           lcs.lcs_accept_plain(*args, rp, jb))
+    reads = family_reads(np.random.default_rng(8), 64, 300, 8, 6)
+    _o, _l, net, words, low, high, codes = ngia._prepare(reads)
+    a = ngia._device_arrays(net, words, low, high, codes, cuda)
+    args = [a[k] for k in ("words", "net", "low", "high", "codes")]
+    for codes in unaligned(torch.from_numpy(codes).to(cuda)):
+        args[4] = codes
+        assert codes.stride(0) % 16 or codes.data_ptr() % 16
+        want = lcs.banded_lcs_accept_plain(*args, rp, jb, 0.95)
+        assert want.any()
+        assert torch.equal(lcs.banded_lcs_accept(*args, rp, jb, 0.95), want)
+        cl = [torch.full((64,), -1, dtype=torch.int32, device=cuda)
+              for _ in range(2)]
+        lcs.banded_lcs_accept_plain(*args, rp[:1], jb, 0.95, cluster=cl[0])
+        lcs.banded_lcs_accept(*args, rp[:1], jb, 0.95, cluster=cl[1])
+        assert torch.equal(cl[1], cl[0])
+
+
 def test_lcs_launches_refuse_a_bucket_they_do_not_have(cuda):
     reads = family_reads(np.random.default_rng(6), 64, 140, 8, 6)
     p = cluster._prepare(reads, 0.95, 6)
@@ -1779,7 +1817,7 @@ def test_lcs_launches_refuse_a_bucket_they_do_not_have(cuda):
     jb = torch.arange(64, dtype=torch.int32, device=cuda)
     out = torch.empty((1, 64), dtype=torch.uint8, device=cuda)
     lay = list(lcs.lcs_layouts(*args, rp, jb, None, out, 5)[0])
-    lay[-2] = 3                         # nw: no such register bucket
+    lay[15] = 3                         # nw: no such lane-group bucket
     with pytest.raises(RuntimeError, match="cluster_lcs_launch failed"):
         lcs.launch_cluster_lcs(tuple(lay))
 

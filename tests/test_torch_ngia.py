@@ -166,8 +166,9 @@ def test_fma_pairs_accept_as_jax_does():
 
 
 def test_plain_counts_its_work():
-    """stats: every pair through the filter, the LCS pairs, and the band
-    words each step runs below ceil(rep net / 32)."""
+    """stats: every pair through the filter, the LCS pairs, the band
+    words each step runs below ceil(rep net / 32), and one pair's most
+    active steps."""
     seqs = paired(np.random.default_rng(32), [(100, 90, 0.9)])
     net, arrays, _ = _arrays(seqs)
     a = arrays
@@ -179,7 +180,7 @@ def test_plain_counts_its_work():
     # shift = ceil(ceil(100 - 81) / 32) = 1: words [iw - 1, iw + 1] of the
     # representative's 4, for query words iw = 0, 1, 2 (90 bases)
     assert stats == {"filtered": 1, "pairs": 1, "steps": 90,
-                     "word_steps": 32 * 2 + 32 * 3 + 26 * 3}
+                     "word_steps": 32 * 2 + 32 * 3 + 26 * 3, "longest": 90}
 
 
 @pytest.mark.parametrize("speculate", [1, 2, 4, 8])
