@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's alignment (engine and `align` CLI), PairHMM,
-edit-distance, NW, SW, MSA, read-mapper and clustering paths once on one
-CUDA card.
+edit-distance, NW, SW, MSA, read-mapper, clustering, distributed and
+tools paths once on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -68,13 +68,14 @@ Run from the root of a checkout.  Phases, one line each:
             reference past it, h0 = seed length x match, ~10% unrelated
             targets) and BANDED (band of 4 tiles) on the GASAL2-shaped
             pairs, each with ends and score-only.  Checked against the
-            CPU engine (every field, CIGAR bytes included) and the
+            CPU engine on the first CPU_CHECK (512) pairs of each path, or
+            twice that for LOCAL (every field, CIGAR bytes included) and the
             pure-Python golds, plus one GLOBAL run with
             models/assembly.py's scoring.  Then the same 20,000 pairs
             written to two FASTA files under all four header ops through
             `python -m genomics_tpu_torch align -q Q.fa -t T.fa` (its
             main()), twice: as is (END) and under
-            GENOMICS_TPU_INT16_CELLS=1 (END16), each run's first 1,024
+            GENOMICS_TPU_INT16_CELLS=1 (END16), each run's first 512
             lines byte-equal to the CLI's own --device cpu run, 64 held to
             the gold.  Then PairHMM over 256 GATK-
             shaped regions x 32 reads x 8 haplotypes (150 / 300 bp;
@@ -236,6 +237,28 @@ Then clustering (`cluster_slice`), phases 3-5 of its own:
             active steps); the window's filters (`_filters_dev`) beside
             their int8 product's bound; the paths' reads/s.
 
+Then the distributed slice (`dist_slice`, phase 7): NCCL at world size
+1 in this process (a file:// rendezvous): sharded_pipeline_step over
+bench_sharded_sw's 16,384 pairs of 152 x 152 a device with 16,384
+PairHMM pairs of 128 x 128 (every field == the single-device entry
+points, the first 4,096 pairs == the plain versions on the card; each of
+its kernels launched; its wall, pairs/s and GCUPS), sharded_align_scores
+at 16,384 x 152 x 152 (== local_align_scores and the plain version; its
+time and GCUPS), cluster_distributed(mesh=) serial over bench_ngia's
+8,000 x 1,200 bp (== one device without a mesh) and msa(mesh=) over
+bench_msa's 2,048 x 120 set and an indel one (== msa()); then two gloo
+ranks on the one card as child processes (this script with
+--dist-worker, a timeout each), 16,384 pairs a rank: the same two calls,
+nGIA's mesh rounds over 1,000 reads and msa(mesh=), == world size 1 on
+the same inputs.  Then the tools (`tools_slice`, phase 8):
+LighterCorrector at bench_corrector's 20,000 x 100 bp (the native walk's
+reads/s, == the Python walk on 1,000 reads); local_assembly over 64
+windows of 300 bp x 32 reads of 100 bp (64 wavefront launches; each
+window's likelihoods == the plain version on the card, its haplotypes
+and variants == device="cpu" in child interpreters); alndiff of the
+mapper slice's fmdev and q-gram SAMs; the `lighter`, `assemble` and
+`alndiff` CLIs == a second run (assemble: == --device cpu).
+
 Then the script's wall, part by part (`6 wall`), one JSON line with the
 kernels, the nvidia-smi line, and last {"ok": true, "device": {...}}.  With --profile, phases 3-5 give way to
 one line per mapper path over 8,192 reads or 2,048 pairs (fmdev + ed,
@@ -249,7 +272,8 @@ wall, device busy time and per-kernel device time (torch.profiler), and
 the host functions with the most self time (cProfile).  Any failure
 exits non-zero before the last line, and so does a child process (nvcc,
 nvidia-smi, the PairHMM gold's workers) still running before the JSON
-lines.  Needs one CUDA card, nvcc and g++; imports no JAX.
+lines.  Needs one CUDA card, nvcc and g++; imports no JAX.  NCCL and
+gloo rendezvous through files in a temporary directory: no network.
 """
 from __future__ import annotations
 
@@ -272,7 +296,9 @@ import torch
 BENCH_B, BENCH_L = 65536, 152
 BENCH_H0, BENCH_BAND = 30, 4   # benchmarks/run_all.py's ksw h0 and band
 PAIRS = 20000  # GASAL2's test program aligns 20,000 reads
-CPU_CHECK = 1024  # pairs of each traceback run held to the CPU engine
+# pairs of each engine path held to the CPU engine (1,024 until the
+# distributed and tools phases came, whose time this cut pays for)
+CPU_CHECK = 512
 GOLD_CHECK = 64   # pairs held to the pure-Python gold
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 INT32_LANES_PER_SM = 64    # Hopper's INT32 lanes per SM per clock
@@ -932,40 +958,65 @@ pickle.dump([float(golds.pairhmm_forward(*(r[k] for k in keys)))
 """
 
 
+def start_children(code: str, items: list) -> tuple:
+    """`code` started over items split over up to 8 child interpreters,
+    each reading its share (pickled, path in argv[1]) and writing a
+    pickled list of results to stdout; `join_children` collects them.
+    Plain subprocesses, not a multiprocessing pool, whose spawn start
+    method leaves its resource tracker running past the call."""
+    n = max(1, min(8, os.cpu_count() or 1, len(items)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory()
+    procs = []
+    try:
+        for w in range(n):
+            path = os.path.join(tmp.name, f"items{w}.pkl")
+            with open(path, "wb") as f:
+                pickle.dump(items[w::n], f)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, path], cwd=root,
+                stdout=subprocess.PIPE))
+    except BaseException:
+        join_children((procs, tmp, len(items)), kill=True)
+        raise
+    return procs, tmp, len(items)
+
+
+def join_children(started: tuple, kill: bool = False) -> list:
+    """The results of `start_children`'s children in the items' order;
+    every child is waited for (or, with `kill` or on a failure, killed
+    and waited for) before this returns."""
+    procs, tmp, count = started
+    parts = []
+    try:
+        for p in procs:
+            if kill:
+                break
+            out, _ = p.communicate()
+            if p.returncode:
+                raise RuntimeError(f"worker failed: rc {p.returncode}")
+            parts.append(pickle.loads(out))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        tmp.cleanup()
+    got = [None] * count
+    for w, part in enumerate(parts):
+        got[w::len(procs)] = part
+    return got
+
+
+def in_children(code: str, items: list) -> list:
+    """`start_children` and `join_children` in one call."""
+    return join_children(start_children(code, items))
+
+
 def gold_likelihoods(records) -> np.ndarray:
     """golds.pairhmm_forward over records (about 0.6 s a record at 150 x
-    300), split over up to 8 child interpreters started together.  Plain
-    subprocesses, not a multiprocessing pool, whose spawn start method
-    leaves its resource tracker running past the call: every child is
-    waited for (or killed and waited for) before this returns."""
-    n = max(1, min(8, os.cpu_count() or 1, len(records)))
-    root = os.path.dirname(os.path.abspath(__file__))
-    procs = []
-    with tempfile.TemporaryDirectory() as tmp:
-        try:
-            for w in range(n):
-                path = os.path.join(tmp, f"gold{w}.pkl")
-                with open(path, "wb") as f:
-                    pickle.dump(records[w::n], f)
-                procs.append(subprocess.Popen(
-                    [sys.executable, "-c", GOLD_WORKER, path], cwd=root,
-                    stdout=subprocess.PIPE))
-            parts = []
-            for p in procs:
-                out, _ = p.communicate()
-                if p.returncode:
-                    raise RuntimeError(
-                        f"gold worker failed: rc {p.returncode}")
-                parts.append(pickle.loads(out))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
-    got = np.empty(len(records), np.float32)
-    for w, part in enumerate(parts):
-        got[w::n] = part
-    return got
+    300), in child interpreters (`in_children`)."""
+    return np.array(in_children(GOLD_WORKER, records), np.float32)
 
 
 def child_pids() -> list[int]:
@@ -2052,13 +2103,15 @@ def write_mapper_files(dirname: str, contigs, reads, pairs, n_reads: int,
     return p
 
 
-def mapper_slice(seed: int, dev, smi: str, peak: float) -> dict:
+def mapper_slice(seed: int, dev, smi: str, peak: float):
     """Phases 3-5 of the mapper slice on the card; returns fm_search's row
-    of the kernels line but its name, route and source."""
+    of the kernels line but its name, route and source, and the SAM files
+    of both seeders' map_batch over the same reads ({"fmdev": path,
+    "qgram": path, "dir": their TemporaryDirectory})."""
     from genomics_tpu_torch.index.fmindex import FMIndex
     from genomics_tpu_torch.models.mapper import ReadMapper
     from genomics_tpu_torch.ops import fm_search as fs
-    from genomics_tpu_torch.utils import bamio
+    from genomics_tpu_torch.utils import bamio, samio
 
     err = 0
     # -- 3. fm_search at its edges ----------------------------------------
@@ -2168,6 +2221,14 @@ def mapper_slice(seed: int, dev, smi: str, peak: float) -> dict:
         raise AssertionError("qgram: the first reads' Mappings differ from "
                              "device='cpu'")
     share_q = origin_share(maps_q, names, r_ci, r_local)
+    # both seeders' SAMs of the same reads, for the tools slice's alndiff
+    sam_dir = tempfile.TemporaryDirectory()
+    sams = {"dir": sam_dir}
+    for tag, mm in (("fmdev", maps), ("qgram", maps_q)):
+        sams[tag] = os.path.join(sam_dir.name, f"{tag}.sam")
+        samio.write_sam(sams[tag], [(n, len(c)) for n, c in contigs], 0,
+                        [(f"read{i}", r, m)
+                         for i, (r, m) in enumerate(zip(reads, mm))])
     rates["qgram"] = MAP_READS / walls["qgram"]
     log("4 mapper", f"ReadMapper().map_batch: {walls['qgram']:.2f} s, "
         f"{rates['qgram']:.0f} reads/s; the first {MAP_CHECK} Mappings == "
@@ -2339,7 +2400,7 @@ def mapper_slice(seed: int, dev, smi: str, peak: float) -> dict:
         f"{k} {v:.0f} {'lines' if k.startswith('cli') else 'pairs' if k == 'pairs' else 'reads'}/s"
         for k, v in rates.items()) + f" (host clock); on {smi}")
     return dict(launches=launches["fmdev"]["fm_search"], max_abs_err=err,
-                **row)
+                **row), sams
 
 
 # -- the clustering slice (cluster_slice) ----------------------------------
@@ -3106,12 +3167,589 @@ def ngia_timings(reads, dev, peak: float, mhz: int, launches: dict):
             f"{stats['pairs']} LCS pairs; {how}")
 
 
+# -- the distributed slice (dist_slice) -------------------------------------
+# run_all.py's bench_sharded_sw (:428-467): 16,384 pairs of 152 x 152 a
+# device (codes integers(0, 4) * 2 + 1, has_n=False); the pipeline step at
+# that per-rank shape with PairHMM reads and haplotypes of 128 x 128
+# (bench_pairhmm's); bench_ngia's 8,000 x 1,200 bp; bench_msa's 2,048 x 120
+DIST_B, DIST_L, DIST_R, DIST_C = 16384, 152, 128, 128
+DIST_PLAIN = 4096       # pairs of each call held to the plain versions
+DIST_RANKS = 2          # gloo ranks sharing the one card
+DIST_NGIA = 1000        # reads of nGIA's two-rank run
+DIST_TIMEOUT_S = 300    # each child rank's
+DIST_REPS = 5           # timed pipeline steps
+PIPELINE_KERNELS = ("local_sw.end", "local_sw.tb", "global_sw.score",
+                    "ksw.end", "banded_sw.end", "myers", "pairhmm.wavefront",
+                    "pairhmm.intertask")
+PIPELINE_SCORE_MODES = ("local_sw.score", "local_sw.score16")
+TWO_BIT_LUT = np.full(256, 255, np.uint8)
+TWO_BIT_LUT[[1, 3, 7, 4]] = [0, 1, 2, 3]
+
+
+def require(launches: dict, every: tuple, one_of: tuple = (),
+            what: str = "", exactly: dict | None = None):
+    """Raises unless a path launched each kernel of `every`, one of
+    `one_of` (where given) and `exactly` {kernel: count}."""
+    missing = [k for k in every if not launches.get(k)]
+    if one_of and not any(launches.get(k) for k in one_of):
+        missing.append(" or ".join(one_of))
+    missing += [f"{k} x {n}" for k, n in (exactly or {}).items()
+                if launches.get(k) != n]
+    if missing:
+        raise AssertionError(f"{what} did not launch {missing}: {launches}")
+
+
+def dist_inputs(seed: int, B: int) -> tuple:
+    """The pipeline step's global inputs: B GASAL2-style pairs of up to
+    DIST_L (ACGT only, the has_n=False contract; half related, lengths
+    DIST_L / 2 to DIST_L) and B PairHMM pairs of up to DIST_R x DIST_C
+    bytes with quals of 5-59, as run_all.py's bench_pairhmm draws them."""
+    rng = np.random.default_rng(seed)
+    q, t, ql, tl = random_codes(rng, B, DIST_L, DIST_L, 0.0)
+    reads = BASES[rng.integers(0, 4, (B, DIST_R))]
+    haps = BASES[rng.integers(0, 4, (B, DIST_C))]
+    rlen = rng.integers(DIST_R // 2, DIST_R + 1, B).astype(np.int32)
+    clen = rng.integers(DIST_C // 2, DIST_C + 1, B).astype(np.int32)
+    quals = [rng.integers(5, 60, (B, DIST_R)).astype(np.int32)
+             for _ in range(3)]
+    return (q, t, ql, tl, reads, haps, rlen, clen, *quals)
+
+
+def sharded_sw_inputs(B: int) -> tuple:
+    """bench_sharded_sw's q, t: rng(0), integers(0, 4) * 2 + 1, 152 x 152."""
+    rng = np.random.default_rng(0)
+    return tuple(rng.integers(0, 4, (B, DIST_L)).astype(np.uint8) * 2 + 1
+                 for _ in range(2))
+
+
+def bench_msa_seqs(with_indels: bool = False) -> list:
+    """bench_msa's 2,048 x 120 set (its own generator, rng(0)); with
+    indels, 2,048 copies of a 120 bp center with 3% substitutions and 2%
+    indels."""
+    r0 = np.random.default_rng(0)
+    n, L = MSA_RUN_ALL
+    bases = np.array(list(DNA))
+    center = "".join(bases[r0.integers(0, 4, L)])
+    if with_indels:
+        return [mutate(r0, center, 0.03, 0.02) for _ in range(n)]
+    out = []
+    for _ in range(n):
+        c = np.array(list(center))
+        idx = r0.choice(L, size=r0.integers(0, 8), replace=False)
+        c[idx] = bases[r0.integers(0, 4, len(idx))]
+        out.append("".join(c))
+    return out
+
+
+def pipeline_fields(out: dict) -> dict:
+    """The step's 12 fields as host numpy, gathered over the ranks."""
+    from genomics_tpu_torch.parallel import multihost
+
+    return {k: multihost.fetch(v) for k, v in out.items()}
+
+
+def single_device_fields(ins: tuple, dev, plain: bool = False) -> dict:
+    """The pipeline step's per-pair fields and its checksum through the
+    single-device entry points (`plain`: the plain versions) on `dev`,
+    with Myers' masks built on the host (myers.build_eq_masks) and the
+    2-bit codes by a host table: an independent assembly of what the
+    step computes."""
+    from genomics_tpu_torch import AlignmentParams
+    from genomics_tpu_torch.ops import (cuda_align, cuda_pairhmm, myers,
+                                        scan_align, scan_pairhmm)
+
+    P = AlignmentParams()
+    q, t, ql, tl, reads, haps, rlen, clen, bq, iq, dq = (
+        torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in ins)
+    W = (q.shape[1] + 31) // 32
+    eq = torch.from_numpy(myers.build_eq_masks(
+        TWO_BIT_LUT[ins[0]], ins[2], W).astype(np.int64)).to(dev)
+    t2 = torch.from_numpy(TWO_BIT_LUT[ins[1]]).to(dev)
+    h0 = torch.full((q.shape[0],), 30, dtype=torch.int32, device=dev)
+    p = scan_pairhmm.prepare_params(bq, iq, dq)
+    if plain:
+        tb = scan_align.local_align_batch(q, t, P, with_tb=True).tb
+        return {
+            "sw_score": scan_align.local_align_batch(q, t, P).score,
+            "sw_score_fast": scan_align.local_align_batch(q, t, P).score,
+            "nw_score": scan_align.global_align_batch(q, t, ql, tl,
+                                                      P).score,
+            "ksw_score": scan_align.ksw_align_batch(q, t, ql, tl, h0,
+                                                    P).score,
+            "banded_score": scan_align.banded_align_batch(
+                q, t, ql, tl, P, 4).score,
+            "myers_best": myers.myers_batch_plain(eq, ql, t2, tl)[0],
+            "likelihood": scan_pairhmm.forward_prepared(reads, haps, rlen,
+                                                        clen, p),
+            "likelihood_intertask": scan_pairhmm.forward_prepared(
+                reads, haps, rlen, clen, p),
+            "tb_checksum": (tb & 0xF).sum()}
+    tb = cuda_align.local_align(q, t, P, with_tb=True).tb
+    return {
+        "sw_score": cuda_align.local_align(q, t, P).score,
+        "sw_score_fast": cuda_align.local_align_scores(q, t, P, has_n=False),
+        "nw_score": cuda_align.global_align(q, t, ql, tl, P).score,
+        "ksw_score": cuda_align.ksw_align(q, t, ql, tl, h0, P).score,
+        "banded_score": cuda_align.banded_align(q, t, ql, tl, P, 4).score,
+        "myers_best": myers.myers_batch(eq, ql, t2, tl)[0],
+        "likelihood": cuda_pairhmm.pairhmm_forward_prepared(
+            reads, haps, rlen, clen, p),
+        "likelihood_intertask":
+            cuda_pairhmm.pairhmm_forward_intertask_prepared(
+                reads, haps, rlen, clen, p),
+        "tb_checksum": (tb & 0xF).sum()}
+
+
+def fields_differ(got: dict, want: dict) -> list:
+    """The names of the fields of `want` that `got` does not equal, bit
+    for bit (numpy or tensors)."""
+    bad = []
+    for k, v in want.items():
+        a = got[k].cpu().numpy() if isinstance(got[k], torch.Tensor) \
+            else np.asarray(got[k])
+        b = v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        if a.shape != b.shape or not np.array_equal(a, b):
+            bad.append(k)
+    return bad
+
+
+def dist_calls(mesh, seed: int, B: int, ngia_reads, msa_seqs) -> dict:
+    """What a rank of the dist slice runs on `mesh` over B pairs a rank
+    (B x mesh.size in all): the pipeline step, the sharded scores, nGIA's
+    serial mesh rounds over `ngia_reads` and msa(mesh=) over `msa_seqs`;
+    the results gathered to host numpy on every rank."""
+    from genomics_tpu_torch import AlignmentParams
+    from genomics_tpu_torch.models import msa, ngia
+    from genomics_tpu_torch.parallel import (multihost, shard_batch,
+                                             sharded_align_scores,
+                                             sharded_pipeline_step)
+
+    P = AlignmentParams()
+    n = B * mesh.size
+    ins = shard_batch(mesh, *dist_inputs(seed, n))
+    res = {f"pipe_{k}": v for k, v in pipeline_fields(
+        sharded_pipeline_step(mesh, *ins, params=P)).items()}
+    s, best = sharded_align_scores(mesh, *sharded_sw_inputs(n), P)
+    res["scores"], res["best"] = multihost.fetch(s), int(best)
+    res["ngia"] = ngia.cluster_distributed(ngia_reads, 0.95,
+                                           mesh=mesh).cluster
+    res["msa"] = np.array(msa.msa(msa_seqs, mesh=mesh)[0])
+    return res
+
+
+def dist_worker(args) -> int:
+    """One gloo rank of the dist slice's two-rank run (a child process):
+    the dist calls on its block, rank 0's results saved for the parent."""
+    from genomics_tpu_torch.parallel import data_mesh, multihost
+
+    multihost.initialize(args.init, args.world, args.rank, backend="gloo",
+                         device="cuda")
+    mesh = data_mesh(args.world)
+    reads = family_reads(np.random.default_rng(0), DIST_NGIA, NGIA_LEN,
+                         16, 12)
+    res = dist_calls(mesh, args.seed, DIST_B, reads, bench_msa_seqs(True))
+    if args.rank == 0:
+        np.savez(os.path.join(args.dir, "ranks.npz"), **res)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dist_slice(seed: int, dev, smi: str) -> dict:
+    """The distributed slice on the card: NCCL at world size 1 in this
+    process, then two gloo ranks sharing the card as child processes;
+    returns the step's launches by kernel."""
+    import torch.distributed as dist
+
+    from genomics_tpu_torch import AlignmentParams
+    from genomics_tpu_torch.models import msa, ngia
+    from genomics_tpu_torch.ops import (cuda_align, cuda_pairhmm, lcs,
+                                        myers, scan_align)
+    from genomics_tpu_torch.parallel import (data_mesh, multihost,
+                                             shard_batch,
+                                             sharded_align_scores,
+                                             sharded_pipeline_step)
+
+    counts = (cuda_align.LAUNCHES, cuda_pairhmm.LAUNCHES, myers.LAUNCHES)
+    P = AlignmentParams()
+    tmp = tempfile.TemporaryDirectory()
+    multihost.initialize(f"file://{tmp.name}/nccl", 1, 0, backend="nccl",
+                         device="cuda")
+    mesh = data_mesh(1)
+    log("7 dist", f"NCCL at world size 1 (file:// rendezvous), mesh "
+        f"{mesh}; backend {dist.get_backend()}")
+
+    # the pipeline step at bench_sharded_sw's per-device shape
+    ins = dist_inputs(seed, DIST_B)
+    dins = shard_batch(mesh, *ins)
+    zero_counts(*counts)
+    t0 = time.time()
+    out = sharded_pipeline_step(mesh, *dins, params=P)
+    torch.cuda.synchronize()
+    first = time.time() - t0
+    launches = {k: v for c in counts for k, v in c.items() if v}
+    require(launches, PIPELINE_KERNELS, PIPELINE_SCORE_MODES,
+            "the pipeline step")
+    got = pipeline_fields(out)
+    bad = fields_differ(got, single_device_fields(ins, dev))
+    if bad or got["global_best_sw"] != got["sw_score"].max() or \
+            got["global_best_owner"] != 0:
+        raise AssertionError(f"the pipeline step differs from the single-"
+                             f"device entry points in {bad}")
+    sub = tuple(x[:DIST_PLAIN] for x in ins)
+    want = single_device_fields(sub, dev, plain=True)
+    got_sub = {k: (v[:DIST_PLAIN] if k != "tb_checksum" else v)
+               for k, v in got.items() if k in want}
+    got_sub["tb_checksum"] = single_device_fields(sub, dev)["tb_checksum"]
+    bad = fields_differ(got_sub, want)
+    if bad:
+        raise AssertionError(f"the pipeline step differs from the plain "
+                             f"versions on its first {DIST_PLAIN} pairs in "
+                             f"{bad}")
+    walls = []
+    for _ in range(DIST_REPS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sharded_pipeline_step(mesh, *dins, params=P)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    wall = min(walls)
+    cells = DIST_B * (6 * DIST_L * DIST_L + DIST_L * DIST_L
+                      + 2 * DIST_R * DIST_C)
+    log("7 dist", f"sharded_pipeline_step over {DIST_B} pairs of {DIST_L} x "
+        f"{DIST_L} and {DIST_B} PairHMM pairs of {DIST_R} x {DIST_C} (NCCL, "
+        f"1 rank): every field == the single-device entry points, and the "
+        f"first {DIST_PLAIN} pairs == the plain versions; launches "
+        f"{launches}; first call {first:.3f} s, then the best of "
+        f"{DIST_REPS} {wall * 1e3:.1f} ms (host clock), {DIST_B / wall:.0f} "
+        f"pairs/s, {cells / wall / 1e9:.1f} GCUPS (cells: the six DP "
+        f"kernels' and Myers' {DIST_L} x {DIST_L} and both PairHMM kernels' "
+        f"{DIST_R} x {DIST_C} a pair); on {smi}")
+
+    def step():
+        sharded_pipeline_step(mesh, *dins, params=P)
+        torch.cuda.synchronize()
+    profile_paths([("sharded_pipeline_step (NCCL, 1 rank)", step,
+                    DIST_B)], smi)
+
+    # the sharded scores, bench_sharded_sw's inputs
+    sq, st = sharded_sw_inputs(DIST_B)
+    zero_counts(*counts)
+    s, best = sharded_align_scores(mesh, sq, st, P)
+    s_launch = {k: v for c in counts for k, v in c.items() if v}
+    require(s_launch, (), PIPELINE_SCORE_MODES, "sharded_align_scores")
+    qd, td = shard_batch(mesh, sq, st)
+    direct = cuda_align.local_align_scores(qd, td, P, has_n=False)
+    plain = scan_align.local_align_batch(qd[:DIST_PLAIN], td[:DIST_PLAIN],
+                                         P).score
+    if not (torch.equal(s, direct) and torch.equal(s[:DIST_PLAIN], plain)
+            and int(best) == int(direct.max())):
+        raise AssertionError("sharded_align_scores differs from "
+                             "local_align_scores or the plain version")
+    s_ms = cuda_ms(lambda: sharded_align_scores(mesh, qd, td, P,
+                                                has_n=False), 20)
+    log("7 dist", f"sharded_align_scores at bench_sharded_sw's {DIST_B} x "
+        f"{DIST_L} x {DIST_L} a device (has_n detected False): == "
+        f"local_align_scores and, on {DIST_PLAIN}, the plain version; "
+        f"launches {s_launch}; {s_ms:.4f} ms a call with its all-reduce "
+        f"(CUDA events), {DIST_B * DIST_L * DIST_L / s_ms / 1e6:.1f} GCUPS; "
+        f"on {smi}")
+
+    # nGIA's serial mesh rounds at bench_ngia's shape, and msa(mesh=)
+    nreads = family_reads(np.random.default_rng(0), NGIA_READS, NGIA_LEN,
+                          16, 12)
+    zero_counts(lcs.LAUNCHES)
+    t0 = time.time()
+    mres = ngia.cluster_distributed(nreads, 0.95, mesh=mesh)
+    m_wall = time.time() - t0
+    n_launch = dict(lcs.LAUNCHES)
+    t0 = time.time()
+    one = ngia.cluster_distributed(nreads, 0.95, device=dev)
+    o_wall = time.time() - t0
+    require(n_launch, ("ngia_lcs",), what="cluster_distributed(mesh=)")
+    if not np.array_equal(mres.cluster, one.cluster):
+        raise AssertionError("nGIA's mesh rounds differ from one device")
+    assert_clustering(mres, "cluster_distributed(mesh=)")
+    log("7 dist", f"cluster_distributed(mesh=) serial over bench_ngia's "
+        f"{NGIA_READS} x {NGIA_LEN} bp, 1 rank: {mres.n_clusters} clusters "
+        f"== device='cuda' without a mesh; {m_wall:.2f} s "
+        f"({NGIA_READS / m_wall:.0f} reads/s; without the mesh {o_wall:.2f}"
+        f" s); launches {n_launch}")
+    for label, seqs in (("bench_msa's", bench_msa_seqs()),
+                        ("an indel", bench_msa_seqs(True))):
+        zero_counts(msa.LAUNCHES)
+        t0 = time.time()
+        rows = msa.msa(seqs, mesh=mesh)
+        a_wall = time.time() - t0
+        a_launch = dict(msa.LAUNCHES)
+        require(a_launch, tuple(a_launch), what="msa(mesh=)")
+        if rows != msa.msa(seqs, device=dev):
+            raise AssertionError(f"msa(mesh=) over {label} set differs from "
+                                 f"msa()")
+        log("7 dist", f"msa(mesh=) over {label} {len(seqs)} x "
+            f"~{len(seqs[0])} set, 1 rank: == msa(); {a_wall:.3f} s; "
+            f"launches {a_launch}")
+
+    # two gloo ranks on the one card, as child processes
+    n2 = DIST_B * DIST_RANKS
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker",
+         "--seed", str(seed), "--rank", str(r), "--world", str(DIST_RANKS),
+         "--init", f"file://{tmp.name}/gloo", "--dir", tmp.name],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(DIST_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            raise AssertionError(f"gloo rank {r} exited {p.returncode}:\n"
+                                 f"{text[-3000:]}")
+    ranks_s = time.time() - t0
+    ranks = dict(np.load(os.path.join(tmp.name, "ranks.npz")))
+    one = dist_calls(mesh, seed, n2, family_reads(
+        np.random.default_rng(0), DIST_NGIA, NGIA_LEN, 16, 12),
+        bench_msa_seqs(True))
+    # the owner is a rank: the lowest whose block holds the best score
+    sw = one["pipe_sw_score"]
+    owner = int(np.argmax(sw == sw.max())) // DIST_B
+    one["pipe_global_best_owner"] = np.array(owner, np.int32)
+    bad = [k for k, v in one.items() if not np.array_equal(ranks[k], v)]
+    if bad:
+        raise AssertionError(f"two gloo ranks differ from world size 1 in "
+                             f"{bad}")
+    log("7 dist", f"{DIST_RANKS} gloo ranks on the one card (child "
+        f"processes, {DIST_B} pairs a rank): the pipeline step's 12 fields, "
+        f"sharded_align_scores, cluster_distributed(mesh=) over "
+        f"{DIST_NGIA} reads and msa(mesh=) == world size 1 on the same "
+        f"{n2} pairs; {ranks_s:.1f} s with the ranks' start")
+    dist.destroy_process_group()
+    tmp.cleanup()
+    return launches
+
+
+# -- the tools slice (tools_slice) ------------------------------------------
+# run_all.py's bench_corrector (:470-491): 20,000 reads of 100 bp with 1%
+# errors from a 20 kbp genome, the filters built on the first 6,000
+CORR_READS, CORR_LEN, CORR_GENOME, CORR_BUILD = 20000, 100, 20000, 6000
+CORR_CHECK = 1000       # reads of the native walk held to the Python walk
+CLI_LIGHTER = (3000, 600)   # the lighter CLI's genome and reads (~20x)
+ASM_WINDOWS, ASM_LEN, ASM_READS, ASM_READ_LEN = 64, 300, 32, 100
+ASSEMBLY_WORKER = """
+import pickle, sys
+import torch
+torch.set_num_threads(1)
+from genomics_tpu_torch.models import assembly
+with open(sys.argv[1], "rb") as f:
+    windows = pickle.load(f)
+out = []
+for ref, reads in windows:
+    haps, variants = assembly.local_assembly(ref, reads, device="cpu")
+    out.append(([(h.seq, h.likelihood) for h in haps],
+                [vars(v) for v in variants]))
+pickle.dump(out, sys.stdout.buffer)
+"""
+
+
+def corrector_reads(n: int, genome: int, seed: int = 0) -> list:
+    """bench_corrector's reads: rng(seed), a random genome, reads of
+    CORR_LEN at random starts with 1% of their bases changed."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, genome)
+    bases = np.array(list("ACGT"))
+    reads = []
+    for p in rng.integers(0, genome - CORR_LEN, n):
+        r = g[p:p + CORR_LEN].copy()
+        e = rng.random(CORR_LEN) < 0.01
+        r[e] = (r[e] + rng.integers(1, 4, int(e.sum()))) % 4
+        reads.append("".join(bases[r]))
+    return reads
+
+
+def assembly_windows(seed: int) -> list:
+    """ASM_WINDOWS (reference window, reads): a random ASM_LEN bp window,
+    a haplotype with a SNV and a 1-3 bp deletion or insertion, and
+    ASM_READS reads of ASM_READ_LEN bp, half from each."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(ASM_WINDOWS):
+        ref = random_seq(rng, ASM_LEN)
+        s, d = int(rng.integers(60, 140)), int(rng.integers(160, 240))
+        k = int(rng.integers(1, 4))
+        snv = "ACGT"[("ACGT".index(ref[s]) + 1) % 4]
+        alt = ref[:s] + snv + ref[s + 1:d] + (
+            ref[d + k:] if rng.random() < 0.5 else random_seq(rng, k)
+            + ref[d:])
+        reads = []
+        for i in range(ASM_READS):
+            src = alt if i % 2 else ref
+            p = int(rng.integers(0, len(src) - ASM_READ_LEN))
+            reads.append(src[p:p + ASM_READ_LEN])
+        out.append((ref, reads))
+    return out
+
+
+def tool_clis(tmpdir: str, window: tuple, sams: dict) -> dict:
+    """The `lighter`, `assemble` and `alndiff` subcommands run twice each
+    under tmpdir ("card" and "again"; assemble's second run with --device
+    cpu): {run: [stdout and file bytes]}, the runs' directories written
+    DIR; raises where the runs differ."""
+    from genomics_tpu_torch.utils.fasta import write_fasta
+
+    g, n = CLI_LIGHTER
+    lr = os.path.join(tmpdir, "lighter.fa")
+    write_fasta(lr, [(f"r{i}", r) for i, r in enumerate(
+        corrector_reads(n, g, 43))])
+    ref, rd = window
+    wr, rr = (os.path.join(tmpdir, f) for f in ("win.fa", "reads.fa"))
+    write_fasta(wr, [("win", ref)])
+    write_fasta(rr, [(f"r{i}", r) for i, r in enumerate(rd)])
+    runs = {}
+    for tag in ("card", "again"):
+        d = os.path.join(tmpdir, tag)
+        os.mkdir(d)
+        fa, html = os.path.join(d, "out.fa"), os.path.join(d, "r.html")
+        runs[tag] = [
+            run_cli(["lighter", "-i", lr, "-o", fa, "-g", str(g)]).replace(
+                d, "DIR"),
+            open(fa, "rb").read(),
+            run_cli(["assemble", "-r", wr, "-q", rr] + (
+                ["--device", "cpu"] if tag == "again" else [])),
+            run_cli(["alndiff", sams["fmdev"], sams["qgram"], "--report",
+                     html]).replace(d, "DIR"),
+            open(html, "rb").read()]
+    if runs["card"] != runs["again"]:
+        raise AssertionError("the lighter / assemble / alndiff CLIs differ "
+                             "between runs (assemble: between the card and "
+                             "--device cpu)")
+    return runs
+
+
+def tools_slice(seed: int, dev, smi: str, sams: dict) -> dict:
+    """The corrector, local assembly and alndiff on the card's machine,
+    and the `lighter`, `assemble` and `alndiff` CLIs; returns the
+    wavefront kernel's launches from local_assembly."""
+    from genomics_tpu_torch.models import alndiff, assembly
+    from genomics_tpu_torch.models.corrector import LighterCorrector
+    from genomics_tpu_torch.ops import cuda_align, cuda_pairhmm, scan_pairhmm
+    from genomics_tpu_torch.ops import tb_walk
+    from genomics_tpu_torch.runtime import native
+
+    # -- Lighter at bench_corrector's shape ---------------------------------
+    reads = corrector_reads(CORR_READS, CORR_GENOME)
+    corr = LighterCorrector(k=17, genome_size=CORR_GENOME)
+    t0 = time.time()
+    corr.build(reads[:CORR_BUILD])
+    build_s = time.time() - t0
+    t0 = time.time()
+    fixed = corr.correct_batch(reads)
+    walk_s = time.time() - t0
+    t0 = time.time()
+    python = corr.correct_batch(reads[:CORR_CHECK], use_native=False)
+    py_s = time.time() - t0
+    if fixed[:CORR_CHECK] != python:
+        raise AssertionError("the native Lighter walk differs from the "
+                             "Python walk")
+    n_fix = sum(max(c, 0) for _, c in fixed)
+    log("8 tools", f"LighterCorrector at bench_corrector's {CORR_READS} x "
+        f"{CORR_LEN} bp (1% errors, a {CORR_GENOME} bp genome, built on "
+        f"{CORR_BUILD} in {build_s:.1f} s): the native walk "
+        f"(native/{' '.join(native.SOURCES)}, g++ without OpenMP: one "
+        f"core) {walk_s:.2f} s, {CORR_READS / walk_s:.0f} reads/s; "
+        f"{n_fix} bases corrected, {sum(c < 0 for _, c in fixed)} "
+        f"unreliable; == the Python walk on {CORR_CHECK} reads "
+        f"({CORR_CHECK / py_s:.0f} reads/s) (host clock)")
+
+    # -- local assembly over ASM_WINDOWS windows -----------------------------
+    windows = assembly_windows(seed + 41)
+    zero_counts(cuda_pairhmm.LAUNCHES, cuda_align.LAUNCHES, tb_walk.LAUNCHES)
+    t0 = time.time()
+    results = [assembly.local_assembly(ref, rd, device=dev)
+               for ref, rd in windows]
+    asm_s = time.time() - t0
+    launches = {k: v for c in (cuda_pairhmm.LAUNCHES, cuda_align.LAUNCHES,
+                               tb_walk.LAUNCHES) for k, v in c.items() if v}
+    require(launches, ("global_sw.tb", "tb_walk.global"),
+            what="local_assembly",
+            exactly={"pairhmm.wavefront": ASM_WINDOWS})
+    t0 = time.time()
+    profile_paths([("local_assembly over the windows", lambda: [
+        assembly.local_assembly(ref, rd, device=dev)
+        for ref, rd in windows], f"{ASM_WINDOWS} windows")], smi)
+    # device="cpu" in child interpreters, while the card checks the
+    # likelihoods and the CLIs run (nothing below is timed)
+    cpu_jobs = start_children(ASSEMBLY_WORKER, windows)
+    try:
+        pairs = 0
+        for (ref, rd), (haps, _v) in zip(windows, results):
+            recs = [{"read": r.encode(), "hap": h.seq.encode(),
+                     "base_quals": np.full(len(r), 30, np.int64),
+                     "ins_quals": np.full(len(r), 45, np.int64),
+                     "del_quals": np.full(len(r), 45, np.int64)}
+                    for h in haps for r in rd]
+            pairs += len(recs)
+            plain = scan_pairhmm.pairhmm_forward_dataset(recs, device=dev)
+            kern = cuda_pairhmm.pairhmm_forward_dataset(recs, device=dev)
+            lik = np.log10(np.maximum(plain.astype(np.float64),
+                                      1e-300)).reshape(
+                len(haps), len(rd)).sum(axis=1)
+            if not np.array_equal(plain, kern) or [
+                    h.likelihood for h in haps] != [float(v) for v in lik]:
+                raise AssertionError("a window's likelihoods differ from "
+                                     "the plain version on the card")
+        tmp = tempfile.TemporaryDirectory()
+        an = alndiff.diff(sams["fmdev"], sams["qgram"],
+                          report=os.path.join(tmp.name, "r.html"))
+        runs = tool_clis(tmp.name, windows[0], sams)
+    except BaseException:
+        join_children(cpu_jobs, kill=True)
+        raise
+    on_cpu = join_children(cpu_jobs)
+    if [([(h.seq, h.likelihood) for h in haps], [vars(v) for v in var])
+            for haps, var in results] != on_cpu:
+        raise AssertionError("a window's haplotypes or variants differ from "
+                             "device='cpu'")
+    n_var = sum(len(v) for _, v in results)
+    log("8 tools", f"local_assembly over {ASM_WINDOWS} windows of {ASM_LEN} "
+        f"bp x {ASM_READS} reads of {ASM_READ_LEN} bp: {asm_s:.2f} s "
+        f"({ASM_WINDOWS / asm_s:.1f} windows/s, host clock), {pairs} "
+        f"(read, haplotype) pairs in {launches.get('pairhmm.wavefront')} "
+        f"wavefront launches, {n_var} variants; launches {launches}; each "
+        f"window's likelihoods == the plain version on the card (bit for "
+        f"bit), its haplotypes and variants == device='cpu' (in child "
+        f"interpreters, {time.time() - t0:.1f} s with the checks below)")
+    log("8 tools", f"alndiff of the mapper slice's fmdev + ed and q-gram "
+        f"SAMs: {an.n} alignments, mapped by both {an.mapped.L_and_R}, one "
+        f"only {an.mapped.L} / {an.mapped.R}, distant "
+        f"{an.n_distant.count}, discordant {an.n_discordant.count}")
+    g, n = CLI_LIGHTER
+    log("8 tools", f"python -m genomics_tpu_torch lighter ({n} reads of a "
+        f"{g} bp genome: {runs['card'][0].strip()}), assemble (window 0: "
+        f"{runs['card'][2].splitlines()[-1]}) and alndiff: stdout and files "
+        f"== a second run (assemble: == --device cpu)")
+    tmp.cleanup()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="after the build, profile every path (torch."
                          "profiler, cProfile) instead of phases 3-5")
+    # a gloo rank of the distributed slice, started by the slice itself
+    ap.add_argument("--dist-worker", action="store_true",
+                    help=argparse.SUPPRESS)
+    for name in ("--rank", "--world"):
+        ap.add_argument(name, type=int, help=argparse.SUPPRESS)
+    for name in ("--init", "--dir"):
+        ap.add_argument(name, help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.time()
 
@@ -3119,6 +3757,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if args.dist_worker:
+        return dist_worker(args)
     from genomics_tpu_torch import AlgoType, AlignEngine, AlignmentParams, _build
     from genomics_tpu_torch.core import golds
     from genomics_tpu_torch.core.scoring import SemiGlobalSkip
@@ -4804,17 +5444,28 @@ def main() -> int:
     # the mapper slice: fm_search at its edges, the mapper's paths end to
     # end, fm_search's times (phases 3-5 of the mapper)
     t_mapper = time.time()
-    fm_row = mapper_slice(args.seed, dev, smi, peak)
+    fm_row, sams = mapper_slice(args.seed, dev, smi, peak)
     # the clustering slice: both LCS kernels at their edges, cluster_reads
     # and cluster_distributed end to end, the kernels' times (phases 3-5
     # of clustering)
     t_cluster = time.time()
     lcs_rows = cluster_slice(args.seed, dev, smi, peak)
+    # the distributed slice: the pipeline step, the sharded scores, nGIA's
+    # and MSA's mesh paths over NCCL at world size 1, then two gloo ranks
+    t_dist = time.time()
+    dist_launches = dist_slice(args.seed, dev, smi)
+    # the tools: the corrector, local assembly, alndiff and their CLIs
+    t_tools = time.time()
+    tools_launches = tools_slice(args.seed, dev, smi, sams)
+    sams["dir"].cleanup()
     t_end = time.time()
     log("6 wall", f"{t_end - t_start:.1f} s in all: the build and the "
         f"engine, PairHMM and Myers phases {t_apps - t_start:.1f} s, the "
         f"apps {t_mapper - t_apps:.1f} s, the mapper "
-        f"{t_cluster - t_mapper:.1f} s, clustering {t_end - t_cluster:.1f} s")
+        f"{t_cluster - t_mapper:.1f} s, clustering {t_dist - t_cluster:.1f}"
+        f" s, the distributed slice {t_tools - t_dist:.1f} s, the tools "
+        f"{t_end - t_tools:.1f} s; the pipeline step's launches "
+        f"{dist_launches}, local_assembly's {tools_launches}")
 
     src = "genomics_tpu_torch/csrc/"
     rows = [

@@ -26,21 +26,28 @@
                                          [-2 mates.fastq] -o out.sam|out.bam
                                          [--min-insert N] [--max-insert N]
                                          [--device cuda|cpu]
+    python -m genomics_tpu_torch lighter -i reads.fa -o out.fa [-k 17]
+                                         [-g G] [--alpha A] [--bloom-bits B]
+    python -m genomics_tpu_torch assemble -r ref.fa -q reads.fa [-k 10]
+                                          [--k-best 12] [--min-edge-weight 2]
+                                          [--device cuda|cpu]
+    python -m genomics_tpu_torch alndiff a.sam b.sam [--paired]
+                                         [--report r.html] [--no-id-check]
 
-The counterparts of `genomics_tpu/__main__.py`'s `nw`, `sw`, `align`,
-`pairhmm`, `msa`, `cluster`, `ngia`, `index`, `fmquery`, `fmserver`,
-`extract` and `map` subcommands, with their arguments, their output
-lines and their files
+The counterparts of all fifteen of `genomics_tpu/__main__.py`'s
+subcommands, with their arguments, their output lines and their files
 (an `.npz` index written by either package loads in the other);
 `--device` (default the card) picks the plain PyTorch versions with
 `cpu`.  `index`, `fmquery`, `fmserver` and `extract` run on the host in
-both packages.  `msa` reads `-p` and does not pass it on, as the JAX
+both packages, and so do `lighter` (read by read through `correct()`)
+and `alndiff`.  `msa` reads `-p` and does not pass it on, as the JAX
 package's subcommand does, so its file is byte for byte that one's;
 `models.msa.msa(seqs, matrix_path=)` scores with a matrix.  `cluster`
 reads `-g` and drops it (the clustering is serial), and `ngia` prints
 `cluster: N` where `cluster` prints `clusters: N`, both as the JAX
-package's subcommands do.  The other
-subcommands of the JAX package are not ported yet."""
+package's subcommands do.  `assemble` prints each haplotype's
+likelihood as `score=`: the JAX package's subcommand reads a `score`
+attribute that its Haplotype lacks and raises there (ROADMAP C24)."""
 from __future__ import annotations
 
 import argparse
@@ -158,6 +165,37 @@ def main(argv=None):
     p.add_argument("--max-insert", type=int, default=500)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain versions")
+
+    p = sub.add_parser("lighter",
+                       help="Bloom-filter error correction (nvLighter)")
+    p.add_argument("-i", "--reads", required=True)
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("-k", "--kmer", type=int, default=17)
+    p.add_argument("-g", "--genome-size", type=int, default=None)
+    p.add_argument("--alpha", type=float, default=None)
+    p.add_argument("--bloom-bits", type=int, default=1 << 24)
+
+    p = sub.add_parser(
+        "assemble", help="local micro-assembly + variant calls "
+        "(nvMicroAssembly)")
+    p.add_argument("-r", "--reference", required=True,
+                   help="FASTA with the reference window")
+    p.add_argument("-q", "--reads", required=True,
+                   help="FASTA/FASTQ of region reads")
+    p.add_argument("-k", "--kmer", type=int, default=10)
+    p.add_argument("--k-best", type=int, default=12)
+    p.add_argument("--min-edge-weight", type=int, default=2)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu for the plain versions")
+
+    p = sub.add_parser(
+        "alndiff", help="diff two SAM/BAM alignment files "
+        "(nvbio-aln-diff)")
+    p.add_argument("file1")
+    p.add_argument("file2")
+    p.add_argument("--paired", action="store_true")
+    p.add_argument("--report", default=None, help="HTML report path")
+    p.add_argument("--no-id-check", action="store_true")
 
     args = ap.parse_args(argv)
 
@@ -354,6 +392,48 @@ def main(argv=None):
                 args.output, rname, len(contigs[0][1]), recs)
             mapped = sum(m.pos >= 0 for m in maps)
             print(f"mapped {mapped}/{len(reads)} → {args.output}")
+    elif args.cmd == "lighter":
+        from genomics_tpu_torch.models.corrector import LighterCorrector
+        from genomics_tpu_torch.utils.fasta import read_fasta, read_fastq
+
+        recs = (read_fastq(args.reads)
+                if args.reads.endswith((".fastq", ".fq")) else
+                read_fasta(args.reads))
+        corr = LighterCorrector(k=args.kmer, genome_size=args.genome_size,
+                                alpha=args.alpha, bloom_bits=args.bloom_bits)
+        corr.build([r.seq for r in recs])
+        fixed = unreliable = 0
+        with open(args.output, "w") as fh:
+            for r in recs:
+                f, c = corr.correct(r.seq)
+                fixed += max(c, 0)
+                unreliable += c < 0
+                fh.write(f">{r.name}\n{f}\n")
+        print(f"corrected {fixed} bases, {unreliable} unreliable reads "
+              f"→ {args.output}")
+    elif args.cmd == "assemble":
+        from genomics_tpu_torch.models.assembly import local_assembly
+        from genomics_tpu_torch.utils.fasta import read_fasta, read_fastq
+
+        ref = read_fasta(args.reference)[0].seq
+        reads = (read_fastq(args.reads)
+                 if args.reads.endswith((".fastq", ".fq")) else
+                 read_fasta(args.reads))
+        haps, variants = local_assembly(
+            ref, [r.seq for r in reads], k=args.kmer, k_best=args.k_best,
+            min_edge_weight=args.min_edge_weight, device=args.device)
+        for i, h in enumerate(haps):
+            print(f"hap {i}\tscore={h.likelihood:.4g}\t{h.seq}")
+        for v in variants:
+            print(f"variant\t{v.pos}\t{v.kind}\t{v.ref}>{v.alt}")
+        print(f"{len(haps)} haplotypes, {len(variants)} variants")
+    elif args.cmd == "alndiff":
+        from genomics_tpu_torch.models.alndiff import diff
+
+        analyzer = diff(args.file1, args.file2, paired=args.paired,
+                        report=args.report, id_check=not args.no_id_check)
+        print(f"analyzed {analyzer.n} alignments"
+              + (f"; report → {args.report}" if args.report else ""))
     return 0
 
 

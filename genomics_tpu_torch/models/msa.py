@@ -39,6 +39,7 @@ import torch
 from genomics_tpu_torch import _build
 from genomics_tpu_torch.core.submat import load_scoring_matrix
 from genomics_tpu_torch.device import checked_device, on_cpu
+from genomics_tpu_torch.parallel import multihost
 from genomics_tpu_torch.utils.fasta import read_fasta
 
 MATCH, MISMATCH = 0, -1
@@ -504,12 +505,18 @@ def pack_pairs(seqs: list[str], center_idx: int):
 
 
 def msa(seqs: list[str], center_idx: int | None = None,
-        matrix_path: str | None = None, device="cuda"):
+        matrix_path: str | None = None, device="cuda", mesh=None):
     """Center-star MSA on `device` (the card unless told).  Returns
     (aligned list[str] in input order, center_idx).  matrix_path: optional
     NCBI scoring matrix (the STAR `-p scoring/BLOSUM62.txt` protein
-    mode)."""
-    dev = checked_device(device)
+    mode).
+
+    mesh: optional `parallel.mesh.DataMesh`: the non-center sequences are
+    split in blocks over its ranks, each rank fills and backtracks its own
+    on the mesh's device, and the gap counts are all-gathered (the
+    multi_gpu_msa analog, CDP/STAR/cuda-nw.cu:358-431); every rank returns
+    the same rows as without a mesh."""
+    dev = mesh.device if mesh is not None else checked_device(device)
     sub_table = None
     if matrix_path:
         sub_table = torch.from_numpy(load_scoring_matrix(matrix_path)).to(dev)
@@ -522,7 +529,13 @@ def msa(seqs: list[str], center_idx: int | None = None,
     cenc, arr, slens = pack_pairs(seqs, center_idx)
     # only the [B, m+1] / [B, n+1] gap counts come back to the host,
     # never the O(B·m·n) matrices
-    space, so_pad = gap_counts(cenc, arr, slens, sub_table, dev)
+    if mesh is None:
+        space, so_pad = gap_counts(cenc, arr, slens, sub_table, dev)
+    else:
+        lo, hi = mesh.block(len(arr))
+        space, so_pad = (multihost.fetch(torch.from_numpy(x).to(dev))
+                         for x in gap_counts(cenc, arr[lo:hi], slens[lo:hi],
+                                             sub_table, dev))
     so = np.zeros((len(others), max_len + 1), np.int64)
     so[:, : so_pad.shape[1]] = so_pad[:, : max_len + 1]
 

@@ -1,6 +1,6 @@
-"""nGIA greedy clustering on one device (reference: CDP|Non-CDP
-/CLUSTER/cluster/, the repository's MPI component): the port of
-`genomics_tpu/models/ngia.py` without its mesh (A13).
+"""nGIA greedy clustering (reference: CDP|Non-CDP/CLUSTER/cluster/, the
+repository's MPI component): the port of `genomics_tpu/models/ngia.py`,
+on one device or over the ranks of a `parallel.mesh.DataMesh`.
 
 Reference flow (func.cu): reads sorted by length; each round the first
 unclustered read is the representative (the MPI ranks' Gather + min +
@@ -25,6 +25,18 @@ check it sizes the next rounds' band from the reads still unclustered.
 `speculate > 1` evaluates S candidate representatives against every
 unclustered read in one launch (CDP kernel_iteration) and resolves them
 on the host as the JAX package does: the same clustering.
+
+With a mesh (the reference's MPI design, func.cu:306-318) each rank holds
+a contiguous block of the sorted reads and one more row, the
+representative's slot.  A round's representative is the lowest
+unclustered global index, an all-reduce (min); its owner's row reaches
+every rank's slot by an all-reduce (sum) of the row that only the owner
+fills, a broadcast whose source only the device knows, so no round waits
+on the host; then every rank runs `ngia_lcs.cu`'s round mode over its own
+block.  The host checks every ROUNDS rounds, and the clusters are
+all-gathered at the end (func.cu:520).  `speculate > 1` ignores the mesh,
+as the JAX package's does (ngia.py:369, ROADMAP C2): the speculative
+path runs on the mesh's device, with the same clustering.
 """
 from __future__ import annotations
 
@@ -36,6 +48,7 @@ import torch
 from genomics_tpu_torch.device import checked_device
 from genomics_tpu_torch.ops.lcs import (banded_lcs_accept, max_shift_of,
                                         pad_codes)
+from genomics_tpu_torch.parallel import multihost
 from genomics_tpu_torch.utils.fasta import read_fasta
 
 _BASE_MAP = np.full(256, 255, np.uint8)
@@ -125,17 +138,18 @@ def cluster_distributed(
     device="cuda",
 ) -> NgiaResult:
     """Greedy nGIA clustering on `device` (the card unless told; "cpu"
-    takes the plain versions).  speculate=S > 1 evaluates S candidate
-    representatives a launch with serial-equivalent host resolution:
-    the same clustering.  A mesh is the distributed path, not ported yet
-    (A13): passing one raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the port's nGIA runs on one device; the mesh path (A13) is not "
-            "ported")
-    dev = checked_device(device)
+    takes the plain versions), or, with `mesh` (a DataMesh), over its
+    ranks, each on the mesh's device.  speculate=S > 1 evaluates S
+    candidate representatives a launch with serial-equivalent host
+    resolution: the same clustering (and ignores the mesh, C2)."""
+    dev = mesh.device if mesh is not None else checked_device(device)
     order, lengths, net, words, low, high, codes = _prepare(seqs)
     N = len(seqs)
+    if mesh is not None and speculate <= 1:
+        cluster = _mesh_rounds(mesh, net, words, low, high, codes,
+                               similarity)
+        n = int((cluster == np.arange(N)).sum())
+        return NgiaResult(cluster=cluster, order=order, n_clusters=n)
     arrays = _device_arrays(net, words, low, high, codes, dev)
 
     if speculate > 1:
@@ -192,16 +206,86 @@ def cluster_distributed(
         live = (cluster == -1).cpu().numpy()
         now = int(live.sum())
         if now == left:
-            # the representative failed its own word filter (a read of
-            # under 4 bases): the JAX package's loop never ends here
-            raise RuntimeError(
-                f"nGIA made no progress in {ROUNDS} rounds: read "
-                f"{int(rep)} of {int(net[int(rep)])} bases does not pass "
-                f"its own word filter")
+            raise _no_progress(int(rep), net)
         left = now
     c_host = cluster.cpu().numpy()
     n = int((c_host == np.arange(N)).sum())
     return NgiaResult(cluster=c_host, order=order, n_clusters=n)
+
+
+def _no_progress(rep: int, net) -> RuntimeError:
+    # the representative failed its own word filter (a read of under 4
+    # bases): the JAX package's loop never ends here (ROADMAP C21)
+    return RuntimeError(
+        f"nGIA made no progress in {ROUNDS} rounds: read {rep} of "
+        f"{int(net[rep])} bases does not pass its own word filter")
+
+
+def _row_words(a: dict, i) -> torch.Tensor:
+    """Row i of every per-read array as one int32 vector (words, net, low,
+    high, codes: the codes' rows are padded to 16 bytes)."""
+    return torch.cat([a["words"][i].view(torch.int32), a["net"][i][None],
+                      a["low"][i], a["high"][i],
+                      a["codes"][i].view(torch.int32)])
+
+
+def _put_row(a: dict, i: int, row: torch.Tensor) -> None:
+    """`_row_words`' inverse: row i of every per-read array from `row`."""
+    W, L4 = a["low"].shape[1], a["codes"].shape[1] // 4
+    k = 0
+    for key, n in (("words", 128), ("net", 1), ("low", W), ("high", W),
+                   ("codes", L4)):
+        dst = a[key][i]
+        dst = dst.view(torch.int32) if key in ("words", "codes") else dst
+        dst.copy_(row[k:k + n].view(dst.shape))
+        k += n
+
+
+def _mesh_rounds(mesh, net, words, low, high, codes, sim: float):
+    """The serial rounds over `mesh`'s ranks: this rank's block [lo, hi)
+    of the reads plus the representative's slot (row hi - lo) on its
+    device; returns the global cluster array (host numpy, every rank)."""
+    N = len(net)
+    lo, hi = mesh.block(N)
+    n = hi - lo
+    dev = mesh.device
+
+    def rows(x):       # this block and one zero row, the slot
+        return np.concatenate([x[lo:hi], np.zeros((1, *x.shape[1:]),
+                                                  x.dtype)])
+    arrays = _device_arrays(rows(net), rows(words), rows(low), rows(high),
+                            rows(pad_codes(codes)), dev)
+    slot = torch.tensor([n], dtype=torch.int32, device=dev)
+    jobs = torch.arange(n, dtype=torch.int32, device=dev)
+    gidx = torch.arange(lo, hi + 1, dtype=torch.int32, device=dev)
+    gidx[n] = N                      # the slot is no read: "none left"
+    cluster = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
+    cluster[n] = N
+    max_words = int((net.max() + 31) // 32)
+    live = np.ones(N, bool)
+    left = N
+    while left:
+        max_shift = max_shift_of(net[live], net[live], sim)
+        for _ in range(ROUNDS):
+            # the lowest unclustered global index: N once none is left
+            rep = multihost.all_reduce(
+                torch.where(cluster == -1, gidx, N).min(), "min")
+            mine = (rep >= lo) & (rep < hi)
+            row = _row_words(arrays,
+                             (rep - lo).clamp(0, max(n - 1, 0)).long())
+            _put_row(arrays, n, multihost.all_reduce(
+                torch.where(mine, row, 0), "sum"))
+            was = cluster == -1
+            _accept(arrays, slot, jobs, sim, cluster, max_words=max_words,
+                    max_shift=max_shift)
+            # the kernel names the slot; the reads it took get the rep
+            cluster = torch.where(was & (cluster != -1), rep, cluster)
+        live = multihost.fetch(cluster[:n]) == -1
+        now = int(live.sum())
+        if now == left:
+            raise _no_progress(int(rep), net)
+        left = now
+    return multihost.fetch(cluster[:n]).astype(np.int32)
 
 
 def run_file(

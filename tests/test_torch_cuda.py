@@ -1821,3 +1821,70 @@ def test_lcs_launches_refuse_a_bucket_they_do_not_have(cuda):
     with pytest.raises(RuntimeError, match="cluster_lcs_launch failed"):
         lcs.launch_cluster_lcs(tuple(lay))
 
+
+
+def _pipeline_inputs(seed, B=300, L=40, R=40, C=60):
+    q, t, ql, tl = (x.numpy() for x in _batch(seed, B, L, L, 0.01))
+    rng = np.random.default_rng(seed)
+    return (q, t, ql, tl,
+            rng.choice(np.frombuffer(b"ACGT", np.uint8), (B, R)),
+            rng.choice(np.frombuffer(b"ACGT", np.uint8), (B, C)),
+            rng.integers(R // 2, R + 1, B).astype(np.int32),
+            rng.integers(C // 2, C + 1, B).astype(np.int32),
+            *(rng.integers(5, 60, (B, R)).astype(np.int32) for _ in range(3)))
+
+
+@pytest.mark.parametrize("use_kernels", [True, False],
+                         ids=["kernels", "plain"])
+def test_pipeline_step_on_the_card_equals_the_cpu(cuda, use_kernels):
+    """`sharded_pipeline_step` on a one-rank mesh of the card (no process
+    group: the collectives are the identity) against the same step on the
+    CPU, field for field; with the kernels, each family's launch count
+    moves."""
+    from genomics_tpu_torch.parallel import data_mesh, multihost
+    from genomics_tpu_torch.parallel.mesh import sharded_pipeline_step
+
+    ins = _pipeline_inputs(21)
+    P = AlignmentParams()
+    before = {**cuda_align.LAUNCHES, **cuda_pairhmm.LAUNCHES,
+              **myers.LAUNCHES}
+    got = sharded_pipeline_step(data_mesh(device="cuda"), *ins, params=P,
+                                use_pallas=use_kernels)
+    after = {**cuda_align.LAUNCHES, **cuda_pairhmm.LAUNCHES,
+             **myers.LAUNCHES}
+    want = sharded_pipeline_step(data_mesh(device="cpu"), *ins, params=P,
+                                 use_pallas=use_kernels)
+    for k in want:
+        if k == "total_likelihood":      # a float sum, in another order
+            np.testing.assert_allclose(float(got[k]), float(want[k]),
+                                       rtol=1e-6)
+        else:
+            np.testing.assert_array_equal(multihost.fetch(got[k]),
+                                          multihost.fetch(want[k]),
+                                          err_msg=k)
+    moved = {k for k in after if after[k] != before[k]}
+    if use_kernels:
+        assert {"local_sw.end", "local_sw.tb", "global_sw.score", "ksw.end",
+                "banded_sw.end", "myers", "pairhmm.wavefront",
+                "pairhmm.intertask"} <= moved
+        assert moved & {"local_sw.score", "local_sw.score16"}
+    else:
+        assert not moved
+
+
+def test_score_haplotypes_on_the_card_equals_the_cpu(cuda):
+    """One wavefront launch over every (haplotype, read) pair of a window:
+    the same likelihoods, order and variants as device="cpu"."""
+    from genomics_tpu_torch.models import assembly
+
+    rng = np.random.default_rng(22)
+    ref = "".join(rng.choice(list("ACGT"), 120))
+    alt = ref[:60] + ("A" if ref[60] != "A" else "C") + ref[61:]
+    reads = [alt[p:p + 50] for p in rng.integers(0, 70, 24)]
+    before = cuda_pairhmm.LAUNCHES["pairhmm.wavefront"]
+    got = assembly.local_assembly(ref, reads, device=cuda)
+    assert cuda_pairhmm.LAUNCHES["pairhmm.wavefront"] == before + 1
+    want = assembly.local_assembly(ref, reads, device="cpu")
+    assert [(h.seq, h.likelihood) for h in got[0]] == [
+        (h.seq, h.likelihood) for h in want[0]]
+    assert [vars(v) for v in got[1]] == [vars(v) for v in want[1]]

@@ -74,13 +74,15 @@ def test_native_library_is_built_from_the_makefile_flags():
     make = (native.NATIVE_DIR / "Makefile").read_text()
     flags = next(ln for ln in make.splitlines()
                  if ln.startswith("CXXFLAGS")).split("?=")[1].split()
-    # all but -fopenmp and -march=native: SA-IS, all the port binds, is
-    # serial, the CUDA machine's g++ has no OpenMP runtime, and a library
-    # for the compiler's default target loads on any machine of its kind
+    # all but -fopenmp and -march=native: SA-IS is serial, the CUDA
+    # machine's g++ has no OpenMP runtime (lighter.cpp's omp loop then runs
+    # on one core), and a library for the compiler's default target loads
+    # on any machine of its kind
     assert [f for f in flags if f not in ("-fopenmp", "-march=native")] \
         + ["-shared"] == list(native.CXX_FLAGS)
-    assert native.SOURCES == ("sais.cpp",)
+    assert native.SOURCES == ("sais.cpp", "lighter.cpp")
     assert native.library().gt_sais_u8 is not None
+    assert native.library().gt_lighter_pass3 is not None
     assert native.BUILD_DIR.parts[-2:] == ("build", "native")
 
 

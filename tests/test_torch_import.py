@@ -38,6 +38,11 @@ def test_imports_with_jax_blocked():
         "from genomics_tpu_torch.utils import bamio, samio\n"
         "from genomics_tpu_torch.ops import lcs\n"
         "from genomics_tpu_torch.models import cluster, ngia\n"
+        "from genomics_tpu_torch import parallel\n"
+        "from genomics_tpu_torch.parallel import mesh, multihost\n"
+        "from genomics_tpu_torch.models import alndiff, assembly, corrector\n"
+        "from genomics_tpu_torch.index import bloom\n"
+        "from genomics_tpu_torch.utils import profiling, timers\n"
         "assert 'genomics_tpu' not in sys.modules\n"
         "print(genomics_tpu_torch.AlignEngine.__name__)\n"
     )
@@ -58,7 +63,11 @@ def test_every_module_is_checked_for_jax_imports():
             "index/wavelet.py", "index/setbwt.py", "runtime/native.py",
             "ops/fm_search.py", "models/mapq.py", "models/mapper.py",
             "utils/samio.py", "utils/bamio.py", "ops/lcs.py",
-            "models/cluster.py", "models/ngia.py"} <= names
+            "models/cluster.py", "models/ngia.py", "parallel/__init__.py",
+            "parallel/mesh.py", "parallel/multihost.py",
+            "models/corrector.py", "models/assembly.py",
+            "models/alndiff.py", "index/bloom.py", "utils/timers.py",
+            "utils/profiling.py"} <= names
 
 
 @pytest.mark.parametrize(

@@ -230,8 +230,19 @@ def test_a_read_failing_its_own_filter_raises():
 
 
 def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A13"):
-        TN.cluster_distributed(["ACGT" * 20], mesh=object(), device="cpu")
+    """The mesh path is ported now (tests/test_torch_parallel.py runs it
+    over 2 and 4 gloo ranks): on a one-rank mesh without a process group
+    its serial rounds give the one-device clustering and JAX's, and with
+    speculate > 1 the mesh is ignored (C2)."""
+    from genomics_tpu_torch.parallel import data_mesh
+
+    seqs = families(np.random.default_rng(70), fam=3, per=4)
+    want = JN.cluster_distributed(seqs, 0.9)
+    for spec in (1, 4):
+        got = TN.cluster_distributed(seqs, 0.9, speculate=spec,
+                                     mesh=data_mesh(device="cpu"))
+        assert np.array_equal(got.cluster, want.cluster)
+        assert got.n_clusters == want.n_clusters
 
 
 def test_ngia_cli_matches_jax(tmp_path, capsys, monkeypatch):
