@@ -189,15 +189,21 @@ Then the read mapper (`mapper_slice`), phases 3-5 of its own:
             header and first 1,024 lines == the same run on the CPU, every
             BAM record == its SAM line, the share of reads within 2 bp of
             their origin; and run_all.py's bench_mapper shape;
-5. timings  fm_search as a launch alone at the mapper's seed launch and
-            at 1,048,576 queries of 16-32, its plain version, its bound
-            (FM_OPS_PER_WORD / _RANK / _STEP over the words the active
-            steps' ranks read, the ranks and the steps; the bytes, with the
-            index resident in L2) and its sectors; the mapper's reads/s,
-            pairs/s and lines/s.
+5. timings  fm_search as a launch alone (a CUDA graph's replay, and
+            from the host) at the mapper's seed launch and at 1,048,576
+            queries of 16-32, its plain version, its bound
+            (FM_OPS_PER_STEP / _RANK / _KEY / _LOOKUP over the steps,
+            ranks, key codes and suffix table lookups; the bytes, with
+            the index resident in L2) and its L2 sector floor; the
+            mapper's reads/s, pairs/s and lines/s.
 
 Then clustering (`cluster_slice`), phases 3-5 of its own:
-3. parity   cluster_lcs against lcs_accept_plain over lcs_edge_reads
+3. parity   cluster_filter against window_filters_plain at
+            FILTER_CARD_EDGES (one and eight copies of a word, wl = 7,
+            one representative, one job, J not a multiple of 8 or 32,
+            groups of 32 representatives, 256 x 3,001 at wl = 7; each
+            with a job that is a representative and one whose words all
+            miss); cluster_lcs against lcs_accept_plain over lcs_edge_reads
             (nets 1, 31-33, 63-65, 140 and 1,100 bases: one-word texts
             and a row of 35 words, a warp a pair; noisy copies with
             gaps, Ns, lowercase and U; one base; net 0), every read alone
@@ -214,9 +220,11 @@ Then clustering (`cluster_slice`), phases 3-5 of its own:
             pair passing, 300 columns of one family, lane groups and
             wide bands in one launch), as windows and as rounds;
 4. cluster  cluster_reads over bench_cluster's 50,000 x 140 bp reads,
-            speculate=256 (the first two windows' accept matrices == the
-            plain filters + LCS on the card; the int8 min-sum == the
-            host's; cluster <= arange, reps their own); at 5,000 reads
+            speculate=256 (one cluster_filter launch a window and no
+            plain filter on the path; the first two windows' accept
+            matrices == the plain filters + LCS on the card; the int8
+            min-sum == the host's; cluster <= arange, reps their own); at
+            5,000 reads
             the speculative run == the serial run == device="cpu";
             cluster_distributed over bench_ngia's 8,000 x 1,200 bp,
             speculate=32 == the serial rounds; at 1,000 reads
@@ -234,8 +242,10 @@ Then clustering (`cluster_slice`), phases 3-5 of its own:
             its bound (LCS_OPS_PER_WORD / _STEP, NGIA_OPS_PER_BIN over
             the pairs, steps and words the kernel runs) and its cycles a
             step (kernel ms x the SM clock / the longest live pair's
-            active steps); the window's filters (`_filters_dev`) beside
-            their int8 product's bound; the paths' reads/s.
+            active steps); cluster_filter at the first window (== plain)
+            beside its bound (CF_OPS_PER_LOOKUP / _PAIR), its plain
+            version and torch._int_mm of the window's indicators; the
+            paths' reads/s.
 
 Then the distributed slice (`dist_slice`, phase 7): NCCL at world size
 1 in this process (a file:// rendezvous): sharded_pipeline_step over
@@ -306,7 +316,7 @@ FP32_LANES_PER_SM = 128    # Hopper's FP32 lanes per SM per clock
 KERNEL_SOURCES = ("local_sw", "global_sw", "semiglobal_sw", "local_start",
                   "semiglobal_start", "ksw_extend", "banded_sw", "tb_walk",
                   "pairhmm_intertask", "pairhmm_wavefront", "myers",
-                  "fm_search", "cluster_lcs", "ngia_lcs")
+                  "fm_search", "cluster_lcs", "ngia_lcs", "cluster_filter")
 # PairHMM and Myers at benchmarks/run_all.py's shapes (:145, :222)
 PH_B, PH_L = 16384, 128
 MY_B, MY_LP, MY_LT = 16384, 96, 152
@@ -1783,13 +1793,13 @@ def apps(seed: int, dev, smi: str, peak: float) -> dict:
 # -- the mapper slice: its own phases 3-5 ----------------------------------
 
 FM_EDGE_N = (1, 31, 32, 33, 127, 128, 129, 4095, 4096)
-# csrc/fm_search.cu's integer operations (its header): per plane word a
-# rank reads, per rank (two an active step) and per active step; words,
-# ranks and steps as backward_search_plain(stats=) counts them.  And the
-# 32-byte sectors a step's two ranks touch at most (a checkpoint word and a
-# 16-byte run of each plane)
-FM_OPS_PER_WORD, FM_OPS_PER_RANK, FM_OPS_PER_STEP = 7, 5, 6
-FM_SECTORS_PER_STEP = 6
+# csrc/fm_search.cu's integer operations (its header): per active step,
+# per rank (two a step, one 32-byte record each), per code of a suffix
+# table key and per table lookup; steps, ranks, lookups and key codes as
+# backward_search_plain(stats=) counts them.  The L2 sector floor: one
+# 32-byte sector a rank and a lookup
+FM_OPS_PER_STEP, FM_OPS_PER_RANK, FM_OPS_PER_KEY, FM_OPS_PER_LOOKUP = \
+    12, 18, 3, 3
 FM_TIMING_Q = 1 << 20        # queries of 16-32 bases, the launch alone
 # S. cerevisiae S288C's 16 nuclear chromosomes (SGD reference R64; 12.07
 # Mbp), the size and layout of a common small-genome mapper benchmark
@@ -2354,8 +2364,7 @@ def mapper_slice(seed: int, dev, smi: str, peak: float):
     # -- 5. fm_search's timings -------------------------------------------
     idx = seeds[0][0]
     big = max(seeds, key=lambda r: r[1].shape[0])
-    W, NB = idx.p0.shape[0], idx.ckpt.shape[1]
-    index_bytes = 8 * W + 16 * NB + 24
+    index_bytes = 4 * (idx.rec.numel() + idx.table.numel() + 6)
     rng = np.random.default_rng(seed + 29)
     S = FM_TIMING_Q
     ql = rng.integers(16, 33, S).astype(np.int32)
@@ -2371,25 +2380,30 @@ def mapper_slice(seed: int, dev, smi: str, peak: float):
         want = fs.backward_search_plain(idx, q, ql_t, stats=stats)
         lay = fs.fm_search_layout(idx, q, ql_t)
         err = max(err, max_abs_err(fs.launch_fm_search(lay), want))
-        k_ms = cuda_ms(lambda: fs.launch_fm_search(lay), 20)
+        k_ms = graph_ms(lambda: fs.launch_fm_search(lay), 20)
+        host_ms = cuda_ms(lambda: fs.launch_fm_search(lay), 20)
         p_ms = cuda_ms(lambda: fs.backward_search_plain(idx, q, ql_t), 2)
         n, L = q.shape
-        steps, ranks, words = (stats[k] for k in ("steps", "ranks", "words"))
-        ops = (FM_OPS_PER_WORD * words + FM_OPS_PER_RANK * ranks
-               + FM_OPS_PER_STEP * steps)
+        steps, ranks, lookups, keys = (
+            stats[k] for k in ("steps", "ranks", "lookups", "key_codes"))
+        ops = (FM_OPS_PER_STEP * steps + FM_OPS_PER_RANK * ranks
+               + FM_OPS_PER_KEY * keys + FM_OPS_PER_LOOKUP * lookups)
         bd = bound(ops, n * L + 4 * n + 8 * n + index_bytes, peak)
-        log("5 timings", f"fm_search at {label} ({n} x {L}): kernel "
-            f"{k_ms:.4f} ms ({n / k_ms / 1e3:.1f} M queries/s), plain "
-            f"{p_ms:.2f} ms, bound {bd[0]:.4f} ms by {bd[1]} ({words} words "
-            f"x {FM_OPS_PER_WORD} + {ranks} ranks x {FM_OPS_PER_RANK} + "
-            f"{steps} steps x {FM_OPS_PER_STEP} = {ops} int op, "
-            f"{ops / max(steps, 1):.2f} a step, {words / max(ranks, 1):.3f} "
-            f"words a rank; {n * L + 12 * n + index_bytes} "
-            f"bytes, the index's {index_bytes} of them resident in L2, so "
-            f"the HBM bound understates the floor), {k_ms / bd[0]:.1f} x "
-            f"the bound; up to {FM_SECTORS_PER_STEP} sectors of 32 bytes a "
-            f"step, {FM_SECTORS_PER_STEP * 32 * steps / 1e6:.1f} MB of L2 "
-            f"sectors; == plain; on {smi}")
+        floor = 32 * (ranks + lookups) / HBM_BYTES_PER_S * 1e3
+        log("5 timings", f"fm_search at {label} ({n} x {L}, suffix table "
+            f"of {idx.tk} codes): kernel {k_ms:.4f} ms (a CUDA graph's "
+            f"replay; launched from the host {host_ms:.4f} ms; "
+            f"{n / k_ms / 1e3:.1f} M queries/s), plain {p_ms:.2f} ms, bound "
+            f"{bd[0]:.4f} ms by {bd[1]} ({steps} steps x {FM_OPS_PER_STEP} +"
+            f" {ranks} ranks x {FM_OPS_PER_RANK} + {keys} key codes x "
+            f"{FM_OPS_PER_KEY} + {lookups} lookups x {FM_OPS_PER_LOOKUP} = "
+            f"{ops} int op, {steps / n:.2f} steps a query after the table; "
+            f"{n * L + 12 * n + index_bytes} bytes, the index's "
+            f"{index_bytes} of them resident in L2, so the HBM bound "
+            f"understates the floor), {k_ms / bd[0]:.1f} x the bound; L2 "
+            f"sector floor {floor:.4f} ms ({ranks + lookups} sectors of 32 "
+            f"bytes at the HBM rate), {k_ms / floor:.1f} x; == plain; on "
+            f"{smi}")
         if row is None:
             row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bd[0],
                        bound_by=bd[1])
@@ -2434,6 +2448,56 @@ NGIA_FMA_PAIRS = ((203, 180, 0.95), (113, 90, 0.9))
 
 LCS_ROWS = (("cluster_lcs", "genomics_tpu/models/cluster.py:192"),
             ("ngia_lcs", "genomics_tpu/models/ngia.py:91"))
+
+
+# The kernel's edges (label, wl, K, S, J): one and eight copies of a word,
+# wl = 7 (16,384 bins, 8 tables a block), one representative (a lane a
+# job), one job, J not a multiple of 8 or 32, two groups of 32
+# representatives; every set also has a job that is a representative, a
+# job whose words all miss and a read with no words.
+FILTER_EDGES = (("K=1", 5, 1, 5, 37), ("K=8", 4, 8, 33, 70),
+                ("wl=7", 7, 3, 9, 45), ("S=1", 6, 2, 1, 100),
+                ("J=1", 6, 2, 12, 1), ("J=33", 5, 4, 3, 33),
+                ("S=64 J=65", 6, 5, 64, 65))
+
+
+def filter_edge_inputs(label, wl, K, S, J, seed=23):
+    """(words, counts, prefix, wcut, bcut, reps, jobs, D) of one of
+    FILTER_EDGES: reads drawn from a pool of words so that their min-sums
+    spread, cutoffs around them, base counts that pass and fail."""
+    rng = np.random.default_rng((seed, wl, K, S, J))
+    bins, N, wmax = 1 << 2 * wl, S + J + 2, 23
+    pool = rng.choice(bins - 64, 40, replace=False) + 64
+    words = np.zeros((N, wmax), np.uint16)
+    counts = np.zeros((N, wmax), np.uint16)
+    for i in range(N):
+        n = int(rng.integers(1, wmax + 1))
+        src = np.arange(n) if i == N - 1 else rng.choice(pool, n, False)
+        w = np.sort(src)                      # the last read's all miss
+        words[i, :n] = w
+        counts[i, :n] = rng.integers(1, K + 1, n)
+    counts[0, 0] = K
+    words[N - 2] = counts[N - 2] = 0          # a read with no words
+    D = np.zeros((N, bins), np.uint8)
+    for i in range(N):
+        D[i, words[i][counts[i] > 0]] = counts[i][counts[i] > 0]
+    prefix = rng.integers(10, 40, (N, 4)).astype(np.int32)
+    bcut = rng.integers(40, 100, N).astype(np.int32)
+    wcut = rng.integers(0, 30, N).astype(np.int32)
+    wcut[N - 1] = bcut[N - 1] = 0              # passes on no word at all
+    reps = rng.choice(N - 2, S, replace=False).astype(np.int32)
+    jobs = np.concatenate([[N - 1, reps[0]], rng.integers(0, N, J)])[:J]
+    return (words, counts, prefix, wcut, bcut, reps, jobs.astype(np.int32),
+            D)
+
+
+# and on the card also many groups of representatives and blocks at wl = 7
+FILTER_CARD_EDGES = FILTER_EDGES + (
+    ("wl=7 S=256 J=3001", 7, 8, 256, 3001),)
+# Integer operations of csrc/cluster_filter.cu (its header): per
+# representative and job word a min and an add, per pair the prefix
+# minimum-sum (4 mins, 3 adds), two compares and an AND
+CF_OPS_PER_LOOKUP, CF_OPS_PER_PAIR = 2, 10
 
 
 def family_reads(rng, n_reads: int, L, per: int, mutations: int):
@@ -2716,6 +2780,23 @@ def ngia_lcs_parity(rng, dev) -> tuple[int, int]:
     return err, n
 
 
+def cluster_filter_parity(dev) -> tuple[int, int]:
+    """cluster_filter against window_filters_plain on the card at
+    FILTER_CARD_EDGES: (the largest difference, the launches)."""
+    from genomics_tpu_torch.ops import cluster_filter as CF
+
+    err = 0
+    for edge in FILTER_CARD_EDGES:
+        _, wl, K, S, J = edge
+        words, counts, *rest, _ = filter_edge_inputs(*edge)
+        packed = torch.from_numpy(CF.pack_words(words, counts)).to(dev)
+        args = [torch.from_numpy(x).to(dev) for x in rest]
+        got = CF.window_filters(packed, *args, 1 << 2 * wl, K)
+        want = CF.window_filters_plain(packed, *args, 1 << 2 * wl, K)
+        err = max(err, max_abs_err(got, want))
+    return err, len(FILTER_CARD_EDGES)
+
+
 def host_min_sum(p, reps, jobs, wl: int) -> np.ndarray:
     """[S, J] word min-sums from the host arrays, as _accept_matrix_host
     computes them."""
@@ -2730,20 +2811,18 @@ def host_min_sum(p, reps, jobs, wl: int) -> np.ndarray:
 
 def plain_accept(p, reps, jobs, wl: int, dev) -> np.ndarray:
     """_accept_matrix with the plain versions on the card: the filters
-    with the f64 product (word_min_sum_plain), then lcs_accept_plain."""
+    (window_filters_plain: the f64 indicator product), then
+    lcs_accept_plain."""
     from genomics_tpu_torch.models import cluster as TC
+    from genomics_tpu_torch.ops import cluster_filter as CF
     from genomics_tpu_torch.ops import lcs
 
-    D, K = TC._dense_counts(p, wl, dev)
     aux = TC._aux_dev(p, dev)
     rp, jp = (torch.from_numpy(x.astype(np.int32)).to(dev)
               for x in (reps, jobs))
-    pre = torch.minimum(aux["prefix"][rp.long()][:, None, :],
-                        aux["prefix"][jp.long()][None, :, :]).sum(-1)
-    got = torch.cat([TC.word_min_sum_plain(D[rp.long()], D[jc.long()], K)
-                     for jc in jp.split(8192)], dim=1)
-    p2 = ((pre >= aux["bcut"][jp.long()][None, :])
-          & (got >= aux["wcut"][jp.long()][None, :])).to(torch.uint8)
+    p2, _ = CF.window_filters_plain(TC._packed_dev(p, dev), aux["prefix"],
+                                    aux["wcut"], aux["bcut"], rp, jp,
+                                    1 << 2 * wl, TC._dense_k(p, wl))
     acc = lcs.lcs_accept_plain(aux["low"], aux["high"], aux["net"],
                                aux["codes"], aux["bcut"], rp, jp, p2)
     return acc.cpu().numpy() != 0
@@ -2800,18 +2879,25 @@ def cluster_slice(seed: int, dev, smi: str, peak: float) -> dict:
     routes and sources."""
     from genomics_tpu_torch.models import cluster as TC
     from genomics_tpu_torch.models import ngia as TN
+    from genomics_tpu_torch.ops import cluster_filter as CF
     from genomics_tpu_torch.ops import lcs
     from genomics_tpu_torch.utils.fasta import write_fasta
 
     rng = np.random.default_rng(seed + 31)
-    # -- 3. both kernels at their edges ------------------------------------
+    # -- 3. the three kernels at their edges ------------------------------
     t0 = time.time()
+    f_err, f_n = cluster_filter_parity(dev)
     c_err, c_n = cluster_lcs_parity(rng, dev)
     n_err, n_n = ngia_lcs_parity(rng, dev)
-    if c_err or n_err:
-        raise AssertionError(f"the LCS kernels disagree with their plain "
-                             f"versions at their edges: cluster_lcs "
-                             f"{c_err}, ngia_lcs {n_err}")
+    if f_err or c_err or n_err:
+        raise AssertionError(f"the clustering kernels disagree with their "
+                             f"plain versions at their edges: cluster_filter"
+                             f" {f_err}, cluster_lcs {c_err}, ngia_lcs "
+                             f"{n_err}")
+    log("3 parity", f"cluster_filter == plain at {f_n} launches ("
+        + ", ".join(e[0] for e in FILTER_CARD_EDGES) + "; each with a job "
+        "that is a representative, a job whose words all miss and a read "
+        "with no words)")
     log("3 parity", f"cluster_lcs == plain at {c_n} launches over "
         f"lcs_edge_reads (nets {LCS_EDGE_NETS}, 140 and 1,100 bases, noisy "
         f"copies, one base, net 0; every read alone and S of "
@@ -2835,18 +2921,23 @@ def cluster_slice(seed: int, dev, smi: str, peak: float) -> dict:
     walls, rates, launches = {}, {}, {}
     reads = family_reads(np.random.default_rng(0), CLUSTER_READS,
                          CLUSTER_LEN, 8, 6)
-    windows, filters = [], []
-    zero_counts(lcs.LAUNCHES)
+    windows, calls, plain = [], [], []
+    zero_counts(lcs.LAUNCHES, CF.LAUNCHES)
     with recording_windows(windows, CLUSTER_WINDOWS), \
-            counting_calls(TC, "_filters_dev", filters):
+            counting_calls(TC, "_accept_matrix", calls), \
+            counting_calls(CF, "_indicators", plain), \
+            counting_calls(CF, "window_filters_plain", plain):
         t0 = time.time()
         res = TC.cluster_reads(reads, speculate=CLUSTER_SPEC, device=dev)
         walls["cluster"] = time.time() - t0
-    launches["cluster"] = dict(lcs.LAUNCHES)
-    launches["filters"] = len(filters)
-    if not launches["cluster"]["cluster_lcs"] or launches["cluster"][
-            "ngia_lcs"]:
-        raise AssertionError(f"cluster_reads: launches {launches['cluster']}")
+    launches["cluster"] = dict(lcs.LAUNCHES, **CF.LAUNCHES)
+    if (not launches["cluster"]["cluster_lcs"]
+            or launches["cluster"]["ngia_lcs"]
+            or launches["cluster"]["cluster_filter"] != len(calls)
+            or plain):
+        raise AssertionError(f"cluster_reads: launches {launches['cluster']}"
+                             f" over {len(calls)} windows, {len(plain)} calls"
+                             f" of the plain filters or their indicators")
     assert_clustering(res, "cluster_reads")
     rates["cluster"] = CLUSTER_READS / walls["cluster"]
     t0 = time.time()
@@ -2856,9 +2947,11 @@ def cluster_slice(seed: int, dev, smi: str, peak: float) -> dict:
                                  "differs from the plain filters + LCS")
     p, reps, jobs, wl, _ = windows[0]
     cols = jobs[:MIN_SUM_COLS]
-    D, K = TC._dense_counts(p, wl, dev)
-    got = TC.word_min_sum(D[torch.from_numpy(reps).to(dev)],
-                          D[torch.from_numpy(cols).to(dev)], K)
+    K = TC._dense_k(p, wl)
+    got = CF.word_min_sum(*(CF.dense_rows(TC._packed_dev(p, dev),
+                                          torch.from_numpy(x).to(dev),
+                                          1 << 2 * wl) for x in (reps, cols)),
+                          K)
     if not np.array_equal(got.cpu().numpy(), host_min_sum(p, reps, cols, wl)):
         raise AssertionError("word_min_sum (torch._int_mm) differs from the "
                              "host min-sum")
@@ -2869,7 +2962,9 @@ def cluster_slice(seed: int, dev, smi: str, peak: float) -> dict:
         f"first {len(windows)} windows' accept matrices ({reps.size} x "
         f"{jobs.size} first) == the plain filters + LCS on the card, the "
         f"int8 min-sum == the host's over {cols.size} columns "
-        f"(K = {K}, {check_s:.1f} s); launches {launches['cluster']}")
+        f"(K = {K}, {check_s:.1f} s); launches {launches['cluster']} (one "
+        f"cluster_filter a window, no plain filter or indicator on the "
+        f"path)")
     small = family_reads(np.random.default_rng(1), CLUSTER_CHECK,
                          CLUSTER_LEN, 8, 6)
     t0 = time.time()
@@ -2976,11 +3071,14 @@ def cluster_slice(seed: int, dev, smi: str, peak: float) -> dict:
     # cluster_lcs at the first bench_cluster window's pass-2 columns
     p, reps, jobs, wl, _ = windows[0]
     aux = TC._aux_dev(p, dev)
-    D, K = TC._dense_counts(p, wl, dev)
+    K, bins, packed = TC._dense_k(p, wl), 1 << 2 * wl, TC._packed_dev(p, dev)
     rp = torch.from_numpy(reps.astype(np.int32)).to(dev)
     jp = torch.from_numpy(jobs.astype(np.int32)).to(dev)
-    p2, anyv = TC._filters_dev(D, aux["prefix"], aux["wcut"], aux["bcut"],
-                               rp, jp, K)
+    f_args = (packed, aux["prefix"], aux["wcut"], aux["bcut"], rp, jp, bins)
+    f_lay = CF.filter_layout(*f_args)
+    p2, anyv = CF.launch_cluster_filter(f_lay)
+    f_want = CF.window_filters_plain(*f_args, K)
+    f_err = max(f_err, max_abs_err((p2, anyv), f_want))
     cols = torch.nonzero(anyv)[:, 0]
     jb, gate = jp[cols], p2[:, cols].contiguous()
     args = [aux[k] for k in ("low", "high", "net", "codes", "bcut")]
@@ -3014,26 +3112,47 @@ def cluster_slice(seed: int, dev, smi: str, peak: float) -> dict:
     rows["cluster_lcs"] = dict(launches=launches["cluster"]["cluster_lcs"],
                                max_abs_err=max(c_err, err_c), ms=k_ms,
                                plain_ms=p_ms, bound_ms=bd[0], bound_by=bd[1])
-    # the window's filters (_filters_dev: the prefix filter, the int8
-    # min-sum as K indicator products, the compares) at the same window,
-    # all its jobs; bound: the products' 2 S J K bins int8 operations, or
-    # their operands' bytes (the [S | J, K bins] indicators and the [S, J]
-    # int32 sums)
-    Jw, bins = len(jobs), D.shape[1]
-    f_ms = cuda_ms(lambda: TC._filters_dev(D, aux["prefix"], aux["wcut"],
-                                           aux["bcut"], rp, jp, K), 5)
-    f_ops = 2 * S * Jw * K * bins
-    f_bytes = (S + Jw) * K * bins + 4 * S * Jw
-    f_by = ("operations" if f_ops / INT8_TOPS >= f_bytes / HBM_BYTES_PER_S
-            else "bytes")
-    f_bd = max(f_ops / INT8_TOPS, f_bytes / HBM_BYTES_PER_S) * 1e3
-    log("5 timings", f"cluster._filters_dev at bench_cluster's first window "
-        f"({S} x {Jw} jobs, K = {K}, {bins} bins, chunks of "
-        f"{TC.filter_chunk(bins, K)} columns; {launches['filters']} calls in "
-        f"the {CLUSTER_READS}-read run): {f_ms:.4f} ms, bound {f_bd:.4f} ms "
-        f"by {f_by}"
-        f" ({f_ops} int8 op at {INT8_TOPS / 1e12:.0f} TOP/s; {f_bytes} "
-        f"bytes), {f_ms / f_bd:.1f} x; on {smi}")
+    # cluster_filter at the same window, all its jobs: a CUDA graph's
+    # replay and launched from the host; its plain version; the library
+    # yardstick, torch._int_mm of the window's K indicator matrices (made
+    # before, timed alone); the bound: CF_OPS_PER_LOOKUP / _PAIR over the
+    # jobs' words, or the bytes (the packed words of both sides, prefix,
+    # cutoffs, indices, pass2 and any)
+    Jw = len(jobs)
+    f_ms = graph_ms(lambda: CF.launch_cluster_filter(f_lay), 20)
+    f_host = cuda_ms(lambda: CF.launch_cluster_filter(f_lay), 20)
+    f_plain = cuda_ms(lambda: CF.window_filters_plain(*f_args, K), 1)
+    A, B = CF.int_mm_operands(CF.dense_rows(packed, rp, bins),
+                              CF.dense_rows(packed, jp, bins), K)
+    lib_ms = cuda_ms(lambda: torch._int_mm(A, B.T), 5)
+    del A, B
+    work = CF.filter_work(packed, rp, jp)
+    f_ops = (CF_OPS_PER_LOOKUP * work["lookups"]
+             + CF_OPS_PER_PAIR * work["pairs"])
+    f_bytes = (packed.shape[1] * 4 * (S + Jw) + (16 + 4) * (S + Jw)
+               + 8 * Jw + S * Jw + Jw)
+    f_bd = bound(f_ops, f_bytes, peak)
+    log("5 timings", f"cluster_filter at bench_cluster's first window "
+        f"({S} x {Jw} jobs, wl = {wl}, K = {K}, "
+        f"{CF.rep_rows(S, bins)} tables a block; "
+        f"{launches['cluster']['cluster_filter']} launches in the "
+        f"{CLUSTER_READS}-read run): kernel {f_ms:.4f} ms (a CUDA graph's "
+        f"replay; launched from the host {f_host:.4f} ms), plain "
+        f"{f_plain:.2f} ms, torch._int_mm of the indicators alone "
+        f"{lib_ms:.4f} ms ({2 * S * Jw * K * bins} int8 op, "
+        f"{2 * S * Jw * K * bins / INT8_TOPS * 1e3:.4f} ms at "
+        f"{INT8_TOPS / 1e12:.0f} TOP/s), bound {f_bd[0]:.4f} ms by "
+        f"{f_bd[1]} ({work['lookups']} lookups x {CF_OPS_PER_LOOKUP} + "
+        f"{work['pairs']} pairs x {CF_OPS_PER_PAIR} = {f_ops} int op; "
+        f"{f_bytes} bytes), {f_ms / f_bd[0]:.1f} x the bound, == plain; on "
+        f"{smi}")
+    if f_err:
+        raise AssertionError(f"cluster_filter disagrees with its plain "
+                             f"version at the timed window: {f_err}")
+    rows["cluster_filter"] = dict(
+        launches=launches["cluster"]["cluster_filter"], max_abs_err=f_err,
+        ms=f_ms, plain_ms=f_plain, bound_ms=f_bd[0], bound_by=f_bd[1],
+        library_ms=lib_ms)
     # ngia_lcs at the first speculate=32 window (out mode) and at one
     # serial round as the serial path launches it: round mode, the first
     # (representative 0 against all 8,000 reads, none clustered), the
@@ -5515,7 +5634,8 @@ def main() -> int:
     if left:
         raise AssertionError(f"child processes still running: {left}")
     # no single PyTorch call computes these recurrences, a backward
-    # search or a bit-parallel LCS: library_ms null
+    # search or a bit-parallel LCS: library_ms null; the window filters'
+    # is torch._int_mm of their indicators
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + f,
          "replaces": rep, "launches": launches[name],
@@ -5531,7 +5651,11 @@ def main() -> int:
          "library_ms": None}] + [
         {"name": name, "route": "cuda", "source": src + f"{name}.cu",
          "replaces": rep, **lcs_rows[name], "library_ms": None}
-        for name, rep in LCS_ROWS]}), flush=True)
+        for name, rep in LCS_ROWS] + [
+        {"name": "cluster_filter", "route": "cuda",
+         "source": src + "cluster_filter.cu",
+         "replaces": "genomics_tpu/models/cluster.py:408",
+         **lcs_rows["cluster_filter"]}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 KERNELS = ("local_sw", "tb_walk", "global_sw", "semiglobal_sw", "local_start",
            "semiglobal_start", "ksw_extend", "banded_sw", "pairhmm_intertask",
            "pairhmm_wavefront", "myers", "nw_app", "sw_app", "msa_nw",
-           "fm_search", "cluster_lcs", "ngia_lcs")
+           "fm_search", "cluster_lcs", "ngia_lcs", "cluster_filter")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

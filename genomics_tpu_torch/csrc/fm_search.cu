@@ -1,5 +1,5 @@
-// Batched exact FM-index backward search, one thread per query, for Hopper
-// (sm_90a).
+// Batched exact FM-index backward search for Hopper (sm_90a): one 32-byte
+// record a rank, a suffix table for the first steps, QPT queries a thread.
 //
 // Replaces _bs_jit of genomics_tpu/ops/fm_search.py:121 with its device
 // rank _rank (:93), which jnp runs on the TPU (no Pallas kernel): the
@@ -11,114 +11,174 @@
 // while k >= 0 and hi > lo; a query whose range empties, or whose qlen is
 // spent, keeps its lo and hi.  Starting range (0, n).
 //
-// The index (`ops/fm_search.build_device_index`): the BWT as two bit-planes
-// p0 / p1 of W = ceil(n / 32) uint32 words (bit b of word w is the low /
-// high bit of the 2-bit code at position 32w + b), occurrence checkpoints
-// ckpt [4, NB] int32 every 128 positions, C [6] int32, and the sentinel's
-// row `primary`, stored as 'A' in the planes and counted in no checkpoint.
-// occ(s, i) = ckpt[s][i / 128] + the popcount of the positions of block
-// i / 128 below i whose code is s (4 words, each masked to the positions
-// below i), minus one for 'A' where the sentinel lies in the block below i.
-// A word that starts at or past position i adds nothing and is not read,
-// so the last block's words past W - 1 (i = n, n not a multiple of 128)
-// are never touched.
+// The index (`ops/fm_search.build_device_index`): one record of 8 int32 a
+// block of 64 BWT positions, 32 bytes, one sector: the counts occ(s, 64k)
+// of s = 0-3 before the block (the sentinel, stored as 'A', counted in
+// none), then the block's low bit-plane as two words and its high
+// bit-plane as two (bit b of word w: the low / high bit of the code at
+// position 64k + 32w + b).  occ(s, i) = the count of s in record i / 64 +
+// the popcount of the positions of the block below i whose code is s,
+// minus one for 'A' where the sentinel lies in the block below i.  The
+// records run to i = n (NB = ceil(n / 64) + 1), zero planes past n.
 //
-// Bound: integer work.  Per active step, two ranks; a rank at i reads the
-// ceil((i mod 128) / 32) words of its block that start below i (0 to 4;
-// none for lo = 0, every query's first step).  Per word a three-input
-// function for the plane match, the mask (a subtract, a shift and a
-// clamp), the AND and the popcount, and the add (7); per rank the block
-// index, the checkpoint's address and the sentinel's test (5); per step
-// the two tests of the loop, the code's address, its mask and the two adds
-// of C (6): words x 7 + ranks x 5 + steps x 6, counted by
+// The suffix table: for each of the 4^tk strings x of tk codes (key = sum
+// x[m] 4^(tk-1-m)), the (lo, hi) the steps reach after searching x alone,
+// a range that emptied early kept as the loop keeps it; a query with tk
+// <= qlen <= L starts from the entry of its last tk codes, tk steps in.
+// It is built by this kernel with tk = 0 (`ops/fm_search.suffix_table`;
+// tk = min(10, floor(log4 n)): 8 MB at 10, which an L2 of 50 MB holds
+// beside a 12 Mbp genome's 6 MB of records).
+//
+// What bounds a search is its chain of dependent L2 loads, two ranks a
+// step.  So a rank is one sector (two 16-byte loads of one record), the
+// table takes the first tk steps of the chain in one 8-byte load, and a
+// thread runs QPT = 1, 2 or 4 queries' chains side by side (the fewest
+// that put the launch in one wave of resident threads; 4 beyond, the
+// threads looping over the rest), so every chain of the launch is in
+// flight at once.
+//
+// Bound: integer work (the records and table stay in L2, so the bytes the
+// launch must move from device memory are the queries, qlen, the table's
+// and records' first reads and the results).  Per active step: the loop's
+// tests (4), the code's address, load mask and its two selects f0 / f1
+// (4), C's address and the two adds (3), and the step counter (1): 12;
+// per rank: the block index and the record's address (2), the count's
+// select (3), the plane match and the mask below i on two words (6), the
+// two popcounts and their adds (3), the sentinel's test and subtract (4):
+// 18; per table lookup, per code of the key its address, its mask and the
+// shift-or (3), and the lookup's test and address (3).  Counted by
 // ops/fm_search.backward_search_plain(stats=) and chip_smoke.py's
-// FM_OPS_PER_WORD / _RANK / _STEP.  The planes of a 12 Mbp genome (3 MB)
-// and its checkpoints (0.4 MB) stay in the 50 MB L2, so the bytes the
-// launch must move from device memory are the queries, qlen and the
-// results.  A step's two ranks touch the checkpoint words of two blocks
-// and two 16-byte runs of plane words in each plane, 2-6 sectors of 32
-// bytes, all read through __ldg; lo and hi of one query fall in one block
-// once the range has narrowed to under 128 rows, so their sectors are
-// shared from then on.  This is the simple design: one thread a query with
-// its loads in series, dependent from step to step.
+// FM_OPS_PER_STEP / _RANK / _KEY / _LOOKUP.  The L2 sector floor: a
+// sector a rank and a lookup.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "bitlcs.cuh"   // bitlcs::wave_blocks
+
 namespace {
 
-constexpr int kThreads = 256;            // queries a block
-constexpr int kRate = 128;               // positions a checkpoint block
-constexpr int kWords = kRate / 32;       // plane words a block
+constexpr int kThreads = 256;            // threads a block
+constexpr int kRate = 64;                // positions a record
 
 // occ(s, i): occurrences of code s (0-3) among BWT positions [0, i).
-__device__ __forceinline__ int occ(const uint32_t* __restrict__ p0,
-                                   const uint32_t* __restrict__ p1, int W,
-                                   const int* __restrict__ ckpt, int NB,
-                                   int primary, int s, int i) {
+__device__ __forceinline__ int occ(const int4* __restrict__ rec, int primary,
+                                   int s, uint64_t f0, uint64_t f1, int i) {
   const int k = i / kRate;
-  int cnt = __ldg(ckpt + s * NB + k);
-  const uint32_t f0 = (s & 1) ? 0u : 0xFFFFFFFFu;
-  const uint32_t f1 = (s & 2) ? 0u : 0xFFFFFFFFu;
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) {
-    const int w = k * kWords + j;
-    const int rem = i - w * 32;
-    if (rem <= 0 || w >= W) break;
-    const uint32_t eq = (__ldg(p0 + w) ^ f0) & (__ldg(p1 + w) ^ f1);
-    const uint32_t m = rem >= 32 ? 0xFFFFFFFFu : (1u << rem) - 1u;
-    cnt += __popc(eq & m);
-  }
-  if (s == 0 && primary >= k * kRate && primary < i) --cnt;
-  return cnt;
+  const int4 cnt = __ldg(rec + 2 * k);
+  const int4 pl = __ldg(rec + 2 * k + 1);
+  int c = s == 0 ? cnt.x : s == 1 ? cnt.y : s == 2 ? cnt.z : cnt.w;
+  const uint64_t p0 = static_cast<uint32_t>(pl.x) |
+                      static_cast<uint64_t>(static_cast<uint32_t>(pl.y)) << 32;
+  const uint64_t p1 = static_cast<uint32_t>(pl.z) |
+                      static_cast<uint64_t>(static_cast<uint32_t>(pl.w)) << 32;
+  const uint64_t below = (1ull << (i % kRate)) - 1ull;
+  c += __popcll((p0 ^ f0) & (p1 ^ f1) & below);
+  if (s == 0 && primary >= k * kRate && primary < i) --c;
+  return c;
 }
 
+template <int QPT>
 __global__ void __launch_bounds__(kThreads)
-fm_search_kernel(const uint32_t* __restrict__ p0,
-                 const uint32_t* __restrict__ p1, int W,
-                 const int* __restrict__ ckpt, int NB,
-                 const int* __restrict__ C, int primary, int n,
+fm_search_kernel(const int4* __restrict__ rec, const int* __restrict__ C,
+                 int primary, int n, const int2* __restrict__ table, int tk,
                  const uint8_t* __restrict__ queries, int L, long long qs,
                  const int* __restrict__ qlen, int S, int* __restrict__ lo_out,
                  int* __restrict__ hi_out) {
-  const int q = blockIdx.x * kThreads + threadIdx.x;
-  if (q >= S) return;
-  const uint8_t* row = queries + static_cast<long long>(q) * qs;
-  const int ql = qlen[q];
-  int lo = 0, hi = n;
-  for (int t = 0; t < L; ++t) {
-    const int k = ql - 1 - t;
-    if (k < 0 || hi <= lo) break;
-    const int s = row[min(k, L - 1)] & 3;
-    const int c = __ldg(C + s + 1);
-    lo = c + occ(p0, p1, W, ckpt, NB, primary, s, lo);
-    hi = c + occ(p0, p1, W, ckpt, NB, primary, s, hi);
+  const int threads = gridDim.x * kThreads;
+  for (int first = blockIdx.x * kThreads + threadIdx.x; first < S;
+       first += threads * QPT) {
+    int lo[QPT], hi[QPT], ql[QPT], t[QPT];
+    const uint8_t* row[QPT];
+#pragma unroll
+    for (int u = 0; u < QPT; ++u) {
+      const int q = first + u * threads;
+      row[u] = queries + static_cast<long long>(q < S ? q : 0) * qs;
+      ql[u] = q < S ? __ldg(qlen + q) : 0;
+      lo[u] = 0;
+      hi[u] = n;
+      t[u] = q < S ? 0 : L;               // a slot past S takes no step
+      if (tk > 0 && q < S && ql[u] >= tk && ql[u] <= L) {
+        int key = 0;
+        for (int m = ql[u] - tk; m < ql[u]; ++m)
+          key = key << 2 | (__ldg(row[u] + m) & 3);
+        const int2 e = __ldg(table + key);
+        lo[u] = e.x;
+        hi[u] = e.y;
+        t[u] = tk;
+      }
+    }
+    for (bool more = true; more;) {
+      more = false;
+#pragma unroll
+      for (int u = 0; u < QPT; ++u) {
+        const int k = ql[u] - 1 - t[u];
+        if (t[u] >= L || k < 0 || hi[u] <= lo[u]) continue;
+        const int s = __ldg(row[u] + min(k, L - 1)) & 3;
+        const uint64_t f0 = (s & 1) ? 0ull : ~0ull;
+        const uint64_t f1 = (s & 2) ? 0ull : ~0ull;
+        const int c = __ldg(C + s + 1);
+        lo[u] = c + occ(rec, primary, s, f0, f1, lo[u]);
+        hi[u] = c + occ(rec, primary, s, f0, f1, hi[u]);
+        ++t[u];
+        more = true;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < QPT; ++u) {
+      const int q = first + u * threads;
+      if (q < S) {
+        lo_out[q] = lo[u];
+        hi_out[q] = hi[u];
+      }
+    }
   }
-  lo_out[q] = lo;
-  hi_out[q] = hi;
 }
 
 }  // namespace
 
-// p0 / p1: [W] uint32 bit-planes; ckpt: [4, NB] int32; C: [6] int32;
-// primary: the sentinel's row; n: BWT length (text + sentinel); queries:
-// [S, L] uint8 codes (only the low 2 bits are read), row q at queries + q
-// * qs bytes; qlen: [S] int32; lo / hi: [S] int32 SA ranges (hi <= lo: no
-// match).  S must be at least 1.  Launches on `stream` without
-// synchronising; returns cudaGetLastError().
-extern "C" int fm_search_launch(const void* p0, const void* p1, int W,
-                                const void* ckpt, int NB, const void* C,
-                                int primary, int n, const void* queries,
-                                int L, long long qs, const void* qlen, int S,
-                                void* lo, void* hi, void* stream) {
-  if (S < 1 || L < 0 || W < 1 || NB < 1)
+// rec: [NB, 8] int32 records (16-byte aligned); C: [6] int32; primary: the
+// sentinel's row; n: BWT length (text + sentinel); table: [4^tk] int2
+// (lo, hi) (unread where tk = 0); queries: [S, L] uint8 codes (only the
+// low 2 bits are read), row q at queries + q * qs bytes; qlen: [S] int32;
+// lo / hi: [S] int32 SA ranges (hi <= lo: no match).  S must be at least
+// 1, tk 0-15.  Launches on `stream` without synchronising; returns the
+// first CUDA error.
+extern "C" int fm_search_launch(const void* rec, int NB, const void* C,
+                                int primary, int n, const void* table, int tk,
+                                const void* queries, int L, long long qs,
+                                const void* qlen, int S, void* lo, void* hi,
+                                void* stream) {
+  if (S < 1 || L < 0 || NB < 1 || tk < 0 || tk > 15 || (tk && !table))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((S + kThreads - 1) / kThreads);
-  fm_search_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(p0), static_cast<const uint32_t*>(p1), W,
-      static_cast<const int*>(ckpt), NB, static_cast<const int*>(C), primary,
-      n, static_cast<const uint8_t*>(queries), L, qs,
-      static_cast<const int*>(qlen), S, static_cast<int*>(lo),
-      static_cast<int*>(hi));
+  int wave = 0;   // blocks the card holds at once (every QPT's shape)
+  const cudaError_t e =
+      bitlcs::wave_blocks(fm_search_kernel<4>, kThreads, 0, wave);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long resident = static_cast<long long>(wave) * kThreads;
+  const int qpt = S <= resident ? 1 : S <= 2 * resident ? 2 : 4;
+  const long long blocks = std::min<long long>(
+      (S + static_cast<long long>(qpt) * kThreads - 1) / (qpt * kThreads),
+      wave);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* r = static_cast<const int4*>(rec);
+  const auto* c = static_cast<const int*>(C);
+  const auto* tb = static_cast<const int2*>(table);
+  const auto* qu = static_cast<const uint8_t*>(queries);
+  const auto* ql = static_cast<const int*>(qlen);
+  auto* l = static_cast<int*>(lo);
+  auto* h = static_cast<int*>(hi);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  if (qpt == 1)
+    fm_search_kernel<1><<<grid, kThreads, 0, st>>>(r, c, primary, n, tb, tk,
+                                                   qu, L, qs, ql, S, l, h);
+  else if (qpt == 2)
+    fm_search_kernel<2><<<grid, kThreads, 0, st>>>(r, c, primary, n, tb, tk,
+                                                   qu, L, qs, ql, S, l, h);
+  else
+    fm_search_kernel<4><<<grid, kThreads, 0, st>>>(r, c, primary, n, tb, tk,
+                                                   qu, L, qs, ql, S, l, h);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,8 +9,9 @@ prefix filter, word-histogram filter, bit-parallel LCS accept) -> reps.
 
 The host preparation (`_prepare`) is the JAX package's numpy, copied.
 On the device: the prefix and word filters of the speculative path as
-torch ops (the word min-sum as K 0/1 indicator products), and the LCS
-accept as `ops/lcs.lcs_accept` (`csrc/cluster_lcs.cu` on the card).
+`ops/cluster_filter.window_filters` (`csrc/cluster_filter.cu` on the
+card, one launch a window), and the LCS accept as `ops/lcs.lcs_accept`
+(`csrc/cluster_lcs.cu` on the card).
 `speculate > 1` is the CDP tree's speculative multi-representative
 batching (func.cu:722-820): S consecutive unclustered candidates are
 representatives of one device pass, and conflicts resolve so that the
@@ -23,7 +24,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from genomics_tpu_torch.device import checked_device, on_cpu
+from genomics_tpu_torch.device import checked_device
+from genomics_tpu_torch.ops.cluster_filter import pack_words, window_filters
 from genomics_tpu_torch.ops.lcs import lcs_accept, pad_codes
 from genomics_tpu_torch.utils.fasta import read_fasta
 
@@ -57,8 +59,8 @@ class _Prepped:
     low: np.ndarray            # [N, W32] packed low bit-planes
     high: np.ndarray           # [N, W32]
     codes: np.ndarray          # [N, Lmax] de-gapped 2-bit codes (pad 255)
-    dense_dev: object = None   # lazily-built [N, 4^wl] device word counts
-    dense_k: int = 0           # max word multiplicity (product term count)
+    dense_k: int = 0           # max word multiplicity, -1: host filters
+    #                            (0: not computed yet)
     aux_dev: dict = None       # device-resident prefix/cutoff/LCS arrays
 
 
@@ -295,107 +297,20 @@ def _lcs(aux: dict, rp, jb, max_words: int, gate=None) -> torch.Tensor:
                       aux["bcut"], rp, jb, gate, max_words=max_words)
 
 
-def word_min_sum_plain(Dreps, Djobs, K: int) -> torch.Tensor:
-    """[S, J] int32: sum over the bins of min(Dreps[s], Djobs[j]) as the
-    JAX package's `_word_min_sum` (cluster.py:374) computes it: min(a, b)
-    over counts of at most K is sum_{k=1..K} [a >= k] [b >= k], so the
-    min-sum is one product of the K indicator matrices laid side by side.
-    In f64, exact on any device whatever the matmul flags (sums below
-    2^53)."""
-    A = _indicators(Dreps, K).double()
-    B = _indicators(Djobs, K).double()
-    return (A @ B.T).to(torch.int32)
-
-
-def word_min_sum(Dreps, Djobs, K: int) -> torch.Tensor:
-    """`word_min_sum_plain` for CPU tensors; on the card the same product
-    as int8 x int8 -> int32 (`torch._int_mm`), exact whatever the global
-    matmul flags say (bf16 reductions, TF32).  A plain product outside
-    any hand kernel, as the JAX package leaves it to XLA."""
-    if on_cpu(Dreps):
-        return word_min_sum_plain(Dreps, Djobs, K)
-    S, J = Dreps.shape[0], Djobs.shape[0]
-    A = _indicators(Dreps, K)
-    B = _indicators(Djobs, K)
-    # _int_mm takes more than 16 rows and multiples of 8 elsewhere
-    A = _pad_to(A, max(24, _round8(S)), _round8(A.shape[1]))
-    B = _pad_to(B, _round8(J), _round8(B.shape[1]))
-    return torch._int_mm(A, B.T)[:S, :J]
-
-
-def _indicators(D, K: int) -> torch.Tensor:
-    """[rows, K * bins] int8: [D >= k] for k = 1..K, side by side."""
-    ks = torch.arange(1, K + 1, dtype=D.dtype, device=D.device)
-    return (D[:, None, :] >= ks[None, :, None]).reshape(
-        D.shape[0], -1).to(torch.int8)
-
-
-def _round8(n: int) -> int:
-    return (n + 7) // 8 * 8
-
-
-def _pad_to(x, rows: int, cols: int):
-    return torch.nn.functional.pad(x, (0, cols - x.shape[1],
-                                       0, rows - x.shape[0]))
-
-
-# Bytes of dense filter operands a chunk of job columns may take: the
-# gathered counts (1 a bin), the K indicator bytes a bin and the product's
-# f64 copies of them on the CPU (8 each): C3's byte budget.
-FILTER_BUDGET = 1 << 28
-
-
-def filter_chunk(bins: int, K: int) -> int:
-    """Job columns of one chunk of the dense filters under FILTER_BUDGET
-    (a multiple of 8, at least 8)."""
-    return max(8, FILTER_BUDGET // (bins * (1 + 9 * K)) // 8 * 8)
-
-
-def _filters_dev(D, prefix, wcut, bcut, rp, jp, K: int):
-    """Prefix filter (kernel_preFilter) + word filter (kernel_filter) on
-    the device, in chunks of job columns under FILTER_BUDGET (C3: the
-    JAX package builds the [J, 4^wl] operands whole).  Returns (pass2
-    [S, J] uint8, the [J] bool of columns any representative passes)."""
-    S, J = rp.shape[0], jp.shape[0]
-    rpl = rp.long()
-    pre_r = prefix[rpl][:, None, :]
-    D_r = D[rpl]
-    p2 = torch.empty((S, J), dtype=torch.uint8, device=D.device)
-    step = filter_chunk(D.shape[1], K)
-    for c0 in range(0, J, step):
-        jc = jp[c0:c0 + step].long()
-        pre = torch.minimum(pre_r, prefix[jc][None, :, :]).sum(-1)
-        p1 = pre >= bcut[jc][None, :]
-        got = word_min_sum(D_r, D[jc], K)
-        p2[:, c0:c0 + step] = p1 & (got >= wcut[jc][None, :])
-    return p2, p2.amax(dim=0) != 0
-
-
-_DENSE_MAX_BINS = 1 << 14   # wl <= 7; beyond that the dense matrix
-#                             and product flops outgrow the host gather
+_DENSE_MAX_BINS = 1 << 14   # wl <= 7, the JAX package's dense rule (the
+#                             kernel's tables: 8 rows a block at wl = 7)
 _DENSE_MAX_K = 8            # rare ultra-repetitive data: host filters
 
 
-def _dense_counts(p: _Prepped, wl: int, dev):
-    """Build (once) the device-resident dense word-count matrix; (None,
-    -1) where the data take the host filters (4^wl above 2^14 bins, or a
-    word repeated more than 8 times in a read)."""
-    if p.dense_dev is not None:
-        return p.dense_dev, p.dense_k
-    bins = 1 << (2 * wl)
-    K = int(p.word_counts.max()) if p.word_counts.size else 0
-    if bins > _DENSE_MAX_BINS or K > _DENSE_MAX_K or K == 0:
-        p.dense_k = -1
-        return None, -1
-    N = len(p.words)
-    D = np.zeros((N, bins), np.uint8)
-    rows = np.repeat(np.arange(N), p.words.shape[1])
-    # padding slots carry count 0; maximum.at keeps a real word-0 count
-    np.maximum.at(D, (rows, p.words.ravel()),
-                  np.minimum(p.word_counts, 255).astype(np.uint8).ravel())
-    p.dense_dev = torch.from_numpy(D).to(dev)
-    p.dense_k = K
-    return p.dense_dev, K
+def _dense_k(p: _Prepped, wl: int) -> int:
+    """The most times a word occurs in a read (K), or -1 where the data
+    take the host filters (4^wl above 2^14 bins, or a word repeated more
+    than 8 times in a read); computed once."""
+    if p.dense_k == 0:
+        K = int(p.word_counts.max()) if p.word_counts.size else 0
+        p.dense_k = (-1 if (1 << (2 * wl)) > _DENSE_MAX_BINS
+                     or K > _DENSE_MAX_K or K == 0 else K)
+    return p.dense_k
 
 
 def _aux_dev(p: _Prepped, dev) -> dict:
@@ -416,25 +331,37 @@ def _aux_dev(p: _Prepped, dev) -> dict:
     return p.aux_dev
 
 
+def _packed_dev(p: _Prepped, dev) -> torch.Tensor:
+    """The reads' packed words (`cluster_filter.pack_words`) on the
+    device, shipped once beside `_aux_dev`'s arrays."""
+    aux = _aux_dev(p, dev)
+    if "packed" not in aux:
+        aux["packed"] = torch.from_numpy(
+            pack_words(p.words, p.word_counts)).to(dev)
+    return aux["packed"]
+
+
 def _accept_matrix(p: _Prepped, reps: np.ndarray, jobs: np.ndarray, wl: int,
                    batch_cap: int, dev) -> np.ndarray:
     """[S, J] bool: does candidate rep s accept job j (filters + LCS).
 
-    The prefix + word filters run on the device in chunks (`_filters_dev`,
-    the word min-sum as indicator products), pass2 stays there, and the
-    LCS kernel runs on the columns any candidate passes, gated by pass2.
-    Data the dense matrix cannot represent (wl > 7 or a word multiplicity
-    above 8) take `_accept_matrix_host`: the rule is on the data."""
-    D, K = _dense_counts(p, wl, dev)
-    if D is None:
+    The prefix + word filters run on the device in one launch
+    (`cluster_filter.window_filters`: csrc/cluster_filter.cu on the card,
+    its plain version on the CPU), pass2 stays there, and the LCS kernel
+    runs on the columns any candidate passes, gated by pass2.  Data the
+    dense rule excludes (wl > 7 or a word multiplicity above 8) take
+    `_accept_matrix_host`: the rule is on the data."""
+    K = _dense_k(p, wl)
+    if K < 0:
         return _accept_matrix_host(p, reps, jobs, wl, batch_cap, dev)
     S, J = len(reps), len(jobs)
     acc = np.zeros((S, J), bool)
     aux = _aux_dev(p, dev)
     rp = _indices(reps, dev)
     jp = _indices(jobs, dev)
-    p2, anyv = _filters_dev(D, aux["prefix"], aux["wcut"], aux["bcut"], rp,
-                            jp, K)
+    p2, anyv = window_filters(_packed_dev(p, dev), aux["prefix"],
+                              aux["wcut"], aux["bcut"], rp, jp,
+                              1 << (2 * wl), K)
     cols = torch.nonzero(anyv)[:, 0]
     words = words_needed(p, reps)
     pend = []
@@ -447,9 +374,9 @@ def _accept_matrix(p: _Prepped, reps: np.ndarray, jobs: np.ndarray, wl: int,
 
 
 def _accept_matrix_host(p: _Prepped, reps, jobs, wl, batch_cap, dev):
-    """Host filters + device LCS: the path for data the dense matrix
-    cannot represent (wl > 7 / multiplicity > 8), and the exact oracle of
-    `_accept_matrix` in the tests."""
+    """Host filters + device LCS: the path for data the dense rule
+    (`_dense_k`) excludes (wl > 7 / multiplicity > 8), and the exact
+    oracle of `_accept_matrix` in the tests."""
     S, J = len(reps), len(jobs)
     acc = np.zeros((S, J), bool)
     pre = np.minimum(p.prefix[reps][:, None, :],

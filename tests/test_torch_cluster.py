@@ -1,7 +1,9 @@
 """The port's greedy clustering (`genomics_tpu_torch.models.cluster`,
 `ops/lcs.lcs_accept`'s plain version) against `genomics_tpu.models.cluster`
 on the CPU, integer-equal: `_prepare`'s arrays, the bit-parallel LCS
-(also against the DP gold), the device filters, the accept matrices,
+(also against the DP gold), the device filters (`ops/cluster_filter`'s
+plain version at the kernel's edges, and a lane-by-lane emulation of
+csrc/cluster_filter.cu), the accept matrices,
 `cluster_reads` serial and speculative, and the `cluster` subcommand's
 stdout and file."""
 import numpy as np
@@ -13,8 +15,10 @@ from genomics_tpu import __main__ as jcli
 from genomics_tpu.models import cluster as JC
 from genomics_tpu_torch import __main__ as tcli
 from genomics_tpu_torch.models import cluster as TC
+from genomics_tpu_torch.ops import cluster_filter as CF
 from genomics_tpu_torch.ops import lcs
 
+from chip_smoke import FILTER_EDGES, filter_edge_inputs
 from test_models_cluster import lcs_gold
 
 CPU = torch.device("cpu")
@@ -154,41 +158,227 @@ def test_word_min_sum_is_the_min_sum():
     Dr = rng.integers(0, 4, (5, 64)).astype(np.uint8)
     Dj = rng.integers(0, 4, (9, 64)).astype(np.uint8)
     want = np.minimum(Dr[:, None, :], Dj[None, :, :]).sum(-1)
-    got = TC.word_min_sum(torch.from_numpy(Dr), torch.from_numpy(Dj), 3)
+    got = CF.word_min_sum(torch.from_numpy(Dr), torch.from_numpy(Dj), 3)
     assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+
+
+def jax_filters(D, prefix, wcut, bcut, reps, jobs, K):
+    """The JAX _filters_dev's (p2, any column) over numpy inputs, the job
+    columns padded to a multiple of 8 (its bit packing) and cut back."""
+    J = len(jobs)
+    pad = np.concatenate([jobs, np.resize(jobs, -J % 8)])
+    p2, bits = JC._filters_dev(
+        jnp.asarray(D), jnp.asarray(prefix, jnp.int32),
+        jnp.asarray(wcut, jnp.int32), jnp.asarray(bcut, jnp.int32),
+        jnp.asarray(reps, jnp.int32), jnp.asarray(pad, jnp.int32), K)
+    anyv = np.unpackbits(np.asarray(bits), axis=1, bitorder="little")[0]
+    return np.asarray(p2)[:, :J], anyv[:J] != 0
+
+
+def port_filters(packed, prefix, wcut, bcut, reps, jobs, bins, K):
+    """The port's window_filters on CPU tensors, as numpy."""
+    p2, anyv = CF.window_filters(
+        torch.from_numpy(packed), *(torch.from_numpy(
+            np.ascontiguousarray(x, np.int32)) for x in (prefix, wcut, bcut,
+                                                         reps, jobs)),
+        bins, K)
+    assert p2.dtype == torch.uint8 and anyv.dtype == torch.bool
+    return p2.numpy(), anyv.numpy()
 
 
 @pytest.mark.parametrize("budget", [None, 1 << 12])
 def test_filters_match_jax(budget, monkeypatch):
-    """The port's _filters_dev == the JAX one (p2 and its any-column
-    vector), also in chunks of 8 job columns under a small byte budget
-    (C3)."""
+    """The port's window filters (the plain version on the CPU) == the JAX
+    _filters_dev (p2 and its any-column vector), also in chunks of 8 job
+    columns under a small byte budget (C3); the packed words' dense rows
+    == the JAX package's dense matrix."""
     if budget:
-        monkeypatch.setattr(TC, "FILTER_BUDGET", budget)
-        assert TC.filter_chunk(1 << 10, 2) == 8
+        monkeypatch.setattr(CF, "FILTER_BUDGET", budget)
+        assert CF.filter_chunk(1 << 10, 2) == 8
     seqs = families(np.random.default_rng(12), fam=5, per=4)
     wl = 5
     p = TC._prepare(seqs, 0.9, wl)
-    D, K = TC._dense_counts(p, wl, CPU)
-    aux = _aux(p)
+    K = TC._dense_k(p, wl)
+    packed = TC._packed_dev(p, CPU)
+    D = CF.dense_rows(packed, torch.arange(len(seqs)), 1 << 2 * wl)
     reps = np.array([0, 1, 5, 9, 13], np.int32)
     jobs = np.arange(2, len(seqs), dtype=np.int32)
     jp = JC._prepare(seqs, 0.9, wl)
     Dj, Kj = JC._dense_counts(jp, wl)
     assert Kj == K and np.array_equal(np.asarray(Dj), D.numpy())
-    jaux = JC._aux_dev(jp)
-    want_p2, want_bits = JC._filters_dev(
-        Dj, jaux["prefix"], jaux["wcut"], jaux["bcut"], jnp.asarray(reps),
-        jnp.asarray(np.concatenate([jobs, jobs[:-len(jobs) % 8]])), K)
-    want_p2 = np.asarray(want_p2)[:, : len(jobs)]
-    want_any = np.unpackbits(np.asarray(want_bits), axis=1,
-                             bitorder="little")[0, : len(jobs)]
-    p2, anyv = TC._filters_dev(D, aux["prefix"], aux["wcut"], aux["bcut"],
-                               torch.from_numpy(reps), torch.from_numpy(jobs),
-                               K)
-    assert np.array_equal(p2.numpy(), want_p2)
-    assert np.array_equal(anyv.numpy(), want_any != 0)
+    want_p2, want_any = jax_filters(Dj, jp.prefix, jp.word_cutoff,
+                                    jp.base_cutoff, reps, jobs, K)
+    p2, anyv = port_filters(packed.numpy(), p.prefix, p.word_cutoff,
+                            p.base_cutoff, reps, jobs, 1 << 2 * wl, K)
+    assert np.array_equal(p2, want_p2) and np.array_equal(anyv, want_any)
     assert want_p2.any() and not want_p2.all()
+
+
+@pytest.mark.parametrize("budget", [None, 1 << 12])
+@pytest.mark.parametrize("edge", FILTER_EDGES, ids=[e[0] for e in
+                                                    FILTER_EDGES])
+def test_filters_match_jax_at_the_kernels_edges(edge, budget, monkeypatch):
+    if budget:
+        monkeypatch.setattr(CF, "FILTER_BUDGET", budget)
+    _, wl, K, S, J = edge
+    words, counts, prefix, wcut, bcut, reps, jobs, D = filter_edge_inputs(
+        *edge)
+    want_p2, want_any = jax_filters(D, prefix, wcut, bcut, reps, jobs, K)
+    packed = CF.pack_words(words, counts)
+    p2, anyv = port_filters(packed, prefix, wcut, bcut, reps, jobs,
+                            1 << 2 * wl, K)
+    assert p2.shape == (S, J)
+    assert np.array_equal(p2, want_p2) and np.array_equal(anyv, want_any)
+    assert want_p2.any() and (J == 1 or not want_p2.all())
+
+
+def emulate_kernel(packed, prefix, wcut, bcut, reps, jobs, bins, warps=2,
+                   wave=8):
+    """csrc/cluster_filter.cu lane by lane in numpy: the blocks of each
+    group of R representatives (tables of 4^wl + ROW_PAD bytes zeroed,
+    then scattered), the tiles of 32 jobs each group of R lanes of `warps`
+    warps a block takes from its representatives' ticket in turn, each
+    group walking a job's words 16 slots at a time to the first slot of
+    count 0 (none where no lane passes the prefix filter), the lanes'
+    mins and sums in 16-bit halves (two slots a pair, folded every FOLD
+    quads), the lanes' 32-bit masks spread to bytes
+    (two 16-byte stores a full tile), the OR of a group's masks setting
+    any[].  The launch's blocks as the entry point counts them for a card
+    holding `wave` blocks.  Returns (pass2 [S, ldp] with 7 where nothing
+    was written, any [J])."""
+    S, J = len(reps), len(jobs)
+    lay = CF.filter_layout(torch.from_numpy(packed), *(torch.from_numpy(x)
+                           for x in (prefix, wcut, bcut, reps, jobs)), bins)
+    wq, R, ldp = lay[1], lay[9], lay[12]
+    flat = packed.view(np.uint32)
+    groups, tiles, per = -(-S // R), -(-J // CF.TILE), 32 // R
+    chunks = max(1, min(wave // groups, -(-tiles // (warps * per))))
+    pass2 = np.full((S, ldp), 7, np.uint8)
+    anyv = np.zeros(J, np.uint8)
+    tickets = [0] * groups
+    tables = {}
+    for block in range(groups * chunks):
+        g = block // chunks
+        tab = np.zeros((bins + CF.ROW_PAD) * R, np.uint8)
+        for i in range(R * 4 * wq):
+            r, k = divmod(i, 4 * wq)
+            if g * R + r < S:
+                v = int(flat[reps[g * R + r], k])
+                if v & 0xFFFF:
+                    tab[r * (bins + CF.ROW_PAD) + (v >> 16)] = min(
+                        v & 0xFFFF, 255)
+        tables[block] = tab
+    # every lane group of every block takes tickets in turn until its
+    # representatives' tiles run out
+    takers = [(block, warp, grp) for block in range(groups * chunks)
+              for warp in range(warps) for grp in range(per)]
+    while any(tickets[b // chunks] < tiles for b, _, _ in takers):
+        for block, _, _ in takers:
+            g = block // chunks
+            tile = tickets[g]
+            tickets[g] += 1
+            if tile >= tiles:
+                continue
+            tab = tables[block]
+            j0 = tile * CF.TILE
+            n = min(CF.TILE, J - j0)
+            masks = [0] * R
+            for t in range(n):
+                j = jobs[j0 + t]
+                pre = [int(np.minimum(prefix[reps[g * R + r]] if g * R + r
+                                      < S else np.zeros(4), prefix[j]).sum())
+                       for r in range(R)]
+                first = [x >= bcut[j] for x in pre]
+                for r in range(R):
+                    got = 0
+                    if any(first):          # else no lane can pass
+                        acc = 0
+                        for q in range(0, wq, 4):
+                            quads = [[int(v) for v in flat[j, 4 * u:4 * u + 4]]
+                                     for u in range(q, q + 4)]
+                            for a, b in (x for quad in quads
+                                         for x in (quad[:2], quad[2:])):
+                                row = r * (bins + CF.ROW_PAD)
+                                lo = min(int(tab[row + (a >> 16)]),
+                                         a & 0xFFFF)
+                                hi = min(int(tab[row + (b >> 16)]),
+                                         b & 0xFFFF)
+                                acc = (acc + (hi << 16 | lo)) & 0xFFFFFFFF
+                            if (q + 4) % CF.FOLD == 0:
+                                got += (acc & 0xFFFF) + (acc >> 16)
+                                acc = 0
+                            if quads[3][3] & 0xFFFF == 0:
+                                break
+                        got += (acc & 0xFFFF) + (acc >> 16)
+                    ok = first[r] and got >= wcut[j]
+                    masks[r] |= int(ok) << t
+            for r in range(R):
+                s, mask = g * R + r, masks[r]
+                if s >= S:
+                    mask = 0
+                elif n == CF.TILE:
+                    spread = [((mask >> 4 * i & 15) * 0x00204081)
+                              & 0x01010101 for i in range(8)]
+                    pass2[s, j0:j0 + 32] = np.array(
+                        spread, np.uint32).view(np.uint8)
+                else:
+                    pass2[s, j0:j0 + n] = [mask >> t & 1 for t in range(n)]
+                masks[r] = mask
+            hit = np.bitwise_or.reduce(masks)
+            for t in range(n):
+                if hit >> t & 1:
+                    anyv[j0 + t] = 1
+    return pass2, anyv
+
+
+@pytest.mark.parametrize("edge", FILTER_EDGES, ids=[e[0] for e in
+                                                    FILTER_EDGES])
+def test_kernel_emulation_matches_plain(edge):
+    """The kernel's lookup order, tiles, masks and any[] == the plain
+    version at its edges: every column below J written once, the row
+    padding untouched."""
+    _, wl, K, S, J = edge
+    words, counts, prefix, wcut, bcut, reps, jobs, _ = filter_edge_inputs(
+        *edge)
+    packed = CF.pack_words(words, counts)
+    want_p2, want_any = port_filters(packed, prefix, wcut, bcut, reps, jobs,
+                                     1 << 2 * wl, K)
+    p2, anyv = emulate_kernel(packed, prefix, wcut, bcut, reps, jobs,
+                              1 << 2 * wl)
+    assert np.array_equal(p2[:, :J], want_p2)
+    assert (p2[:, J:] == 7).all()
+    assert np.array_equal(anyv != 0, want_any)
+
+
+def test_filter_layout_and_rows():
+    """R (representatives a block): 32, halved below twice S and to the
+    shared memory (8 at wl = 7); tables of 4^wl + 4 bytes; pass2's rows
+    padded to 16 bytes, the work bytes any [J] and then a ticket a group
+    at byte ldp; packed rows of a multiple of 16 slots, word << 16 |
+    count."""
+    assert [CF.rep_rows(s, 4096) for s in (1, 2, 3, 5, 16, 17, 256)] == \
+        [1, 2, 4, 8, 16, 32, 32]
+    assert CF.rep_rows(256, 1 << 14) == 8 and CF.rep_rows(3, 1 << 14) == 4
+    with pytest.raises(ValueError, match="shared memory"):
+        CF.rep_rows(1, 1 << 18)
+    w = np.array([[3, 9, 0], [5, 0, 0]], np.uint16)
+    c = np.array([[1, 300, 0], [2, 0, 0]], np.uint16)
+    packed = CF.pack_words(w, c)
+    assert packed.shape == (2, 16) and packed.dtype == np.int32
+    assert list(packed.view(np.uint32)[0]) == [3 << 16 | 1, 9 << 16 | 255
+                                               ] + [0] * 14
+    z = torch.zeros(2, dtype=torch.int32)
+    lay = CF.filter_layout(torch.from_numpy(packed),
+                           torch.zeros((2, 4), dtype=torch.int32), z, z,
+                           torch.zeros(3, dtype=torch.int32),
+                           torch.zeros(17, dtype=torch.int32), 256)
+    assert len(lay) + 1 == len(CF._ARGS)
+    assert lay[1] == 4 and lay[6] == 3 and lay[8] == 17
+    assert lay[9:11] == (4, 256) and lay[11].shape == (3, 32)
+    assert lay[12] == 32 and lay[13].shape == (32 + 4 * 1,)
+    with pytest.raises(ValueError, match="packed"):
+        CF.filter_layout(torch.zeros((2, 8), dtype=torch.int32), *lay[2:6],
+                         lay[7], 256)
 
 
 @pytest.mark.parametrize("seed,threshold", [(13, 0.9), (14, 0.95)])
@@ -226,7 +416,7 @@ def test_wide_words_take_the_host_filters():
     same clustering as the JAX package's, serial and speculative."""
     seqs = families(np.random.default_rng(17), fam=3, per=3)
     p = TC._prepare(seqs, 0.95, 8)
-    assert TC._dense_counts(p, 8, CPU) == (None, -1)
+    assert TC._dense_k(p, 8) == -1
     for speculate in (1, 4):
         want = JC.cluster_reads(seqs, 0.95, word_length=8,
                                 speculate=speculate)

@@ -19,6 +19,7 @@ import torch
 
 from chip_smoke import (
     CLUSTER_SPEC,
+    FILTER_CARD_EDGES,
     FM_EDGE_SPECS,
     NW_EDGE_N,
     PAIRHMM_EDGE_B,
@@ -30,6 +31,7 @@ from chip_smoke import (
     cube_err,
     family_reads,
     fill_edges,
+    filter_edge_inputs,
     fm_edge_text,
     fm_queries,
     host_min_sum,
@@ -54,6 +56,7 @@ from genomics_tpu_torch.index.fmindex import FMIndex
 from genomics_tpu_torch.models import cluster, msa, ngia, nw, pairhmm, sw
 from genomics_tpu_torch.models.mapper import ReadMapper
 from genomics_tpu_torch.ops import (
+    cluster_filter,
     cuda_align,
     cuda_pairhmm,
     fm_search,
@@ -1656,7 +1659,7 @@ def test_fm_search_matches_plain_at_the_edges(cuda, spec):
                        device=cuda)
     wide[:, :q.shape[1]] = q
     lay = fm_search.fm_search_layout(idx, wide[:, :q.shape[1]], qlt)
-    assert lay[8].data_ptr() == wide.data_ptr() and lay[10] == q.shape[1] + 13
+    assert lay[7].data_ptr() == wide.data_ptr() and lay[9] == q.shape[1] + 13
     _assert_equal([g.cpu() for g in fm_search.launch_fm_search(lay)],
                   [w.cpu() for w in want])
 
@@ -1676,7 +1679,7 @@ def test_fm_search_launch_refuses_an_empty_grid(cuda):
     q = torch.zeros((1, 16), dtype=torch.uint8, device=cuda)
     lay = list(fm_search.fm_search_layout(
         idx, q, torch.ones(1, dtype=torch.int32, device=cuda)))
-    lay[12] = 0
+    lay[11] = 0
     with pytest.raises(RuntimeError, match="fm_search_launch failed"):
         fm_search.launch_fm_search(tuple(lay))
 
@@ -1739,21 +1742,63 @@ def test_word_min_sum_is_exact_under_reduced_precision_flags(cuda,
                         "allow_bf16_reduced_precision_reduction", True)
     reads = family_reads(np.random.default_rng(3), 1200, 140, 8, 6)
     p = cluster._prepare(reads, 0.95, 6)
-    D, K = cluster._dense_counts(p, 6, cuda)
+    packed, K = cluster._packed_dev(p, cuda), cluster._dense_k(p, 6)
     for S in (1, 7, 256):
         reps, jobs = np.arange(S), np.arange(S, S + 901)
-        got = cluster.word_min_sum(D[torch.from_numpy(reps).to(cuda)],
-                                   D[torch.from_numpy(jobs).to(cuda)], K)
+        got = cluster_filter.word_min_sum(*(cluster_filter.dense_rows(
+            packed, torch.from_numpy(x).to(cuda), 4096) for x in (reps, jobs)),
+            K)
         assert np.array_equal(got.cpu().numpy(),
                               host_min_sum(p, reps, jobs, 6))
+
+
+@pytest.mark.parametrize("edge", FILTER_CARD_EDGES,
+                         ids=[e[0] for e in FILTER_CARD_EDGES])
+def test_cluster_filter_matches_plain_at_the_edges(cuda, edge):
+    """chip_smoke's phase 3 for cluster_filter: one launch, pass2 and the
+    any-column flags == the plain version, also from inputs whose pass2
+    buffer held other bytes before (every column written)."""
+    _, wl, K, S, J = edge
+    words, counts, *rest, _ = filter_edge_inputs(*edge)
+    packed = torch.from_numpy(cluster_filter.pack_words(words, counts)).to(
+        cuda)
+    args = [torch.from_numpy(x).to(cuda) for x in rest]
+    before = cluster_filter.LAUNCHES["cluster_filter"]
+    got = cluster_filter.window_filters(packed, *args, 1 << 2 * wl, K)
+    assert cluster_filter.LAUNCHES["cluster_filter"] == before + 1
+    want = cluster_filter.window_filters_plain(packed, *args, 1 << 2 * wl, K)
+    _assert_equal([g.cpu() for g in got], [w.cpu() for w in want])
+    lay = cluster_filter.filter_layout(packed, *args, 1 << 2 * wl)
+    lay[11].fill_(7)
+    lay[13].fill_(7)
+    _assert_equal([g.cpu() for g in cluster_filter.launch_cluster_filter(
+        lay)], [w.cpu() for w in want])
+
+
+def test_cluster_filter_of_no_jobs_launches_nothing(cuda):
+    words, counts, *rest, _ = filter_edge_inputs("J=1", 6, 2, 12, 1)
+    packed = torch.from_numpy(cluster_filter.pack_words(words, counts)).to(
+        cuda)
+    prefix, wcut, bcut, rp, jp = (torch.from_numpy(x).to(cuda) for x in rest)
+    before = cluster_filter.LAUNCHES["cluster_filter"]
+    p2, anyv = cluster_filter.window_filters(packed, prefix, wcut, bcut, rp,
+                                             jp[:0], 4096, 2)
+    assert p2.shape == (12, 0) and anyv.shape == (0,)
+    p2, anyv = cluster_filter.window_filters(packed, prefix, wcut, bcut,
+                                             rp[:0], jp, 4096, 2)
+    assert p2.shape == (0, 1) and not anyv.any()
+    assert cluster_filter.LAUNCHES["cluster_filter"] == before
 
 
 @pytest.mark.parametrize("speculate", [1, CLUSTER_SPEC])
 def test_cluster_reads_on_the_card_matches_cpu(cuda, speculate):
     reads = family_reads(np.random.default_rng(4), 1500, 140, 8, 6)
     before = lcs.LAUNCHES["cluster_lcs"]
+    filters = cluster_filter.LAUNCHES["cluster_filter"]
     got = cluster.cluster_reads(reads, speculate=speculate, device=cuda)
     assert lcs.LAUNCHES["cluster_lcs"] > before
+    assert (cluster_filter.LAUNCHES["cluster_filter"] > filters) == (
+        speculate > 1)
     want = cluster.cluster_reads(reads, speculate=speculate, device="cpu")
     assert np.array_equal(got.cluster, want.cluster)
 

@@ -2,12 +2,16 @@
 SA-IS against prefix doubling, the host FMIndex (build arrays, rank,
 backward search, sa_values with a full and a sampled SA, locate, inexact
 and hybrid search, MEMs, SMEMs, save / load across the packages), the
-device index's arrays, and `backward_search_plain` against the JAX
-device search (jnp on the CPU) and the host search at the kernel's edges:
-texts of 1-4,096 bp with the sentinel at a block's first and last row,
-texts of one letter, queries of length 0-32 present and absent, every
-q-gram of a small text.  A line-for-line emulation of csrc/fm_search.cu's
-thread is held to the plain version too.  Tolerance zero."""
+device index's records (against the JAX package's planes and
+checkpoints) and suffix table (against the steps of the search), and
+`backward_search_plain` against the JAX device search (jnp on the CPU)
+and the host search at the kernel's edges: texts of 1-4,096 bp with the
+sentinel at a block's first and last row, texts of one letter, queries of
+length 0-32 present and absent, every q-gram of a small text.  A
+line-for-line emulation of csrc/fm_search.cu's thread, and of how its
+launch deals the queries to threads, is held to the plain version too.
+Tolerance zero."""
+import dataclasses
 import os
 
 import numpy as np
@@ -192,18 +196,30 @@ def test_index_files_load_in_either_package(tmp_path, sa_rate):
 @pytest.mark.parametrize("spec", FM_EDGE_SPECS,
                          ids=[spec[0] for spec in FM_EDGE_SPECS])
 def test_device_index_and_plain_search_match_jax_at_the_edges(spec):
+    """The records hold the JAX package's plane words (64 positions a
+    record, zeros past n) and its checkpoints (every second record's
+    counts), and the plain search over them and the suffix table == the
+    JAX device search == the host search."""
     codes = fm_edge_text(spec)
     fm = fmindex.FMIndex(codes)
     idx = fm.to_device(device="cpu")
     jidx = jfs.build_device_index(jfm.FMIndex(codes))
-    assert idx.p0.dtype == torch.int32 and idx.p0.device.type == "cpu"
-    np.testing.assert_array_equal(idx.p0.numpy().view(np.uint32),
-                                  np.asarray(jidx.p0))
-    np.testing.assert_array_equal(idx.p1.numpy().view(np.uint32),
-                                  np.asarray(jidx.p1))
-    np.testing.assert_array_equal(idx.ckpt.numpy(), np.asarray(jidx.ckpt))
+    assert idx.rec.dtype == torch.int32 and idx.rec.device.type == "cpu"
+    rec = idx.rec.numpy().view(np.uint32)
+    NB = (fm.n + 63) // 64 + 1
+    assert rec.shape == (NB, 8)
+    for plane, cols in ((jidx.p0, slice(4, 6)), (jidx.p1, slice(6, 8))):
+        words = rec[:, cols].ravel()
+        W = len(np.asarray(plane))
+        np.testing.assert_array_equal(words[:W], np.asarray(plane))
+        assert not words[W:].any()
+    ck = np.asarray(jidx.ckpt)
+    m = min(ck.shape[1], (NB + 1) // 2)
+    np.testing.assert_array_equal(rec[0::2, :4][:m].T, ck[:, :m])
     np.testing.assert_array_equal(idx.C.numpy(), np.asarray(jidx.C))
     assert idx.primary == int(jidx.primary) and idx.n == jidx.n
+    assert idx.tk == fm_search.table_k(fm.n)
+    assert idx.table.shape == ((4**idx.tk, 2) if idx.tk else (0, 2))
     Q, ql = fm_queries(np.random.default_rng(len(codes)), codes)
     lo, hi = fm_search.backward_search_device(idx, Q, ql)
     assert lo.dtype == np.int64 and hi.dtype == np.int64
@@ -212,6 +228,41 @@ def test_device_index_and_plain_search_match_jax_at_the_edges(spec):
     for got, want in ((lo, jlo), (hi, jhi), (lo, hlo), (hi, hhi)):
         np.testing.assert_array_equal(got, want)
     assert (lo[ql == 0] == 0).all() and (hi[ql == 0] == fm.n).all()
+
+
+@pytest.mark.parametrize("n,k", [(300, 1), (300, 5), (4096, 6), (5000, 6),
+                                 (129, 3)])
+def test_suffix_table_is_k_steps_of_the_search(n, k):
+    """Every entry of a table of k codes == k steps of the search of its
+    string with no table, ranges that emptied early included; a table of
+    tk codes then changes no search: queries of tk to L codes start from
+    it, shorter ones take the loop from (0, n), and the JAX search agrees
+    with both."""
+    rng = np.random.default_rng(n + k)
+    codes = rng.integers(0, 4, n).astype(np.uint8)
+    fm = fmindex.FMIndex(codes)
+    idx = fm.to_device(device="cpu")
+    bare = dataclasses.replace(idx, table=idx.table[:0], tk=0)
+    table = fm_search.suffix_table(bare, k)
+    keys = np.arange(4**k)
+    Q = ((keys[:, None] >> (2 * np.arange(k - 1, -1, -1))) & 3)
+    lo, hi = fm.backward_search(Q, np.full(4**k, k))
+    np.testing.assert_array_equal(table[:, 0].numpy(), lo)
+    np.testing.assert_array_equal(table[:, 1].numpy(), hi)
+    if 4**k > n:
+        assert (table[:, 1] <= table[:, 0]).any()   # some emptied early
+    Q, ql = fm_queries(rng, codes, S=200, L=20)
+    q = torch.from_numpy((Q & 3).astype(np.uint8))
+    stats = {}
+    got = fm_search.backward_search_plain(idx, q, torch.from_numpy(ql),
+                                          stats=stats)
+    want = fm_search.backward_search_plain(bare, q, torch.from_numpy(ql))
+    for g, w, h in zip(got, want, fm.backward_search(Q, ql)):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+        np.testing.assert_array_equal(g.numpy(), h)
+    tk = idx.tk
+    assert stats["lookups"] == int(((ql >= tk) & (ql <= 20)).sum()) > 0
+    assert stats["key_codes"] == tk * stats["lookups"]
 
 
 def test_plain_search_of_every_qgram_matches_counts():
@@ -236,44 +287,51 @@ def test_plain_search_of_every_qgram_matches_counts():
         assert all(i in p for i, p in enumerate(pos))
 
 
-def _kernel_thread(p0, p1, W, ckpt, NB, C, primary, n, row, L, ql,
-                   work=None):
+def _kernel_thread(rec, C, primary, n, table, tk, row, L, ql, work=None):
     """csrc/fm_search.cu's fm_search_kernel for one query, line for line:
-    the early exits, the words skipped at or past position i, the
-    sentinel's test.  With `work`, adds the steps, ranks and plane words
-    the thread reads to its counts."""
-    def occ(s, i):
+    the suffix table's key and entry, the early exits, one record a rank,
+    the sentinel's test.  With `work`, adds the steps, ranks, lookups and
+    key codes the thread reads to its counts."""
+    def occ(s, i, f0, f1):
         if work is not None:
             work["ranks"] += 1
-        k = i // 128
-        cnt = int(ckpt[s * NB + k])
-        f0 = 0 if s & 1 else 0xFFFFFFFF
-        f1 = 0 if s & 2 else 0xFFFFFFFF
-        for j in range(4):
-            w = k * 4 + j
-            rem = i - w * 32
-            if rem <= 0 or w >= W:
-                break
-            if work is not None:
-                work["words"] += 1
-            eq = (int(p0[w]) ^ f0) & (int(p1[w]) ^ f1)
-            m = 0xFFFFFFFF if rem >= 32 else (1 << rem) - 1
-            cnt += bin(eq & m).count("1")
-        if s == 0 and k * 128 <= primary < i:
+        k = i // 64
+        cnt = int(rec[k, s])
+        p0 = int(rec[k, 4]) | int(rec[k, 5]) << 32
+        p1 = int(rec[k, 6]) | int(rec[k, 7]) << 32
+        below = (1 << (i % 64)) - 1
+        cnt += bin((p0 ^ f0) & (p1 ^ f1) & below).count("1")
+        if s == 0 and k * 64 <= primary < i:
             cnt -= 1
         return cnt
 
-    lo, hi = 0, n
-    for t in range(L):
+    lo, hi, t = 0, n, 0
+    if tk > 0 and tk <= ql <= L:
+        key = 0
+        for m in range(ql - tk, ql):
+            key = key << 2 | (int(row[m]) & 3)
+        lo, hi, t = int(table[key, 0]), int(table[key, 1]), tk
+        if work is not None:
+            work["lookups"] += 1
+            work["key_codes"] += tk
+    while True:
         k = ql - 1 - t
-        if k < 0 or hi <= lo:
+        if t >= L or k < 0 or hi <= lo:
             break
         if work is not None:
             work["steps"] += 1
         s = int(row[min(k, L - 1)]) & 3
+        f0 = 0 if s & 1 else (1 << 64) - 1
+        f1 = 0 if s & 2 else (1 << 64) - 1
         c = int(C[s + 1])
-        lo, hi = c + occ(s, lo), c + occ(s, hi)
+        lo, hi = c + occ(s, lo, f0, f1), c + occ(s, hi, f0, f1)
+        t += 1
     return lo, hi
+
+
+def _thread_args(idx):
+    return (idx.rec.numpy().view(np.uint32), idx.C.numpy(), idx.primary,
+            idx.n, idx.table.numpy(), idx.tk)
 
 
 @pytest.mark.parametrize("spec", FM_EDGE_SPECS[::3],
@@ -285,21 +343,18 @@ def test_kernel_thread_emulation_matches_plain(spec):
     Q, ql = fm_queries(np.random.default_rng(3), codes, S=96, L=20)
     q = torch.from_numpy((Q & 3).astype(np.uint8))
     lo, hi = fm_search.fm_search(idx, q, torch.from_numpy(ql))
-    p0, p1 = (x.numpy().view(np.uint32) for x in (idx.p0, idx.p1))
-    ck = idx.ckpt.numpy().ravel()
     for s in range(len(ql)):
-        got = _kernel_thread(p0, p1, len(p0), ck, idx.ckpt.shape[1],
-                             idx.C.numpy(), idx.primary, idx.n, Q[s],
-                             Q.shape[1], int(ql[s]))
+        got = _kernel_thread(*_thread_args(idx), Q[s], Q.shape[1],
+                             int(ql[s]))
         assert got == (int(lo[s]), int(hi[s])), s
 
 
 @pytest.mark.parametrize("spec", FM_EDGE_SPECS[1::3],
                          ids=[spec[0] for spec in FM_EDGE_SPECS[1::3]])
 def test_plain_stats_count_the_kernels_work(spec):
-    """backward_search_plain(stats=) counts the steps, ranks and plane
-    words the kernel's threads read (the work chip_smoke's bound charges):
-    no word at or past a rank's position, none for lo = 0."""
+    """backward_search_plain(stats=) counts the steps, ranks (one record
+    each), table lookups and key codes the kernel's threads take (the
+    work chip_smoke's bound charges)."""
     codes = fm_edge_text(spec)
     idx = fmindex.FMIndex(codes).to_device(device="cpu")
     Q, ql = fm_queries(np.random.default_rng(4), codes, S=96, L=20)
@@ -307,14 +362,36 @@ def test_plain_stats_count_the_kernels_work(spec):
     fm_search.backward_search_plain(
         idx, torch.from_numpy((Q & 3).astype(np.uint8)),
         torch.from_numpy(ql), stats=stats)
-    p0, p1 = (x.numpy().view(np.uint32) for x in (idx.p0, idx.p1))
-    work = dict(steps=0, ranks=0, words=0)
+    work = dict(steps=0, ranks=0, lookups=0, key_codes=0)
     for s in range(len(ql)):
-        _kernel_thread(p0, p1, len(p0), idx.ckpt.numpy().ravel(),
-                       idx.ckpt.shape[1], idx.C.numpy(), idx.primary, idx.n,
-                       Q[s], Q.shape[1], int(ql[s]), work)
+        _kernel_thread(*_thread_args(idx), Q[s], Q.shape[1], int(ql[s]),
+                       work)
     assert stats == work
-    assert work["words"] <= 4 * work["ranks"]
+    assert work["ranks"] == 2 * work["steps"]
+
+
+@pytest.mark.parametrize("S", [1, 255, 256, 257, 1000, 2048, 2049, 5000])
+def test_launch_deals_every_query_once(S):
+    """The entry point's QPT (1, 2 or 4: the fewest that fit S into the
+    resident threads, else 4 with the threads looping) and grid, and the
+    kernel's slots (first + u x threads, then threads x QPT on): every
+    query in one slot, none twice, none past S; here for a card holding
+    4 blocks of 256 threads."""
+    threads_a_block, resident = 256, 1024
+    qpt = 1 if S <= resident else 2 if S <= 2 * resident else 4
+    blocks = min(-(-S // (qpt * threads_a_block)),
+                 resident // threads_a_block)
+    threads = blocks * threads_a_block
+    seen = np.zeros(S, np.int64)
+    for tid in range(threads):
+        first = tid
+        while first < S:
+            for u in range(qpt):
+                if first + u * threads < S:
+                    seen[first + u * threads] += 1
+            first += threads * qpt
+    assert (seen == 1).all()
+    assert blocks * threads_a_block * qpt >= min(S, qpt * resident)
 
 
 def test_fm_search_checks_its_inputs(monkeypatch):

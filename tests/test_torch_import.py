@@ -105,6 +105,7 @@ def test_every_entry_point_signature_matches_its_source():
     from genomics_tpu_torch import _build
     from genomics_tpu_torch.models import msa, nw, sw
     from genomics_tpu_torch.ops import (
+        cluster_filter,
         cuda_align,
         cuda_pairhmm,
         fm_search,
@@ -127,6 +128,7 @@ def test_every_entry_point_signature_matches_its_source():
     sigs["fm_search", "fm_search_launch"] = fm_search._ARGS
     sigs["cluster_lcs", "cluster_lcs_launch"] = lcs._CLUSTER_ARGS
     sigs["ngia_lcs", "ngia_lcs_launch"] = lcs._NGIA_ARGS
+    sigs["cluster_filter", "cluster_filter_launch"] = cluster_filter._ARGS
     assert {lib for lib, _ in sigs} == set(_build.KERNELS)
     for (lib, sym), argtypes in sigs.items():
         src = (_build.CSRC / f"{lib}.cu").read_text()

@@ -207,7 +207,7 @@ def test_fmdev_on_the_cpu_takes_the_plain_versions(genome, reads):
     before = fm_search.LAUNCHES["fm_search"], myers.LAUNCHES["myers"]
     tm = ReadMapper(genome, seeder="fmdev", device="cpu")
     tm.map_batch(reads[:6], two_stage="ed")
-    assert tm._dev_fm.p0.device.type == "cpu"
+    assert tm._dev_fm.rec.device.type == "cpu"
     assert (fm_search.LAUNCHES["fm_search"], myers.LAUNCHES["myers"]) == before
 
 

@@ -63,6 +63,7 @@ from chip_smoke import (  # noqa: E402
 from genomics_tpu_torch import _build  # noqa: E402
 from genomics_tpu_torch.models import cluster as TC  # noqa: E402
 from genomics_tpu_torch.models import ngia as TN  # noqa: E402
+from genomics_tpu_torch.ops import cluster_filter as CF  # noqa: E402
 from genomics_tpu_torch.ops import lcs  # noqa: E402
 from tools.tb_variants import build_variants  # noqa: E402
 
@@ -123,11 +124,11 @@ def cluster_launches(libs: dict, dev) -> tuple:
     reps = np.arange(CLUSTER_SPEC)
     jobs = np.arange(1, CLUSTER_READS)
     aux = TC._aux_dev(p, dev)
-    D, K = TC._dense_counts(p, wl, dev)
     rp = torch.from_numpy(reps.astype(np.int32)).to(dev)
     jp = torch.from_numpy(jobs.astype(np.int32)).to(dev)
-    p2, anyv = TC._filters_dev(D, aux["prefix"], aux["wcut"], aux["bcut"],
-                               rp, jp, K)
+    p2, anyv = CF.window_filters(TC._packed_dev(p, dev), aux["prefix"],
+                                 aux["wcut"], aux["bcut"], rp, jp,
+                                 1 << (2 * wl), TC._dense_k(p, wl))
     cols = torch.nonzero(anyv)[:, 0]
     jb, gate = jp[cols], p2[:, cols].contiguous()
     args = [aux[k] for k in ("low", "high", "net", "codes", "bcut")]
