@@ -1,0 +1,6 @@
+"""Active regions fully processed inside the untraced window, over its
+length (host clock)."""
+
+
+def read(run):
+    return run.host.counts["done"] / run.seconds
