@@ -712,7 +712,10 @@ def profile_paths(paths, smi: str):
             torch.cuda.synchronize()
         busy, kern = 0.0, {}
         for ev in prof.key_averages():
-            if not str(ev.device_type).endswith("CUDA"):
+            # the program's spans recur on the card's timeline as user
+            # annotations over the kernels they cover: not device work
+            if not str(ev.device_type).endswith("CUDA") \
+                    or ev.is_user_annotation:
                 continue
             us = ev.self_device_time_total
             busy += us

@@ -31,6 +31,7 @@ import numpy as np
 from genomics_tpu_torch.core.scoring import AlgoType, AlignmentParams
 from genomics_tpu_torch.ops import cuda_pairhmm
 from genomics_tpu_torch.runtime.dispatch import AlignEngine
+from genomics_tpu_torch.utils import profiling
 
 DEFAULT_KMER = 10            # haplotype_caller.h kmer_size
 K_BEST = 12                  # haplotype_caller.h k_best_haplotypes
@@ -156,16 +157,18 @@ def assemble_region(
 ) -> list[Haplotype]:
     """Build the graph from reference + reads and return the k-best
     haplotypes (reference path always included first)."""
-    g = DeBruijnGraph(k)
-    # reference edges get min_edge_weight so pruning keeps them
-    g.add_sequence(ref_window, is_ref=True, weight=min_edge_weight)
-    for r in reads:
-        g.add_sequence(r)
-    g.prune(min_edge_weight)
-    haps = g.k_best_paths(k_best)
-    if not any(h.seq == ref_window for h in haps):
-        haps.insert(0, Haplotype(seq=ref_window, graph_score=0.0))
-    return haps[:k_best]
+    with profiling.span("assembly.graph"):
+        g = DeBruijnGraph(k)
+        # reference edges get min_edge_weight so pruning keeps them
+        g.add_sequence(ref_window, is_ref=True, weight=min_edge_weight)
+        for r in reads:
+            g.add_sequence(r)
+        g.prune(min_edge_weight)
+    with profiling.span("assembly.paths"):
+        haps = g.k_best_paths(k_best)
+        if not any(h.seq == ref_window for h in haps):
+            haps.insert(0, Haplotype(seq=ref_window, graph_score=0.0))
+        return haps[:k_best]
 
 
 def score_haplotypes(
@@ -259,8 +262,16 @@ def local_assembly(
     `device`.
 
     Returns (haplotypes sorted by likelihood, variants of the best)."""
-    haps = assemble_region(ref_window, reads, k, k_best, min_edge_weight)
-    haps = score_haplotypes(haps, reads, device=device)
-    variants = (call_variants(ref_window, haps[0].seq, device=device)
-                if haps else [])
+    with profiling.span("assembly", batch=profiling.NEW) as sp:
+        haps = assemble_region(ref_window, reads, k, k_best, min_edge_weight)
+        with profiling.span("assembly.score"):
+            haps = score_haplotypes(haps, reads, device=device)
+        with profiling.span("assembly.call"):
+            variants = (call_variants(ref_window, haps[0].seq, device=device)
+                        if haps else [])
+        sp.count("assembly.regions")
+        sp.count("assembly.haplotypes", len(haps))
+        # a best haplotype other than the reference: one GLOBAL traceback
+        sp.count("assembly.calls",
+                 int(bool(haps) and haps[0].seq != ref_window))
     return haps, variants

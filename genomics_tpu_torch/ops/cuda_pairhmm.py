@@ -32,6 +32,7 @@ import torch
 from genomics_tpu_torch import _build
 from genomics_tpu_torch.ops import cuda_align, scan_pairhmm
 from genomics_tpu_torch.device import checked_device, on_cpu
+from genomics_tpu_torch.utils import profiling
 
 # Kernel launches; a wrapper adds one where it launches its kernel.
 LAUNCHES = {"pairhmm.intertask": 0, "pairhmm.wavefront": 0}
@@ -226,8 +227,17 @@ def pairhmm_forward(reads, haps, rlen, clen, base_quals, ins_quals,
 def pairhmm_forward_dataset(records, pad_r=None, pad_c=None, exact=True,
                             device="cuda"):
     """Parsed dataset records → numpy [B] f32 through the wavefront kernel
-    on `device` (`pairhmm_forward_tpu_dataset`)."""
-    t, p = scan_pairhmm.device_inputs(
-        scan_pairhmm.pack_records(records, pad_r, pad_c),
-        checked_device(device))
-    return pairhmm_forward_prepared(*t, p).cpu().numpy()
+    on `device` (`pairhmm_forward_tpu_dataset`).  On the card the copy
+    out waits for the kernel."""
+    with profiling.span("pairhmm.pack") as sp:
+        packed = scan_pairhmm.pack_records(records, pad_r, pad_c)
+        if sp:
+            sp.count("pairhmm.pairs", len(records))
+            sp.count("pairhmm.cells",
+                     int(packed[2].astype(np.int64) @ packed[3]))
+    with profiling.span("pairhmm.copy_in"):
+        t, p = scan_pairhmm.device_inputs(packed, checked_device(device))
+    with profiling.span("pairhmm.launch"):
+        lik = pairhmm_forward_prepared(*t, p)
+    with profiling.span("pairhmm.copy_out"):
+        return lik.cpu().numpy()

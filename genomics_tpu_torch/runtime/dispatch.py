@@ -47,6 +47,7 @@ from genomics_tpu_torch.ops import (
     scan_align_full,
     tb_walk,
 )
+from genomics_tpu_torch.utils import profiling
 
 MAX_PAIRS_PER_LAUNCH = 65536
 MAX_TB_BYTES = 1 << 32  # bound on one launch's traceback cube
@@ -111,6 +112,17 @@ def _codes(s) -> np.ndarray:
     if isinstance(s, (str, bytes)):
         return encode4(s)
     return np.asarray(s, np.uint8)
+
+
+class _Pending(list):
+    """A dispatched batch's chunks, (pair indices, device results) each,
+    with the event recorded after its last launch (None on the CPU) and
+    its batch id in the program's spans."""
+
+    def __init__(self, batch=None):
+        super().__init__()
+        self.batch = batch
+        self.event = None
 
 
 def walk_start(algo: AlgoType, tail: SemiGlobalSkip, res, qlen, tlen):
@@ -205,18 +217,26 @@ class AlignEngine:
 
     def _run_chunk(self, qb: np.ndarray, tb: np.ndarray, qlen: np.ndarray,
                    tlen: np.ndarray, h0: np.ndarray, has_n: bool) -> dict:
-        """Launch one chunk; returns device tensors: score, qend and tend
-        (None when score-only), walk = (cigars, n_ops, qstart, tstart) of
-        `tb_walk.walk_cigars`, starts = (qstart, tstart) from the start
-        pass and second = (score2, qend2, tend2), each None when not
-        asked for."""
+        """Copy one chunk to the device and launch it; returns device
+        tensors: score, qend and tend (None when score-only), walk =
+        (cigars, n_ops, qstart, tstart) of `tb_walk.walk_cigars`, starts =
+        (qstart, tstart) from the start pass and second = (score2, qend2,
+        tend2), each None when not asked for."""
+        ksw = self.params.algo == AlgoType.KSW
+        with profiling.span("dispatch.copy_in") as sp:
+            q = torch.from_numpy(qb).to(self.device)
+            t = torch.from_numpy(tb).to(self.device)
+            ql = torch.from_numpy(qlen).to(self.device)
+            tl = torch.from_numpy(tlen).to(self.device)
+            h = torch.from_numpy(h0).to(self.device) if ksw else None
+            sp.count("dispatch.bytes_in", qb.nbytes + tb.nbytes + qlen.nbytes
+                     + tlen.nbytes + (h0.nbytes if ksw else 0))
+        with profiling.span("dispatch.launch"):
+            return self._launch(q, t, ql, tl, h, has_n)
+
+    def _launch(self, q, t, ql, tl, h, has_n: bool) -> dict:
+        """The chunk's kernels on its device tensors; see _run_chunk."""
         p = self.params
-        q = torch.from_numpy(qb).to(self.device)
-        t = torch.from_numpy(tb).to(self.device)
-        ql = torch.from_numpy(qlen).to(self.device)
-        tl = torch.from_numpy(tlen).to(self.device)
-        h = (torch.from_numpy(h0).to(self.device) if p.algo == AlgoType.KSW
-             else None)
         out = dict(walk=None, starts=None, second=None)
         if self.second_best and not self.with_tb:
             # the inline second-best kernel gives the primary fields too
@@ -266,82 +286,119 @@ class AlignEngine:
 
     def _dispatch(self, queries, targets, h0=None):
         """Launch every chunk (the device runs ahead of the host);
-        returns the pending state for _collect."""
-        if len(queries) != len(targets):
-            raise ValueError(
-                f"queries/targets length mismatch: {len(queries)} vs "
-                f"{len(targets)}")
-        h0 = (np.zeros(len(queries), np.int32) if h0 is None
-              else np.asarray(h0, np.int32))
-        if h0.shape != (len(queries),):
-            raise ValueError(f"h0 needs one seed score per pair; got shape "
-                             f"{h0.shape} for {len(queries)} pairs")
-        enc_q = [_codes(s) for s in queries]
-        enc_t = [_codes(s) for s in targets]
-        groups: dict[tuple[int, int], list[int]] = {}
-        for i, (eq, et) in enumerate(zip(enc_q, enc_t)):
-            key = (_bucket_of(len(eq), self.buckets),
-                   _bucket_of(len(et), self.buckets))
-            groups.setdefault(key, []).append(i)
-        pending = []
-        for (lq, lt), idxs in groups.items():
-            step = self._chunk_pairs(lq, lt)
-            for pos in range(0, len(idxs), step):
-                chunk = idxs[pos:pos + step]
-                qb = np.full((len(chunk), lq), N4, np.uint8)
-                tb = np.full((len(chunk), lt), N4, np.uint8)
-                qlen = np.empty(len(chunk), np.int32)
-                tlen = np.empty(len(chunk), np.int32)
-                hb = h0[chunk]
-                for k, i in enumerate(chunk):
-                    qlen[k] = len(enc_q[i])
-                    tlen[k] = len(enc_t[i])
-                    qb[k, :qlen[k]] = enc_q[i]
-                    tb[k, :tlen[k]] = enc_t[i]
-                # the padding is N4 as well: a sequence holds an N iff the
-                # chunk has more N4 codes than pad cells
-                pads = qb.size + tb.size - int(qlen.sum()) - int(tlen.sum())
-                has_n = bool(np.count_nonzero(qb == N4)
-                             + np.count_nonzero(tb == N4) > pads)
-                pending.append(
-                    (chunk, self._run_chunk(qb, tb, qlen, tlen, hb, has_n)))
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-        return pending, len(queries), event
+        returns the pending state for _collect: the chunks, with the event
+        recorded after the last launch, and the number of pairs."""
+        with profiling.span("dispatch", batch=profiling.NEW) as sp:
+            if len(queries) != len(targets):
+                raise ValueError(
+                    f"queries/targets length mismatch: {len(queries)} vs "
+                    f"{len(targets)}")
+            h0 = (np.zeros(len(queries), np.int32) if h0 is None
+                  else np.asarray(h0, np.int32))
+            if h0.shape != (len(queries),):
+                raise ValueError(
+                    f"h0 needs one seed score per pair; got shape "
+                    f"{h0.shape} for {len(queries)} pairs")
+            with profiling.span("dispatch.encode"):
+                enc_q = [_codes(s) for s in queries]
+                enc_t = [_codes(s) for s in targets]
+            with profiling.span("dispatch.pack"):
+                groups: dict[tuple[int, int], list[int]] = {}
+                for i, (eq, et) in enumerate(zip(enc_q, enc_t)):
+                    key = (_bucket_of(len(eq), self.buckets),
+                           _bucket_of(len(et), self.buckets))
+                    groups.setdefault(key, []).append(i)
+            pending = _Pending(batch=sp.batch)
+            for (lq, lt), idxs in groups.items():
+                step = self._chunk_pairs(lq, lt)
+                for pos in range(0, len(idxs), step):
+                    chunk = idxs[pos:pos + step]
+                    with profiling.span("dispatch.pack"):
+                        qb, tb, qlen, tlen, has_n = self._pack(
+                            chunk, enc_q, enc_t, lq, lt)
+                    if sp:
+                        sp.count("dispatch.chunks")
+                        sp.count("dispatch.cells",
+                                 int(qlen.astype(np.int64) @ tlen))
+                        sp.count("dispatch.cells_launched",
+                                 len(chunk) * lq * lt)
+                    pending.append((chunk, self._run_chunk(
+                        qb, tb, qlen, tlen, h0[chunk], has_n)))
+            if self.device.type == "cuda":
+                pending.event = torch.cuda.Event()
+                pending.event.record(torch.cuda.current_stream(self.device))
+            sp.count("dispatch.batches")
+            sp.count("dispatch.pairs", len(queries))
+        return pending, len(queries)
+
+    @staticmethod
+    def _pack(chunk, enc_q, enc_t, lq: int, lt: int):
+        """A chunk's rows padded with N4 to the bucket's (lq, lt), their
+        lengths, and whether any sequence of it holds an N.  Drops the
+        chunk's codes from enc_q / enc_t, so they are freed here."""
+        qb = np.full((len(chunk), lq), N4, np.uint8)
+        tb = np.full((len(chunk), lt), N4, np.uint8)
+        qlen = np.empty(len(chunk), np.int32)
+        tlen = np.empty(len(chunk), np.int32)
+        for k, i in enumerate(chunk):
+            eq, et = enc_q[i], enc_t[i]
+            enc_q[i] = enc_t[i] = None
+            qlen[k] = len(eq)
+            tlen[k] = len(et)
+            qb[k, :qlen[k]] = eq
+            tb[k, :tlen[k]] = et
+        # the padding is N4 as well: a sequence holds an N iff the chunk
+        # has more N4 codes than pad cells
+        pads = qb.size + tb.size - int(qlen.sum()) - int(tlen.sum())
+        has_n = bool(np.count_nonzero(qb == N4)
+                     + np.count_nonzero(tb == N4) > pads)
+        return qb, tb, qlen, tlen, has_n
 
     def _collect(self, pending, n) -> list[AlignmentJob]:
-        """Copy results to the host (waits for the device) and build jobs."""
+        """Wait for the batch's event, copy the results to the host and
+        build the jobs."""
         out: list[AlignmentJob | None] = [None] * n
 
         def host(xs):
             return None if xs is None else [x.cpu().numpy() for x in xs]
 
-        for idxs, r in pending:
-            score = r["score"].cpu().numpy()
-            ends = None if r["qend"] is None else host((r["qend"], r["tend"]))
-            starts, second = host(r["starts"]), host(r["second"])
-            cigars = None
-            if r["walk"] is not None:
-                n_ops, *starts = host(r["walk"][1:])
-                cigars = r["walk"][0][:, :int(n_ops.max(initial=0))]
-                cigars = cigars.cpu().numpy()
-            for k, i in enumerate(idxs):
-                job = AlignmentJob(score=int(score[k]))
-                if ends is not None:
-                    job.query_end = int(ends[0][k])
-                    job.target_end = int(ends[1][k])
-                if cigars is not None:
-                    job.cigar = cigars[k, :n_ops[k]].copy()
-                if starts is not None:
-                    job.query_start = int(starts[0][k])
-                    job.target_start = int(starts[1][k])
-                if second is not None:
-                    job.score_second = int(second[0][k])
-                    job.query_end_second = int(second[1][k])
-                    job.target_end_second = int(second[2][k])
-                out[i] = job
+        with profiling.span("collect", batch=pending.batch) as sp:
+            with profiling.span("collect.wait"):
+                if pending.event is not None:
+                    pending.event.synchronize()
+            with profiling.span("collect.copy_out"):
+                chunks = []
+                for idxs, r in pending:
+                    score = r["score"].cpu().numpy()
+                    ends = (None if r["qend"] is None
+                            else host((r["qend"], r["tend"])))
+                    starts, second = host(r["starts"]), host(r["second"])
+                    cigars = n_ops = None
+                    if r["walk"] is not None:
+                        n_ops, *starts = host(r["walk"][1:])
+                        cigars = r["walk"][0][:, :int(n_ops.max(initial=0))]
+                        cigars = cigars.cpu().numpy()
+                    chunks.append((idxs, score, ends, starts, second, cigars,
+                                   n_ops))
+            with profiling.span("collect.jobs"):
+                for idxs, score, ends, starts, second, cigars, n_ops in \
+                        chunks:
+                    for k, i in enumerate(idxs):
+                        job = AlignmentJob(score=int(score[k]))
+                        if ends is not None:
+                            job.query_end = int(ends[0][k])
+                            job.target_end = int(ends[1][k])
+                        if cigars is not None:
+                            job.cigar = cigars[k, :n_ops[k]].copy()
+                        if starts is not None:
+                            job.query_start = int(starts[0][k])
+                            job.target_start = int(starts[1][k])
+                        if second is not None:
+                            job.score_second = int(second[0][k])
+                            job.query_end_second = int(second[1][k])
+                            job.target_end_second = int(second[2][k])
+                        out[i] = job
+            sp.count("collect.jobs", n)
         return out  # type: ignore[return-value]
 
     def align(self, queries: Sequence, targets: Sequence,
@@ -349,8 +406,7 @@ class AlignEngine:
         """Align pairs (str, bytes or uint8 code arrays); returns results
         in submission order.  h0: KSW's seed score per pair (default 0;
         the other algorithms ignore it)."""
-        pending, n, _event = self._dispatch(queries, targets, h0)
-        return self._collect(pending, n)
+        return self._collect(*self._dispatch(queries, targets, h0))
 
     def align_async(self, queries: Sequence, targets: Sequence,
                     h0: Sequence[int] | None = None) -> AsyncHandle:
@@ -360,8 +416,8 @@ class AlignEngine:
         >>> h2 = eng.align_async(q2, t2)   # prep + launch batch 2 meanwhile
         >>> r1, r2 = h1.result(), h2.result()
         """
-        pending, n, event = self._dispatch(queries, targets, h0)
-        return AsyncHandle(lambda: self._collect(pending, n), event)
+        pending, n = self._dispatch(queries, targets, h0)
+        return AsyncHandle(lambda: self._collect(pending, n), pending.event)
 
 
 class AsyncHandle:

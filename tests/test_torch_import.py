@@ -42,7 +42,7 @@ def test_imports_with_jax_blocked():
         "from genomics_tpu_torch.parallel import mesh, multihost\n"
         "from genomics_tpu_torch.models import alndiff, assembly, corrector\n"
         "from genomics_tpu_torch.index import bloom\n"
-        "from genomics_tpu_torch.utils import profiling, timers\n"
+        "from genomics_tpu_torch.utils import profiling\n"
         "assert 'genomics_tpu' not in sys.modules\n"
         "print(genomics_tpu_torch.AlignEngine.__name__)\n"
     )
@@ -66,7 +66,7 @@ def test_every_module_is_checked_for_jax_imports():
             "models/cluster.py", "models/ngia.py", "parallel/__init__.py",
             "parallel/mesh.py", "parallel/multihost.py",
             "models/corrector.py", "models/assembly.py",
-            "models/alndiff.py", "index/bloom.py", "utils/timers.py",
+            "models/alndiff.py", "index/bloom.py",
             "utils/profiling.py"} <= names
 
 

@@ -113,7 +113,7 @@ def test_engine_n_penalty_and_chunking_do_not_change_results(
     want = JEngine(jp, with_tb=True, use_pallas=False).align(qs, ts)
     monkeypatch.setattr(dispatch, cap, value)
     eng = AlignEngine(params_from_jax(jp), with_tb=True, device="cpu")
-    pending, n, _ = eng._dispatch(qs, ts)
+    pending, n = eng._dispatch(qs, ts)
     assert len(pending) > 6                # more chunks than buckets
     assert max(len(idxs) for idxs, _ in pending) <= max_chunk
     _assert_jobs_equal(eng._collect(pending, n), want)
