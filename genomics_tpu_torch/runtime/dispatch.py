@@ -5,7 +5,9 @@ The counterpart of `genomics_tpu/runtime/dispatch.py`.  `AlignEngine`:
 
 1. buckets jobs by padded (query_len, target_len), padding with N4
    (`default_buckets`/`_bucket_of` are the JAX engine's, so both engines
-   make the same buckets);
+   make the same buckets), a batch at a time: one sort groups its pairs,
+   and a chunk's rows come from one join of its bytes or one concatenate
+   of its code arrays, with no Python loop over the pairs;
 2. launches one kernel per bucket on `device` (chunks of at most
    MAX_PAIRS_PER_LAUNCH pairs, fewer where the traceback cube would pass
    MAX_TB_BYTES; results do not depend on the chunking);
@@ -108,10 +110,53 @@ def _pack_nibbles_np(nibs: np.ndarray) -> np.ndarray:
     return (r << shifts[None, None, :, None]).sum(axis=2).astype(np.int32)
 
 
-def _codes(s) -> np.ndarray:
-    if isinstance(s, (str, bytes)):
-        return encode4(s)
-    return np.asarray(s, np.uint8)
+def _buckets_of(lens: np.ndarray, edges) -> np.ndarray:
+    """`_bucket_of` over an array of lengths, as int64.  The first edge
+    at least n is where the edges' running maximum first reaches n, so a
+    search of that maximum gives it for edges in any order."""
+    top = np.maximum.accumulate(np.asarray(edges, np.int64))
+    lens = np.asarray(lens, np.int64)
+    pos = np.searchsorted(top, lens)
+    out = top.take(pos, mode="clip")
+    past = pos == len(top)
+    if past.any():
+        out[past] = _round_up(lens[past], 8)
+    return out
+
+
+class _Side:
+    """One side of a batch (its queries or its targets): the items, their
+    lengths [N] int32, and whether its rows take the joined route.  That
+    route holds ASCII bytes and is taken when every item is str or bytes
+    (str encoded here); otherwise the items are code arrays, used as they
+    are, with any str or bytes item encoded first."""
+
+    def __init__(self, seqs):
+        kinds = set(map(type, seqs))
+        text = [issubclass(k, (str, bytes)) for k in kinds]
+        self.joined = all(text)
+        if self.joined and not all(issubclass(k, bytes) for k in kinds):
+            seqs = [s.encode() if isinstance(s, str) else s for s in seqs]
+        elif not self.joined and any(text):
+            seqs = [encode4(s) if isinstance(s, (str, bytes)) else s
+                    for s in seqs]
+        self.seqs = seqs
+        self.lens = np.fromiter(map(len, seqs), np.int32, len(seqs))
+
+    def padded(self, chunk: np.ndarray, rows: list, width: int):
+        """The chunk's rows as [len(rows), width] uint8 codes padded with
+        N4, and their lengths.  Joined rows are padded with 'N' before the
+        one encode (ord('N') & 0xF == N4); code rows go into an N4-filled
+        array by a mask of their lengths."""
+        lens = self.lens[chunk]
+        items = list(map(self.seqs.__getitem__, rows))
+        if self.joined:
+            buf = b"".join([s.ljust(width, b"N") for s in items])
+            codes = np.frombuffer(buf, np.uint8) & 0xF
+            return codes.reshape(len(rows), width), lens
+        codes = np.full((len(rows), width), N4, np.uint8)
+        codes[np.arange(width) < lens[:, None]] = np.concatenate(items)
+        return codes, lens
 
 
 class _Pending(list):
@@ -289,64 +334,64 @@ class AlignEngine:
         returns the pending state for _collect: the chunks, with the event
         recorded after the last launch, and the number of pairs."""
         with profiling.span("dispatch", batch=profiling.NEW) as sp:
-            if len(queries) != len(targets):
+            n = len(queries)
+            if n != len(targets):
                 raise ValueError(
-                    f"queries/targets length mismatch: {len(queries)} vs "
+                    f"queries/targets length mismatch: {n} vs "
                     f"{len(targets)}")
-            h0 = (np.zeros(len(queries), np.int32) if h0 is None
+            h0 = (np.zeros(n, np.int32) if h0 is None
                   else np.asarray(h0, np.int32))
-            if h0.shape != (len(queries),):
+            if h0.shape != (n,):
                 raise ValueError(
                     f"h0 needs one seed score per pair; got shape "
-                    f"{h0.shape} for {len(queries)} pairs")
+                    f"{h0.shape} for {n} pairs")
             with profiling.span("dispatch.encode"):
-                enc_q = [_codes(s) for s in queries]
-                enc_t = [_codes(s) for s in targets]
+                q, t = _Side(queries), _Side(targets)
+                lq, lt = _buckets_of(np.stack((q.lens, t.lens)), self.buckets)
+                # one stable sort groups the pairs by (lq, lt), each group
+                # in submission order; the groups go in the order of (lq, lt)
+                key = (lq << 32) | lt
+                order = np.argsort(key, kind="stable")
+                key = key[order]
+                cuts = (np.flatnonzero(key[1:] != key[:-1]) + 1).tolist()
             with profiling.span("dispatch.pack"):
-                groups: dict[tuple[int, int], list[int]] = {}
-                for i, (eq, et) in enumerate(zip(enc_q, enc_t)):
-                    key = (_bucket_of(len(eq), self.buckets),
-                           _bucket_of(len(et), self.buckets))
-                    groups.setdefault(key, []).append(i)
+                # each group cut into chunks: (pair indices, lq, lt)
+                chunks = []
+                for a, b in zip([0, *cuts] if n else [], [*cuts, n]):
+                    shape = int(lq[order[a]]), int(lt[order[a]])
+                    step = self._chunk_pairs(*shape)
+                    chunks += [(order[c:min(c + step, b)], *shape)
+                               for c in range(a, b, step)]
             pending = _Pending(batch=sp.batch)
-            for (lq, lt), idxs in groups.items():
-                step = self._chunk_pairs(lq, lt)
-                for pos in range(0, len(idxs), step):
-                    chunk = idxs[pos:pos + step]
-                    with profiling.span("dispatch.pack"):
-                        qb, tb, qlen, tlen, has_n = self._pack(
-                            chunk, enc_q, enc_t, lq, lt)
-                    if sp:
-                        sp.count("dispatch.chunks")
-                        sp.count("dispatch.cells",
-                                 int(qlen.astype(np.int64) @ tlen))
-                        sp.count("dispatch.cells_launched",
-                                 len(chunk) * lq * lt)
-                    pending.append((chunk, self._run_chunk(
-                        qb, tb, qlen, tlen, h0[chunk], has_n)))
+            for chunk, lq_c, lt_c in chunks:
+                with profiling.span("dispatch.pack"):
+                    idxs = chunk.tolist()
+                    qb, tb, qlen, tlen, has_n = self._pack(
+                        chunk, idxs, q, t, lq_c, lt_c)
+                if sp:
+                    sp.count("dispatch.chunks")
+                    sp.count("dispatch.cells",
+                             int(qlen.astype(np.int64) @ tlen))
+                    sp.count("dispatch.cells_launched",
+                             len(idxs) * lq_c * lt_c)
+                pending.append((idxs, self._run_chunk(
+                    qb, tb, qlen, tlen, h0[chunk], has_n)))
             if self.device.type == "cuda":
                 pending.event = torch.cuda.Event()
                 pending.event.record(torch.cuda.current_stream(self.device))
             sp.count("dispatch.batches")
-            sp.count("dispatch.pairs", len(queries))
-        return pending, len(queries)
+            sp.count("dispatch.pairs", n)
+            sp.count("dispatch.pairs_joined",
+                     n if q.joined and t.joined else 0)
+        return pending, n
 
     @staticmethod
-    def _pack(chunk, enc_q, enc_t, lq: int, lt: int):
+    def _pack(chunk, idxs, q: _Side, t: _Side, lq: int, lt: int):
         """A chunk's rows padded with N4 to the bucket's (lq, lt), their
-        lengths, and whether any sequence of it holds an N.  Drops the
-        chunk's codes from enc_q / enc_t, so they are freed here."""
-        qb = np.full((len(chunk), lq), N4, np.uint8)
-        tb = np.full((len(chunk), lt), N4, np.uint8)
-        qlen = np.empty(len(chunk), np.int32)
-        tlen = np.empty(len(chunk), np.int32)
-        for k, i in enumerate(chunk):
-            eq, et = enc_q[i], enc_t[i]
-            enc_q[i] = enc_t[i] = None
-            qlen[k] = len(eq)
-            tlen[k] = len(et)
-            qb[k, :qlen[k]] = eq
-            tb[k, :tlen[k]] = et
+        lengths, and whether any sequence of it holds an N.  `chunk` holds
+        the pair indices, `idxs` the same as a list."""
+        qb, qlen = q.padded(chunk, idxs, lq)
+        tb, tlen = t.padded(chunk, idxs, lt)
         # the padding is N4 as well: a sequence holds an N iff the chunk
         # has more N4 codes than pad cells
         pads = qb.size + tb.size - int(qlen.sum()) - int(tlen.sum())
